@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py          # from the repository root, one CUDA card
+
+Phases (any failure raises and the script exits non-zero):
+  1. build   — compile every kernel in src/repro_torch/kernels/csrc with nvcc
+               (sm_90a), one process per source, in parallel;
+  2. kernels — hold each CUDA kernel against its plain PyTorch version on the
+               card (K1 spec_attention: f32 2e-5, bf16 2e-2; K2 ngram_match:
+               bit-exact) and time kernel, plain version, library call;
+  3. serve   — StableLM-2-1.6B at full width, bf16, seeded random weights:
+               a mixed-strategy ServingEngine builds its n-gram tables and
+               serves 8 requests; the kernels' launch counts show the path
+               went through them; a greedy engine serves the same requests;
+               a few steps of each run under torch.profiler (device-busy
+               share, top kernels);
+  4. lossless— the same model in f32 (no TF32): the mixed engine's outputs
+               equal greedy_reference token for token.
+The last two lines of stdout are the card's name and power limit and
+``{"ok": true, "device": {...}}``; the line before them is the kernels'
+JSON record.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
+              "float32": 67e12}      # float32 outside the tensor cores
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+SERVE_K, SERVE_W, SERVE_NEW, SERVE_BUCKET = 10, 10, 64, 256
+LOSSLESS_REQUESTS, LOSSLESS_NEW = 4, 32
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events, after warmup."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def k1_inputs(B, K, W1, H, KV, hd, S, cur_len, dtype, seed, s_pad=0):
+    """Engine-layout K1 operands; caches are a view into a longer buffer
+    when ``s_pad`` > 0, so that the kernel's strided cache reads are held
+    too."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda",
+                                    dtype=torch.float32).to(dtype)
+    q = rn(B, K, W1, H, hd)
+    kc = rn(B, S + s_pad, KV, hd)[:, :S]
+    vc = rn(B, S + s_pad, KV, hd)[:, :S]
+    kt, vt = rn(B, K, W1, KV, hd), rn(B, K, W1, KV, hd)
+    cl = torch.as_tensor(cur_len, dtype=torch.int32, device="cuda")
+    return q, kc, vc, kt, vt, cl
+
+
+def k1_bound_ms(q, kc, kt, cur_len, W1) -> tuple:
+    """Least time for K1's work on these inputs: q, the committed cache rows
+    (k and v), the tails and the output moved once; 4*hd flops per (query
+    row, visible key)."""
+    B, K, _, H, hd = q.shape
+    S, KV = kc.shape[1], kc.shape[2]
+    elt = q.element_size()
+    n_keys = cur_len.clamp(0, S).long().cpu()
+    kw1 = K * W1
+    tail_keys = kw1 * (W1 + 1) // 2                 # sum over rows of t+1
+    bytes_ = (2 * q.numel() * elt + 2 * kt.numel() * elt
+              + int(n_keys.sum()) * KV * hd * 2 * elt + 4 * B)
+    flops = 4 * hd * H * (kw1 * int(n_keys.sum()) + B * tail_keys)
+    peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def sdpa_yardstick(q, kc, vc, kt, vt, cur_len, W1):
+    """One scaled_dot_product_attention call computing K1's function on the
+    same inputs (boolean mask over [cache | tail]); timed as a yardstick,
+    never called by the port.  Returns (fn, output in engine layout)."""
+    import torch
+    import torch.nn.functional as F
+    B, K, _, H, hd = q.shape
+    S, KV = kc.shape[1], kc.shape[2]
+    kw1 = K * W1
+    G = H // KV
+    qs = q.reshape(B, kw1, H, hd).transpose(1, 2)
+    keys = torch.cat([kc.transpose(1, 2), kt.reshape(B, kw1, KV, hd)
+                      .transpose(1, 2)], dim=2).repeat_interleave(G, dim=1)
+    vals = torch.cat([vc.transpose(1, 2), vt.reshape(B, kw1, KV, hd)
+                      .transpose(1, 2)], dim=2).repeat_interleave(G, dim=1)
+    i = torch.arange(kw1, device="cuda")
+    tail = ((i[:, None] // W1) == (i[None, :] // W1)) \
+        & ((i[None, :] % W1) <= (i[:, None] % W1))
+    cache = torch.arange(S, device="cuda")[None, :] < cur_len[:, None].long()
+    mask = torch.cat([cache[:, None, :].expand(B, kw1, S),
+                      tail[None].expand(B, kw1, kw1)], dim=2)[:, None]
+    fn = lambda: F.scaled_dot_product_attention(qs, keys, vals,
+                                                attn_mask=mask)
+    out = fn().transpose(1, 2).reshape(B, K, W1, H, hd)
+    return fn, out
+
+
+def close(out, want, tol) -> tuple:
+    diff = (out.float() - want.float()).abs()
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    return ok, float(diff.max())
+
+
+def phase_kernels(S_main: int, cur_main: list) -> dict:
+    import torch
+    from repro_torch.kernels.ngram_match import (ngram_match_cuda,
+                                                 ngram_match_plain)
+    from repro_torch.kernels.spec_attention import (spec_attention_cuda,
+                                                    spec_attention_plain)
+    rec = {}
+    # ---- K1 ----
+    cases = [  # name, B, K, W1, H, KV, hd, S, cur_len, s_pad
+        ("main verify", 8, SERVE_K, SERVE_W + 1, 32, 32, 64, S_main,
+         cur_main, 0),
+        ("main decode", 8, 1, 1, 32, 32, 64, S_main, cur_main, 0),
+        ("S=2048 ragged", 8, SERVE_K, SERVE_W + 1, 32, 32, 64, 2048,
+         [2000, 1, 777, 1500, 64, 1999, 0, 1024], 0),
+        ("GQA strided cache", 4, 4, 5, 32, 8, 128, 700,
+         [700, 0, 333, 65], 37),
+        ("MQA hd=256", 2, 3, 4, 32, 1, 256, 300, [299, 130], 0),
+        ("k=25 empty cache", 2, 25, 11, 8, 4, 64, 512, [0, 0], 0),
+        ("k=25 multi-tile", 2, 25, 11, 8, 2, 96, 1024, [1024, 513], 0),
+        ("w=40 hd=80 cur>S", 2, 2, 41, 4, 2, 80, 200, [205, 7], 0),
+    ]
+    k1_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for name, B, K, W1, H, KV, hd, S, cl, pad in cases:
+            ops = k1_inputs(B, K, W1, H, KV, hd, S, cl, dtype,
+                            seed=B * 1000 + K * 10 + hd, s_pad=pad)
+            out = spec_attention_cuda(*ops, w1=W1)
+            want = spec_attention_plain(*ops, w1=W1)
+            sync()
+            ok, err = close(out, want, TOL[dname])
+            k1_err = max(k1_err, err)
+            print(f"  K1 {name:18s} {dname:8s} B={B} K={K} W1={W1} H={H} "
+                  f"KV={KV} hd={hd} S={S} cur_len={cl} max_abs_err={err:.3g}"
+                  f" tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K1 {name} {dname} disagrees with its "
+                                     f"plain version (max err {err})")
+    # timing at the main path's shapes (bf16 verify, as served)
+    ops = k1_inputs(8, SERVE_K, SERVE_W + 1, 32, 32, 64, S_main, cur_main,
+                    torch.bfloat16, seed=1)
+    W1 = SERVE_W + 1
+    lib_fn, lib_out = sdpa_yardstick(*ops, W1)
+    ok, err = close(spec_attention_cuda(*ops, w1=W1), lib_out, 2e-2)
+    print(f"  K1 vs SDPA yardstick: max_abs_err={err:.3g}")
+    bound, bound_by = k1_bound_ms(ops[0], ops[1], ops[3], ops[5], W1)
+    rec["spec_attention"] = dict(
+        max_abs_err=k1_err,
+        ms=time_ms(lambda: spec_attention_cuda(*ops, w1=W1)),
+        plain_ms=time_ms(lambda: spec_attention_plain(*ops, w1=W1)),
+        library_ms=time_ms(lib_fn), bound_ms=bound, bound_by=bound_by)
+    dops = k1_inputs(8, 1, 1, 32, 32, 64, S_main, cur_main, torch.bfloat16,
+                     seed=2)
+    d_bound, _ = k1_bound_ms(dops[0], dops[1], dops[3], dops[5], 1)
+    print(f"  K1 decode shape (KW1=1): ms="
+          f"{time_ms(lambda: spec_attention_cuda(*dops, w1=1)):.4f} "
+          f"plain_ms={time_ms(lambda: spec_attention_plain(*dops, w1=1)):.4f}"
+          f" bound_ms={d_bound:.5f}")
+    # ---- K2 ----
+    k2_cases = [(8, S_main, 1, SERVE_W), (3, 64, 2, 5), (2, 257, 3, 8),
+                (4, 1000, 1, 1), (2, 4097, 4, 16)]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for B, L, q, w in k2_cases:
+        buf = torch.randint(0, 6, (B, L), generator=g, device="cuda",
+                            dtype=torch.int32)
+        buf[:, L - L // 5:] = -1                     # -1 pads at the tail
+        query = buf[:, 3:3 + q].contiguous()
+        cl = torch.randint(0, L + 1, (B,), generator=g, device="cuda",
+                           dtype=torch.int32)
+        cl[0] = min(q - 1, L)                        # cur_len < q
+        m, h = ngram_match_cuda(buf, query, cl, w=w)
+        m_p, h_p = ngram_match_plain(buf, query, cl, w=w)
+        sync()
+        exact = torch.equal(m, m_p) and torch.equal(h, h_p)
+        print(f"  K2 B={B} L={L} q={q} w={w} cur_len={cl.tolist()} "
+              f"matches={int(m.sum())} bit-exact={'ok' if exact else 'FAIL'}")
+        if not exact:
+            raise AssertionError(f"K2 (L={L}, q={q}, w={w}) differs from "
+                                 f"its plain version")
+    B, L, q, w = k2_cases[0]
+    buf = torch.randint(0, 6, (B, L), generator=g, device="cuda",
+                        dtype=torch.int32)
+    query = buf[:, :q].contiguous()
+    cl = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    k2_bytes = 4 * B * L + 4 * B * q + 4 * B + 4 * B * L + 8 * B * L
+    k2_ops = B * L * (q + 4 * w)       # compares + hash steps, 32-bit lanes
+    t_b = k2_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = k2_ops / PEAK_FLOPS["float32"] * 1e3
+    rec["ngram_match"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: ngram_match_cuda(buf, query, cl, w=w)),
+        plain_ms=time_ms(lambda: ngram_match_plain(buf, query, cl, w=w)),
+        library_ms=None, bound_ms=max(t_b, t_o),
+        bound_by="bytes" if t_b >= t_o else "operations")
+    for name, r in rec.items():
+        print(f"  {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
+              f"({r['bound_by']})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: serving
+# ---------------------------------------------------------------------------
+def smoke_prompts():
+    from repro_torch.data.datasets import make_prompts
+    return ([p for p, _ in make_prompts("code", 3)]
+            + [p for p, _ in make_prompts("math", 3)]
+            + [p for p, _ in make_prompts("chat", 2)])
+
+
+def serve(engine, prompts, max_new):
+    for p in prompts:
+        engine.submit(p, max_new_tokens=max_new)
+    sync()
+    t0 = time.perf_counter()
+    done = engine.serve_all()
+    sync()
+    done.sort(key=lambda r: r.request_id)
+    return done, time.perf_counter() - t0
+
+
+def top2_margin(params, cfg, ids, pos) -> float:
+    """top-1 minus top-2 logit of the next-token prediction at ``pos``."""
+    import torch
+    from repro_torch.models import model as M
+    toks = torch.as_tensor(ids[None, :pos + 1], dtype=torch.int32,
+                           device="cuda")
+    logits = M.forward(params, cfg, tokens=toks)[0][0, -1]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4):
+    """Where a step's time goes: ``steps`` spec_steps of a fresh batch of
+    the served prompts under torch.profiler (after two warm steps).  Prints
+    wall ms per step, the device-busy share (kernel time / wall) and the
+    kernels with the most device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.spec_engine import init_decode_state, spec_step
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving.scheduler import Scheduler
+    sched = Scheduler(buckets=(SERVE_BUCKET,))
+    toks = torch.as_tensor(np.stack([sched.pad_to_bucket(
+        ByteTokenizer().encode(p)) for p in prompts]), device="cuda")
+    state = init_decode_state(params, cfg, spec, toks)
+    for _ in range(2):
+        state = spec_step(params, cfg, spec, state, tables)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = spec_step(params, cfg, spec, state, tables)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev(e) for e in kernels) / 1e3 / steps
+    n_launch = sum(e.count for e in kernels) / steps
+    print(f"  {spec.strategy} step: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms "
+          f"device busy ({busy_ms / wall_ms:.1%}), {n_launch:.0f} device "
+          f"ops per step")
+    for e in sorted(kernels, key=dev, reverse=True)[:6]:
+        print(f"    {dev(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:4d}"
+              f"  {e.key[:90]}")
+
+
+def phase_serve() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.spec_engine import SpecConfig, greedy_reference
+    from repro_torch.kernels.ngram_match import ngram_match_cuda
+    from repro_torch.kernels.spec_attention import spec_attention_cuda
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("stablelm-1.6b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    sync()
+    print(f"  {cfg.name}: {cfg.param_count() / 1e9:.3f}B params, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, bf16, seeded init {time.perf_counter() - t0:.1f}"
+          f" s")
+    spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg, spec, buckets=(SERVE_BUCKET,))
+    sync()
+    print(f"  n-gram tables (bigram sweep over {cfg.vocab_size} tokens): "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = smoke_prompts()
+    # the main path: counts from zero just before it, read just after
+    spec_attention_cuda.launches = 0
+    ngram_match_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    done, wall = serve(eng, prompts, SERVE_NEW)
+    launches = {"spec_attention": spec_attention_cuda.launches,
+                "ngram_match": ngram_match_cuda.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_new = sum(r.stats["new_tokens"] for r in done)
+    calls = sum(r.stats["model_calls"] for r in done)
+    for r in done:
+        print(f"  request {r.request_id}: {r.stats['new_tokens']} new tokens,"
+              f" {r.stats['model_calls']} calls, tokens/call "
+              f"{r.stats['tokens_per_call']:.3f}")
+    print(f"  mixed: {n_new} new tokens in {wall:.3f} s = "
+          f"{n_new / wall:.1f} tokens/s, tokens/call "
+          f"{n_new / max(calls, 1):.3f}, peak memory {peak:.2f} GiB")
+    print(f"  launches on the main path: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the main path never launched: "
+                             f"{launches}")
+    if any(r.stats["new_tokens"] != SERVE_NEW for r in done):
+        raise AssertionError("a request did not reach its token budget")
+    g_eng = ServingEngine(params, cfg, SpecConfig(strategy="greedy"),
+                          buckets=(SERVE_BUCKET,))
+    g_done, g_wall = serve(g_eng, prompts, SERVE_NEW)
+    g_new = sum(r.stats["new_tokens"] for r in g_done)
+    print(f"  greedy: {g_new} new tokens in {g_wall:.3f} s = "
+          f"{g_new / g_wall:.1f} tokens/s")
+    same = [np.array_equal(a.output_ids, b.output_ids)
+            for a, b in zip(done, g_done)]
+    print(f"  bf16 mixed == bf16 greedy per request: {same}")
+    print("phase 3b: where a step's time goes (torch.profiler)")
+    profile_steps(params, cfg, spec, eng.tables, prompts)
+    profile_steps(params, cfg, SpecConfig(strategy="greedy"), None, prompts)
+    for a, b in zip(done, g_done):
+        if not np.array_equal(a.output_ids, b.output_ids):
+            j = int(np.argmax(a.output_ids != b.output_ids))
+            ids = np.concatenate([eng.scheduler.pad_to_bucket(
+                eng.tok.encode(a.prompt)), b.output_ids])
+            pos = SERVE_BUCKET + j - 1
+            print(f"    request {a.request_id}: first difference at new "
+                  f"token {j}, bf16 top-2 margin there "
+                  f"{top2_margin(params, cfg, ids, pos):.4g}")
+
+    # ---- phase 4: lossless in f32 ----
+    print("phase 4: lossless (f32, TF32 off)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tables = eng.tables
+    del params, eng, g_eng
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = M.init_params(cfg32, seed=0, device="cuda")
+    eng32 = ServingEngine(params32, cfg32, spec, tables=tables,
+                          buckets=(SERVE_BUCKET,))
+    lprompts = prompts[:LOSSLESS_REQUESTS]
+    done32, wall32 = serve(eng32, lprompts, LOSSLESS_NEW)
+    toks = np.stack([eng32.scheduler.pad_to_bucket(eng32.tok.encode(p))
+                     for p in lprompts])
+    ref = greedy_reference(params32, cfg32, toks, LOSSLESS_NEW).cpu().numpy()
+    for i, r in enumerate(done32):
+        want = ref[i, SERVE_BUCKET:]
+        if not np.array_equal(r.output_ids, want):
+            j = int(np.argmax(r.output_ids != want))
+            m = top2_margin(params32, cfg32, ref[i], SERVE_BUCKET + j - 1)
+            print(f"  request {r.request_id}: mixed != greedy_reference at "
+                  f"new token {j} (f32 top-2 margin {m:.4g})")
+            raise AssertionError("f32 speculative output is not lossless")
+    calls32 = sum(r.stats["model_calls"] for r in done32)
+    print(f"  f32 mixed == greedy_reference for {len(done32)} requests x "
+          f"{LOSSLESS_NEW} tokens ({calls32} verify calls, {wall32:.2f} s)")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+
+    print("phase 1: build")
+    t0 = time.perf_counter()
+    secs = build.build()
+    print(f"  built {sorted(secs)} in {time.perf_counter() - t0:.2f} s")
+    for name in build.sources():
+        log = build.BUILD_DIR / f"{name}.log"
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            if "registers" in line or "smem" in line:
+                print(f"  {name}: {line.strip()}")
+    card = card_line()
+    print(f"  {card}")
+    print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)}")
+
+    S_main = SERVE_BUCKET + SERVE_NEW + SERVE_W + 2
+    cur_main = [SERVE_BUCKET + (SERVE_NEW - 1) * i // 7 for i in range(8)]
+    print(f"phase 2: kernels against their plain versions (main-path cache "
+          f"S={S_main}, ragged cur_len={cur_main})")
+    rec = phase_kernels(S_main, cur_main)
+
+    print("phase 3: serve")
+    launches = phase_serve()
+
+    sources = {"spec_attention": (
+                   "src/repro_torch/kernels/csrc/spec_attention.cu",
+                   "src/repro/kernels/spec_attention.py:137"),
+               "ngram_match": (
+                   "src/repro_torch/kernels/csrc/ngram_match.cu",
+                   "src/repro/kernels/ngram_match.py:50")}
+    kernels = [dict(name=n, route="cuda", source=sources[n][0],
+                    replaces=sources[n][1], launches=launches[n], **rec[n])
+               for n in ("spec_attention", "ngram_match")]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+"""Kernel dispatch: the ONE place that picks a kernel or its plain version.
+
+The choice follows the tensor: an operand on the CPU takes the kernel's
+plain PyTorch version, an operand on a CUDA device takes the CUDA kernel,
+and anything else raises.  There is no backend knob and no fallback: a CUDA
+tensor the kernel refuses raises from the kernel's wrapper.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .ngram_match import ngram_match_cuda, ngram_match_plain
+from .spec_attention import spec_attention_cuda, spec_attention_plain
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel path for device {t.device}")
+
+
+def verify_kernel_supported(cfg) -> bool:
+    """Configs inside K1's contract (counterpart of the reference's
+    ``pallas_verify_supported``): a linear cache and no logit softcap.
+    Sliding-window ring caches and softcapped logits are outside it."""
+    return cfg.attn_logit_softcap is None and cfg.sliding_window is None
+
+
+def verify_attention(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
+                     w1: int) -> torch.Tensor:
+    """Bifurcated verify attention in the engine layout.
+
+    q: (B, K, W1, H, hd); caches (B, S, KV, hd); tails (B, K, W1, KV, hd);
+    cur_len (B,) int32.  Returns (B, K, W1, H, hd) in q's dtype.
+    """
+    if on_card(q):
+        return spec_attention_cuda(q, k_cache, v_cache, k_tail, v_tail,
+                                   cur_len, w1=w1)
+    return spec_attention_plain(q, k_cache, v_cache, k_tail, v_tail,
+                                cur_len, w1=w1)
+
+
+def ngram_sweep(buf: torch.Tensor, query: torch.Tensor,
+                cur_len: torch.Tensor, *, w: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Match/hash sweep over every context position.
+
+    buf: (B, L) int32; query: (B, q) int32; cur_len: (B,) int32.
+    Returns (match (B, L) int32, hash (B, L) int64 in [0, 2**32)) where
+      match[b, i] = all(buf[b, i:i+q] == query[b]) and i + q + w <= cur_len
+      hash[b, i]  = hashing.hash_rows(buf[b, i+q : i+q+w])  (-1 past L).
+    Kernel and plain version give bit-identical integers.
+    """
+    if on_card(buf):
+        return ngram_match_cuda(buf, query, cur_len, w=w)
+    return ngram_match_plain(buf, query, cur_len, w=w)

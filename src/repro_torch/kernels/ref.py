@@ -1,0 +1,61 @@
+"""Plain PyTorch oracles of the port's kernels: twins of the reference's
+``repro/kernels/ref.py`` (same layouts, same masking, f32 math)."""
+from __future__ import annotations
+
+import torch
+
+from .hashing import HASH_DTYPE, hash_step
+
+NEG_INF = -1e30
+
+
+def spec_attention_ref(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
+                       w1: int) -> torch.Tensor:
+    """Bifurcated verify attention, computed densely in f32.
+
+    q: (B,H,KW1,hd); k/v_cache: (B,KV,S,hd); k/v_tail: (B,KV,KW1,hd);
+    cur_len: (B,).  Cache slots >= cur_len are masked; tail key j is
+    visible to query i iff both lie in the same w1-row and j%w1 <= i%w1.
+    Returns (B,H,KW1,hd) in q's dtype.
+    """
+    B, H, KW1, hd = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, KW1, hd)
+    scale = 1.0 / (hd ** 0.5)
+    lc = torch.einsum("bngqh,bnsh->bngqs", qf, k_cache.float()) * scale
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < cur_len.to(q.device)[:, None])
+    lc = torch.where(valid[:, None, None, None, :], lc, NEG_INF)
+    lt = torch.einsum("bngqh,bnth->bngqt", qf, k_tail.float()) * scale
+    qi = torch.arange(KW1, device=q.device)
+    same_row = (qi[:, None] // w1) == (qi[None, :] // w1)
+    causal = (qi[None, :] % w1) <= (qi[:, None] % w1)
+    lt = torch.where(same_row & causal, lt, NEG_INF)
+    w = torch.softmax(torch.cat([lc, lt], dim=-1), dim=-1)
+    out = (torch.einsum("bngqs,bnsh->bngqh", w[..., :S], v_cache.float())
+           + torch.einsum("bngqt,bnth->bngqh", w[..., S:], v_tail.float()))
+    return out.reshape(B, H, KW1, hd).to(q.dtype)
+
+
+def ngram_match_ref(buf_padded: torch.Tensor, query: torch.Tensor,
+                    cur_len: torch.Tensor, *, w: int):
+    """Oracle of the n-gram sweep over any leading batch dims.
+
+    buf_padded: (..., L+q+w) int; query: (..., q); cur_len: (...).
+    Returns (match (..., L) int32, hash (..., L) HASH_DTYPE) with
+      match[i] = all(buf[i:i+q] == query) and i + q + w <= cur_len
+      hash[i]  = hash_rows(buf[i+q : i+q+w]).
+    """
+    q = query.shape[-1]
+    L = buf_padded.shape[-1] - q - w
+    pos = torch.arange(L, device=buf_padded.device)
+    match = torch.ones(buf_padded.shape[:-1] + (L,), dtype=torch.bool,
+                       device=buf_padded.device)
+    for j in range(q):
+        match = match & (buf_padded[..., j:j + L] == query[..., j:j + 1])
+    match = match & (pos + q + w <= cur_len[..., None])
+    h = torch.zeros(match.shape, dtype=HASH_DTYPE, device=buf_padded.device)
+    for j in range(w):
+        h = hash_step(h, buf_padded[..., q + j:q + j + L])
+    return match.to(torch.int32), h

@@ -1,0 +1,143 @@
+"""Top-level language-model API: forward / prefill / decode / verify /
+commit (port of ``repro/models/model.py``).
+
+The reference's functions are pure and return new states; here ``prefill``,
+``decode`` and ``commit_kv_tails`` update the state's cache IN PLACE and
+return the same state dict with ``cur_len`` advanced.  ``verify`` only
+reads the state.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .cache import init_state, key_positions, kv_write, write_slots
+from .config import ATTN, ModelConfig, layer_blocks
+from .layers import apply_norm, embed_tokens, lm_logits
+from .transformer import init_params, run_stack
+
+Params = Dict[str, Any]
+State = Dict[str, Any]
+
+__all__ = ["init_params", "init_state", "forward", "prefill", "decode",
+           "verify", "commit_kv_tails", "has_recurrent", "make_positions"]
+
+
+def has_recurrent(cfg: ModelConfig) -> bool:
+    return any(b.mixer != ATTN for b in layer_blocks(cfg))
+
+
+def make_positions(cfg: ModelConfig, B: int, T: int,
+                   offset: Optional[torch.Tensor] = None,
+                   device=None) -> torch.Tensor:
+    """(B, T) int64 positions, shifted by ``offset`` (B,) when given."""
+    dev = offset.device if offset is not None else device
+    pos = torch.arange(T, device=dev)[None].expand(B, T)
+    if offset is not None:
+        pos = pos + offset[:, None].long()
+    return pos
+
+
+def _cache_len(state: State) -> int:
+    return next(iter(state["groups"].values()))["k"].shape[2]
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward (scoring). Returns (logits f32, aux) — aux is the
+    reference's MoE loss slot, zero for the dense stacks ported here."""
+    x = embed_tokens(params["embed"], tokens, cfg)
+    B, T = x.shape[:2]
+    if positions is None:
+        positions = make_positions(cfg, B, T, device=x.device)
+    x, _ = run_stack(params, cfg, x, "full", None, {"positions": positions})
+    x = apply_norm(params["final_norm"], x, cfg)
+    return (lm_logits(params["embed"], x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def prefill(params: Params, cfg: ModelConfig, state: State,
+            tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
+            last_only: bool = False) -> Tuple[torch.Tensor, State]:
+    """Process the prompt (all rows of length T), writing the cache in
+    place.  ``state`` must be freshly allocated (cur_len == 0).
+    ``last_only`` computes logits for the final position only."""
+    x = embed_tokens(params["embed"], tokens, cfg)
+    B, T = x.shape[:2]
+    if positions is None:
+        positions = make_positions(cfg, B, T, device=x.device)
+    x, _ = run_stack(params, cfg, x, "prefill", state,
+                     {"positions": positions})
+    x = apply_norm(params["final_norm"], x, cfg)
+    if last_only:
+        x = x[:, -1:]
+    logits = lm_logits(params["embed"], x, cfg)
+    state["cur_len"] = state["cur_len"] + T
+    return logits, state
+
+
+def decode(params: Params, cfg: ModelConfig, state: State,
+           tokens: torch.Tensor) -> Tuple[torch.Tensor, State]:
+    """Decode T new tokens from the cached state; their KV is written in
+    place and cur_len advances by T for every row."""
+    B, T = tokens.shape[:2]
+    cur = state["cur_len"]
+    S = _cache_len(state)
+    ctx: Dict[str, Any] = {"positions": make_positions(cfg, B, T, offset=cur),
+                           "slots": write_slots(cfg, S, cur, T),
+                           "cache_pos": key_positions(cfg, S, cur),
+                           "cur_len": cur}
+    x = embed_tokens(params["embed"], tokens, cfg)
+    x, _ = run_stack(params, cfg, x, "decode", state, ctx)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = lm_logits(params["embed"], x, cfg)
+    state["cur_len"] = cur + T
+    return logits, state
+
+
+def verify(params: Params, cfg: ModelConfig, state: State,
+           tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """The paper's batched verification call.
+
+    tokens: (B, k, w+1) — row i is [last_token, draft_i(0..w-1)].
+    Returns (logits (B, k, w+1, V) f32, kv tails {gid: {"k_tail",
+    "v_tail": (R, B, k, w+1, KV, hd)}}).  The state is only read.
+    """
+    B, K, W1 = tokens.shape
+    cur = state["cur_len"]
+    S = _cache_len(state)
+    ctx: Dict[str, Any] = {"positions": make_positions(cfg, B, W1,
+                                                       offset=cur),
+                           "k_rows": K,
+                           "cache_pos": key_positions(cfg, S, cur),
+                           "cur_len": cur}
+    x = embed_tokens(params["embed"], tokens.reshape(B * K, W1), cfg)
+    x, kv_tails = run_stack(params, cfg, x, "verify", state, ctx)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = lm_logits(params["embed"], x, cfg)
+    return logits.reshape(B, K, W1, -1), kv_tails
+
+
+def commit_kv_tails(cfg: ModelConfig, state: State, kv_tails: Dict,
+                    winner: torch.Tensor, n_commit: torch.Tensor) -> State:
+    """Fast commit: write the winning row's first ``n_commit`` KV tail
+    entries into the shared cache, IN PLACE, and advance cur_len."""
+    cur = state["cur_len"]
+    S = _cache_len(state)
+    for gid, tails in kv_tails.items():
+        k_t, v_t = tails["k_tail"], tails["v_tail"]   # (R,B,K,W1,KV,hd)
+        R, B, K, W1 = k_t.shape[:4]
+        b_idx = torch.arange(B, device=winner.device)
+        k_w = k_t[:, b_idx, winner.long()]            # (R,B,W1,KV,hd)
+        v_w = v_t[:, b_idx, winner.long()]
+        slots = write_slots(cfg, S, cur, W1)
+        gate = (torch.arange(W1, device=cur.device)[None, :]
+                < n_commit[:, None])
+        g = state["groups"][gid]
+        flat = lambda t: t.view((R * B,) + t.shape[2:])   # views: in place
+        kv_write(flat(g["k"]), flat(g["v"]), flat(k_w), flat(v_w),
+                 slots.repeat(R, 1), gate=gate.repeat(R, 1))
+    state["cur_len"] = cur + n_commit.to(cur.dtype)
+    return state

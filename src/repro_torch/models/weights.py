@@ -1,0 +1,67 @@
+"""Parameters from the reference package's checkpoints.
+
+The reference saves parameters flattened with '/'-joined key paths
+(``embed/embedding``, ``final_norm/scale``, ``p0/mixer/wq``, ...), group
+leaves stacked over R (``repro/train/checkpoint.py``).  The port keeps the
+same nested layout, so loading is an unflatten plus a dtype/device move,
+checked leaf by leaf against ``transformer.param_shapes``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .transformer import param_shapes
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def from_jax_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
+                  device="cuda") -> Dict[str, Any]:
+    """The port's parameters from the reference's flattened parameters
+    (``{'embed/embedding': array, 'p0/mixer/wq': (R, d, H*hd) array, ...}``),
+    in ``cfg.param_dtype`` on ``device``.  Raises on a missing, extra or
+    misshapen leaf."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    want: Dict[str, tuple] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                want[key] = v[0]
+    walk(param_shapes(cfg), "")
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: checkpoint keys differ — missing "
+                         f"{missing}, unexpected {extra}")
+    for key, shape in want.items():
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{cfg.name}: {key} has shape {arr.shape}, "
+                             f"expected {shape}")
+        node = out
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _to_tensor(arr).to(device=dev, dtype=cfg.param_dtype)
+    return out
+
+
+def load_npz(path: str, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
+    """Parameters from a reference ``.npz`` checkpoint."""
+    with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+        return from_jax_flat({k: data[k] for k in data.files}, cfg, device)

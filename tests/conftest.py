@@ -16,6 +16,10 @@ def pytest_configure(config):
         "markers",
         "slow: long model-level suite; deselect with -m 'not slow' for the "
         "inner-loop fast lane (tier-1 verification still runs everything)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels against their plain "
+        "versions); skips without one — run on the card with -m gpu")
 
 
 @pytest.fixture(scope="module", autouse=True)
