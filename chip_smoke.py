@@ -7,16 +7,25 @@ Phases (any failure raises and the script exits non-zero):
   1. build   — compile every kernel in src/repro_torch/kernels/csrc with nvcc
                (sm_90a), one process per source, in parallel;
   2. kernels — hold each CUDA kernel against its plain PyTorch version on the
-               card (K1 spec_attention: f32 2e-5, bf16 2e-2; K2 ngram_match:
-               bit-exact) and time kernel, plain version, library call;
+               card (K1 spec_attention and K3 paged_spec_attention: f32 2e-5,
+               bf16 2e-2; K2 ngram_match: bit-exact; K3 over a shuffled
+               pool == K1 over the gathered view, bit for bit) and time
+               kernel, plain version, library call;
   3. serve   — StableLM-2-1.6B at full width, bf16, seeded random weights:
                a mixed-strategy ServingEngine builds its n-gram tables and
-               serves 8 requests; the kernels' launch counts show the path
-               went through them; a greedy engine serves the same requests;
-               a few steps of each run under torch.profiler (device-busy
-               share, top kernels);
-  4. lossless— the same model in f32 (no TF32): the mixed engine's outputs
-               equal greedy_reference token for token.
+               serves 8 requests statically (serve_all); the kernels' launch
+               counts show the path went through them; a greedy engine
+               serves the same requests; a few steps of each run under
+               torch.profiler (device-busy share, top kernels);
+  4. lossless— the same model in f32 (no TF32): the static mixed engine's
+               outputs equal greedy_reference token for token, and so do
+               those of continuous serving, paged and linear, over the first
+               8 requests of phase 5's mix;
+  5. continuous — the bf16 model serves 24 requests (every 5th a long
+               prompt) by continuous batching over a 16-page KV pool (40%
+               of the linear worst case): paged mixed, linear mixed, paged
+               greedy, linear greedy; K3 carries the paged runs, the pool
+               defers and leaks no page.
 The last two lines of stdout are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
 JSON record.
@@ -40,6 +49,10 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 SERVE_K, SERVE_W, SERVE_NEW, SERVE_BUCKET = 10, 10, 64, 256
 LOSSLESS_REQUESTS, LOSSLESS_NEW = 4, 32
+# phase 5: continuous batching over the paged pool
+CONT_N, CONT_SLOTS, CONT_BUCKETS = 24, 8, (64, 256)
+CONT_NEW, CONT_PAGE, CONT_PAGES = (16, 32, 48), 64, 16
+CONT_LONG_EVERY, CONT_LOSSLESS = 5, 8
 
 
 def card_line() -> str:
@@ -140,6 +153,116 @@ def close(out, want, tol) -> tuple:
     diff = (out.float() - want.float()).abs()
     ok = bool((diff <= tol + tol * want.float().abs()).all())
     return ok, float(diff.max())
+
+
+def k3_inputs(B, K, W1, H, KV, hd, ps, cur_len, dtype, seed, n_pages=0):
+    """Engine-layout K3 operands: the pool is one layer's view of a
+    2-period (R, NP, ps, KV, hd) pool; each row's pages are a shuffled
+    draw, -1 past what its cur_len needs."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda",
+                                    dtype=torch.float32).to(dtype)
+    pps = max(1, -(-max(cur_len) // ps))
+    NP = max(n_pages, B * pps + 1)
+    perm = torch.randperm(NP, generator=g, device="cuda").to(torch.int32)
+    pt = perm[:B * pps].reshape(B, pps).clone()
+    for b, c in enumerate(cur_len):
+        pt[b, -(-c // ps):] = -1
+    kp, vp = rn(2, NP, ps, KV, hd)[1], rn(2, NP, ps, KV, hd)[1]
+    cl = torch.as_tensor(cur_len, dtype=torch.int32, device="cuda")
+    return (rn(B, K, W1, H, hd), kp, vp, pt, rn(B, K, W1, KV, hd),
+            rn(B, K, W1, KV, hd), cl)
+
+
+def k3_bound_ms(q, kp, pt, kt, cur_len, W1) -> tuple:
+    """K1's bound on the committed rows plus the page-table entries those
+    rows need (4 bytes each)."""
+    ps = kp.shape[1]
+    n_pages = int(((cur_len.long() + ps - 1) // ps).sum())
+    B, S = pt.shape[0], pt.shape[1] * ps
+    lin = kp.new_empty((B, S) + tuple(kp.shape[2:]))   # shape carrier only
+    t, by = k1_bound_ms(q, lin, kt, cur_len, W1)
+    return t + 4 * n_pages / HBM_BYTES_PER_S * 1e3, by
+
+
+def phase_k3(cont_cur: list) -> dict:
+    """K3 against its plain version and against K1 over the gathered view
+    (bit for bit), then its times at the continuous main path's shapes."""
+    import torch
+    from repro_torch.kernels.ref import gather_pages
+    from repro_torch.kernels.spec_attention import (
+        paged_spec_attention_cuda, paged_spec_attention_plain,
+        spec_attention_cuda)
+    cases = [  # name, B, K, W1, H, KV, hd, ps, cur_len
+        ("main verify ps=64", 8, SERVE_K, SERVE_W + 1, 32, 32, 64,
+         CONT_PAGE, cont_cur),
+        ("main decode KW1=1", 8, 1, 1, 32, 32, 64, CONT_PAGE, cont_cur),
+        ("GQA ps=16", 4, 4, 5, 32, 8, 128, 16, [700, 0, 333, 65]),
+        ("MQA hd=256 ps=128", 2, 3, 4, 32, 1, 256, 128, [299, 130]),
+        ("ps=1 w=40 hd=80", 2, 2, 41, 4, 2, 80, 1, [70, 7]),
+        ("ps=5 k=25 multi-tile", 2, 25, 11, 8, 2, 96, 5, [1024, 513]),
+        ("empty cache ps=64", 2, 25, 11, 8, 4, 64, 64, [0, 0]),
+    ]
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for name, B, K, W1, H, KV, hd, ps, cl in cases:
+            ops = k3_inputs(B, K, W1, H, KV, hd, ps, cl, dtype,
+                            seed=B * 1000 + K * 10 + ps)
+            out = paged_spec_attention_cuda(*ops, w1=W1)
+            want = paged_spec_attention_plain(*ops, w1=W1)
+            q, kp, vp, pt, kt, vt, cur = ops
+            k_lin, v_lin = gather_pages(kp, vp, pt)
+            lin = spec_attention_cuda(q, k_lin, v_lin, kt, vt, cur, w1=W1)
+            sync()
+            ok, e = close(out, want, TOL[dname])
+            same = torch.equal(out, lin)
+            err = max(err, e)
+            print(f"  K3 {name:20s} {dname:8s} B={B} K={K} W1={W1} H={H} "
+                  f"KV={KV} hd={hd} ps={ps} pages/row={pt.shape[1]} "
+                  f"cur_len={cl} max_abs_err={e:.3g} tol={TOL[dname]} "
+                  f"{'ok' if ok else 'FAIL'} == K1 on gathered view: "
+                  f"{'ok' if same else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K3 {name} {dname} disagrees with its "
+                                     f"plain version (max err {e})")
+            if not same:
+                raise AssertionError(f"K3 {name} {dname} differs from K1 "
+                                     f"over the gathered linear view")
+    W1 = SERVE_W + 1
+    ops = k3_inputs(8, SERVE_K, W1, 32, 32, 64, CONT_PAGE, cont_cur,
+                    torch.bfloat16, seed=3, n_pages=CONT_PAGES + 1)
+    q, kp, vp, pt, kt, vt, cur = ops
+    k_lin, v_lin = gather_pages(kp, vp, pt)
+    lib_fn, lib_out = sdpa_yardstick(q, k_lin, v_lin, kt, vt, cur, W1)
+    ok, e = close(paged_spec_attention_cuda(*ops, w1=W1), lib_out, 2e-2)
+    gather_ms = time_ms(lambda: gather_pages(kp, vp, pt))
+    k1_lin_ms = time_ms(lambda: spec_attention_cuda(q, k_lin, v_lin, kt, vt,
+                                                    cur, w1=W1))
+    bound, bound_by = k3_bound_ms(q, kp, pt, kt, cur, W1)
+    rec = dict(max_abs_err=err,
+               ms=time_ms(lambda: paged_spec_attention_cuda(*ops, w1=W1)),
+               plain_ms=time_ms(lambda: paged_spec_attention_plain(*ops,
+                                                                   w1=W1)),
+               library_ms=time_ms(lib_fn), bound_ms=bound,
+               bound_by=bound_by)
+    print(f"  K3 vs SDPA yardstick (gathered view): max_abs_err={e:.3g}; "
+          f"SDPA ms excludes the gather, gather_pages ms={gather_ms:.4f}; "
+          f"K1 on the gathered view ms={k1_lin_ms:.4f}")
+    dops = k3_inputs(8, 1, 1, 32, 32, 64, CONT_PAGE, cont_cur,
+                     torch.bfloat16, seed=4, n_pages=CONT_PAGES + 1)
+    d_bound, _ = k3_bound_ms(dops[0], dops[1], dops[3], dops[4], dops[6], 1)
+    print(f"  K3 decode shape (KW1=1): ms="
+          f"{time_ms(lambda: paged_spec_attention_cuda(*dops, w1=1)):.4f}"
+          f" plain_ms="
+          f"{time_ms(lambda: paged_spec_attention_plain(*dops, w1=1)):.4f}"
+          f" bound_ms={d_bound:.5f}")
+    print(f"  paged_spec_attention: ms={rec['ms']:.4f} plain_ms="
+          f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+          f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) at B=8 "
+          f"KW1={SERVE_K * W1} ps={CONT_PAGE} cur_len={cont_cur}")
+    return rec
 
 
 def phase_kernels(S_main: int, cur_main: list) -> dict:
@@ -276,28 +399,36 @@ def top2_margin(params, cfg, ids, pos) -> float:
 
 
 def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4):
-    """Where a step's time goes: ``steps`` spec_steps of a fresh batch of
-    the served prompts under torch.profiler (after two warm steps).  Prints
-    wall ms per step, the device-busy share (kernel time / wall) and the
-    kernels with the most device time."""
+    """Where a static step's time goes: spec_steps of a fresh batch of the
+    served prompts under torch.profiler (``profile_window``)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.spec_engine import init_decode_state, spec_step
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.serving.scheduler import Scheduler
     sched = Scheduler(buckets=(SERVE_BUCKET,))
     toks = torch.as_tensor(np.stack([sched.pad_to_bucket(
         ByteTokenizer().encode(p)) for p in prompts]), device="cuda")
-    state = init_decode_state(params, cfg, spec, toks)
+    box = [init_decode_state(params, cfg, spec, toks)]
+
+    def one_step():
+        box[0] = spec_step(params, cfg, spec, box[0], tables)
+    profile_window(f"{spec.strategy} step", one_step, steps)
+
+
+def profile_window(label: str, one_step, steps: int = 4):
+    """``steps`` calls of ``one_step`` under torch.profiler after two warm
+    ones: wall ms per step, the device-busy share (kernel time / wall),
+    device ops per step and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        state = spec_step(params, cfg, spec, state, tables)
+        one_step()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state = spec_step(params, cfg, spec, state, tables)
+            one_step()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.key_averages()
@@ -306,9 +437,9 @@ def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4):
                             getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev(e) for e in kernels) / 1e3 / steps
     n_launch = sum(e.count for e in kernels) / steps
-    print(f"  {spec.strategy} step: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms "
-          f"device busy ({busy_ms / wall_ms:.1%}), {n_launch:.0f} device "
-          f"ops per step")
+    print(f"  {label}: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
+          f"({busy_ms / max(wall_ms, 1e-9):.1%}), {n_launch:.0f} device ops "
+          f"per step")
     for e in sorted(kernels, key=dev, reverse=True)[:6]:
         print(f"    {dev(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:4d}"
               f"  {e.key[:90]}")
@@ -412,7 +543,221 @@ def phase_serve() -> dict:
     calls32 = sum(r.stats["model_calls"] for r in done32)
     print(f"  f32 mixed == greedy_reference for {len(done32)} requests x "
           f"{LOSSLESS_NEW} tokens ({calls32} verify calls, {wall32:.2f} s)")
-    return launches
+    lossless_continuous(params32, cfg32, spec, tables)
+    del params32, eng32
+    torch.cuda.empty_cache()
+    return launches, tables
+
+
+# ---------------------------------------------------------------------------
+# phases 4 (continuous part) and 5: continuous batching, paged and linear
+# ---------------------------------------------------------------------------
+def cont_workload():
+    """The long-context arrival mix of the reference's paged benchmark
+    (``make_longctx_workload``), all submitted up front: every 5th request
+    (i % 5 == 2) fills the 256 bucket, the rest fit 64; budgets cycle over
+    16, 32, 48."""
+    from repro_torch.data.datasets import make_prompts
+    texts = [p for p, _ in make_prompts("code", CONT_N, seed=1)]
+    out = []
+    for i in range(CONT_N):
+        text = texts[i % len(texts)]
+        if i % CONT_LONG_EVERY == 2:
+            text = ((text + " ") * 40)[:CONT_BUCKETS[-1] - 1]
+        else:
+            text = text[:CONT_BUCKETS[0] - 1]
+        out.append((text, CONT_NEW[i % len(CONT_NEW)]))
+    return out
+
+
+def cont_engine(params, cfg, spec, tables, paged: bool):
+    from repro_torch.serving.engine import ServingEngine
+    return ServingEngine(params, cfg, spec, tables=tables,
+                         max_batch=CONT_SLOTS, buckets=CONT_BUCKETS,
+                         max_new_cap=max(CONT_NEW), paged=paged,
+                         num_pages=CONT_PAGES if paged else None,
+                         page_size=CONT_PAGE)
+
+
+def serve_continuous(engine, work):
+    for text, mnt in work:
+        engine.submit(text, max_new_tokens=mnt)
+    sync()
+    t0 = time.perf_counter()
+    done = engine.serve_continuous()
+    sync()
+    done.sort(key=lambda r: r.request_id)
+    return done, time.perf_counter() - t0
+
+
+def reset_launches():
+    from repro_torch.kernels.ngram_match import ngram_match_cuda
+    from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
+                                                    spec_attention_cuda)
+    for fn in (spec_attention_cuda, ngram_match_cuda,
+               paged_spec_attention_cuda):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.ngram_match import ngram_match_cuda
+    from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
+                                                    spec_attention_cuda)
+    return {"spec_attention": spec_attention_cuda.launches,
+            "ngram_match": ngram_match_cuda.launches,
+            "paged_spec_attention": paged_spec_attention_cuda.launches}
+
+
+def check_paged_run(engine, done, work):
+    """The paged run's pool: no leaked page, deferrals, no rejection, the
+    page books intact; every request reached its budget."""
+    from repro_torch.models.cache import check_page_invariants
+    st = engine.pool_stats()
+    inv = check_page_invariants(engine._cont_state.model)
+    print(f"    pool: {st}; invariants after the drain: {inv}")
+    if st["free_pages"] != st["num_pages"] or inv["allocated"] != 0:
+        raise AssertionError(f"pages leaked: {st}, {inv}")
+    if st["deferrals"] <= 0 or st["rejected"] != 0:
+        raise AssertionError(f"expected deferrals and no rejection: {st}")
+    check_budgets(done, work)
+    return st
+
+
+def check_budgets(done, work):
+    got = [r.stats.get("new_tokens") for r in done]
+    want = [m for _, m in work]
+    if got != want or any("error" in r.stats for r in done):
+        raise AssertionError(f"requests did not reach their budgets: {got} "
+                             f"!= {want}")
+
+
+def lossless_continuous(params32, cfg32, spec, tables):
+    """Phase 4, continuous part: the first 8 requests of phase 5's mix (two
+    long) through continuous serving, paged (16-page pool) and linear, in
+    f32: each output equals greedy_reference, and paged equals linear."""
+    import numpy as np
+    from repro_torch.core.spec_engine import greedy_reference
+    work = cont_workload()[:CONT_LOSSLESS]
+    outs = {}
+    for paged in (True, False):
+        eng = cont_engine(params32, cfg32, spec, tables, paged)
+        reset_launches()
+        done, wall = serve_continuous(eng, work)
+        launches = read_launches()
+        check_budgets(done, work)
+        if paged:
+            check_paged_run(eng, done, work)
+        kernel = "paged_spec_attention" if paged else "spec_attention"
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{kernel} never launched: {launches}")
+        outs[paged] = done
+        print(f"  f32 continuous {'paged' if paged else 'linear'} mixed: "
+              f"{len(done)} requests in {wall:.2f} s, launches {launches}")
+    for rp, rl in zip(outs[True], outs[False]):
+        if not np.array_equal(rp.output_ids, rl.output_ids):
+            raise AssertionError(f"f32 request {rp.request_id}: paged != "
+                                 f"linear continuous output")
+    for r, (_, mnt) in zip(outs[True], work):
+        toks = np.asarray(cont_engine_tokens(r.prompt))
+        ref = greedy_reference(params32, cfg32, toks[None], mnt)
+        want = ref[0, len(toks):].cpu().numpy()
+        if not np.array_equal(r.output_ids, want):
+            j = int(np.argmax(r.output_ids != want))
+            m = top2_margin(params32, cfg32, ref[0].cpu().numpy(),
+                            len(toks) + j - 1)
+            print(f"  request {r.request_id}: continuous != greedy_reference"
+                  f" at new token {j} (f32 top-2 margin {m:.4g})")
+            raise AssertionError("f32 continuous output is not lossless")
+    print(f"  f32 continuous paged == linear == greedy_reference for "
+          f"{len(work)} requests ({sum(m for _, m in work)} tokens)")
+
+
+def cont_engine_tokens(prompt: str):
+    """The bucketed prompt tokens continuous serving prefills."""
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving.scheduler import Scheduler
+    return Scheduler(buckets=CONT_BUCKETS).pad_to_bucket(
+        ByteTokenizer().encode(prompt))
+
+
+def phase_continuous(tables) -> int:
+    """Phase 5: the bf16 model serves the mix four times (paged mixed, the
+    slice's main path, then linear mixed, paged greedy, linear greedy).
+    Returns K3's launches on the main path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.models import model as M
+    cfg = get_config("stablelm-1.6b")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    work = cont_workload()
+    runs = {}
+    for strategy in ("mixed", "greedy"):
+        spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy=strategy)
+        for paged in (True, False):
+            eng = cont_engine(params, cfg, spec,
+                              tables if strategy == "mixed" else None, paged)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()        # counts from zero just before the run
+            done, wall = serve_continuous(eng, work)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            name = f"{'paged' if paged else 'linear'} {strategy}"
+            n_new = sum(r.stats["new_tokens"] for r in done)
+            calls = sum(r.stats["model_calls"] for r in done)
+            lat = np.array([r.stats["latency_s"] for r in done])
+            print(f"  {name}: {n_new} new tokens in {wall:.3f} s = "
+                  f"{n_new / wall:.1f} tokens/s, tokens/call "
+                  f"{n_new / max(calls, 1):.3f}, admit->retire latency p50 "
+                  f"{np.percentile(lat, 50):.3f} s p99 "
+                  f"{np.percentile(lat, 99):.3f} s, peak memory {peak:.2f} "
+                  f"GiB, launches {launches}")
+            if paged:
+                check_paged_run(eng, done, work)
+                if launches["paged_spec_attention"] <= 0 \
+                        or launches["spec_attention"] != 0:
+                    raise AssertionError(f"paged run not carried by K3: "
+                                         f"{launches}")
+            else:
+                check_budgets(done, work)
+                if launches["spec_attention"] <= 0 \
+                        or launches["paged_spec_attention"] != 0:
+                    raise AssertionError(f"linear run not carried by K1: "
+                                         f"{launches}")
+            if strategy == "mixed" and launches["ngram_match"] <= 0:
+                raise AssertionError(f"K2 never launched: {launches}")
+            runs[(strategy, paged)] = (done, launches)
+    print("phase 5b: where a continuous step's time goes (torch.profiler, "
+          "8 slots after the first admissions; each step retires, admits "
+          "and runs one spec_step)")
+    spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+    for paged in (True, False):
+        eng = cont_engine(params, cfg, spec, tables, paged)
+        for text, mnt in work:
+            eng.submit(text, max_new_tokens=mnt)
+        eng.step()
+        profile_window(f"{'paged' if paged else 'linear'} mixed continuous "
+                       f"step", eng.step)
+        del eng
+    for strategy in ("mixed", "greedy"):
+        dp, dl = runs[(strategy, True)][0], runs[(strategy, False)][0]
+        same = [bool(np.array_equal(a.output_ids, b.output_ids))
+                for a, b in zip(dp, dl)]
+        print(f"  bf16 {strategy}: paged == linear for {sum(same)} of "
+              f"{len(same)} requests")
+        for a, b, (text, _) in zip(dp, dl, work):
+            if not np.array_equal(a.output_ids, b.output_ids):
+                j = int(np.argmax(a.output_ids != b.output_ids))
+                toks = np.asarray(cont_engine_tokens(text))
+                ids = np.concatenate([toks, b.output_ids])
+                print(f"    request {a.request_id}: first difference at new "
+                      f"token {j}, bf16 top-2 margin there "
+                      f"{top2_margin(params, cfg, ids, len(toks) + j - 1):.4g}")
+    del params
+    torch.cuda.empty_cache()
+    return runs[("mixed", True)][1]["paged_spec_attention"]
 
 
 def main() -> int:
@@ -442,18 +787,31 @@ def main() -> int:
           f"S={S_main}, ragged cur_len={cur_main})")
     rec = phase_kernels(S_main, cur_main)
 
+    cont_cur = [CONT_BUCKETS[0] + 40 * i for i in range(CONT_SLOTS)]
+    print(f"phase 2b: K3 (paged pool, main-path page size {CONT_PAGE}, "
+          f"ragged cur_len={cont_cur})")
+    rec["paged_spec_attention"] = phase_k3(cont_cur)
+
     print("phase 3: serve")
-    launches = phase_serve()
+    launches, tables = phase_serve()
+
+    print(f"phase 5: continuous batching over a {CONT_PAGES}-page pool "
+          f"(bf16, {CONT_N} requests, {CONT_SLOTS} slots)")
+    launches["paged_spec_attention"] = phase_continuous(tables)
 
     sources = {"spec_attention": (
                    "src/repro_torch/kernels/csrc/spec_attention.cu",
                    "src/repro/kernels/spec_attention.py:137"),
                "ngram_match": (
                    "src/repro_torch/kernels/csrc/ngram_match.cu",
-                   "src/repro/kernels/ngram_match.py:50")}
+                   "src/repro/kernels/ngram_match.py:50"),
+               "paged_spec_attention": (
+                   "src/repro_torch/kernels/csrc/spec_attention.cu",
+                   "src/repro/kernels/spec_attention.py:204")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1], launches=launches[n], **rec[n])
-               for n in ("spec_attention", "ngram_match")]
+               for n in ("spec_attention", "ngram_match",
+                         "paged_spec_attention")]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """The speculative generation engine: draft -> verify -> accept -> commit
-(port of the linear, greedy path of ``repro/core/spec_engine.py``).
+(port of the greedy path of ``repro/core/spec_engine.py``, over a linear or
+a paged KV cache, with the slot admission and release of continuous
+batching).
 
 The unit of work is ONE iteration, ``spec_step``: it drafts, runs the
 batched verification call and commits the winning tokens for every active
@@ -15,6 +17,8 @@ Invariants (as in the reference):
 The commit writes the winner's verified KV tail into the shared cache in
 place (attention-only stacks; the reference's gated replay for recurrent
 mixers, the tree and adaptive branches and sampling are not ported yet).
+Over a paged cache the step first grows every running row's pages to cover
+what it may commit (``cache.grow_pages``, device-side, no host read).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models import cache as C
 from ..models import model as M
 from ..models.config import ModelConfig
 from .drafters import (bigram_draft, context_ngram_draft, mixed_draft,
@@ -33,6 +38,22 @@ from .ngram_tables import NGramTables
 from .verify import accept
 
 STRATEGIES = ("mixed", "bigram", "unigram", "context", "greedy")
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedConfig:
+    """Sizing of a paged DecodeState (``models/cache.py``).
+
+    ``num_pages`` is the page-pool size shared by every slot; 0 sizes it to
+    the per-slot worst case (num_slots * pages_per_slot, the linear
+    footprint).  ``page_size`` is positions per page; 0 follows
+    ``cache.default_page_size`` (the verify kernel's 64-key cache tile).
+    """
+    num_pages: int = 0
+    page_size: int = 0
+
+    def resolve_page_size(self, cfg: ModelConfig) -> int:
+        return self.page_size or C.default_page_size(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +86,12 @@ class DecodeState:
     eos_id: torch.Tensor      # (B,) int32 per-row eos (-1: never)
     done: torch.Tensor        # (B,) bool
     active: torch.Tensor      # (B,) bool — slot currently occupied
-    model: Dict               # models/cache.py state {"cur_len", "groups"}
+    model: Dict               # models/cache.py state (linear or paged)
     stats: Dict[str, torch.Tensor]
+
+    @property
+    def buf_size(self) -> int:
+        return self.buf.shape[1]
 
 
 def _draft(spec: SpecConfig, tables: NGramTables, buf, buf_len, last):
@@ -105,13 +130,62 @@ def _init_stats(spec: SpecConfig, B: int, device) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # state construction
 # ---------------------------------------------------------------------------
+def _paged_model(cfg: ModelConfig, paged: PagedConfig, B: int,
+                 buf_size: int, device) -> Tuple[Dict, int]:
+    """An empty paged model state whose slots hold ``buf_size`` positions
+    rounded up to whole pages; returns it with the rounded buffer size."""
+    ps = paged.resolve_page_size(cfg)
+    pps = -(-buf_size // ps)
+    model = C.init_paged_state(cfg, B, paged.num_pages or B * pps, ps, pps,
+                               device=device)
+    return model, pps * ps
+
+
+def empty_decode_state(cfg: ModelConfig, spec: SpecConfig, num_slots: int,
+                       buf_size: int, paged: Optional[PagedConfig] = None,
+                       device="cuda") -> DecodeState:
+    """All-slots-free state for a continuous-batching engine.
+
+    With ``paged``, the model cache is a shared page pool plus per-slot page
+    tables instead of per-slot linear buffers; ``buf_size`` (the token
+    buffer and logical KV capacity per slot) is rounded up to whole pages.
+    """
+    spec.validate()
+    if M.has_recurrent(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent mixers are not ported yet")
+    dev = resolve_device(device)
+    B = num_slots
+    if paged is not None:
+        model, buf_size = _paged_model(cfg, paged, B, buf_size, dev)
+    else:
+        model = M.init_state(cfg, B, buf_size, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return DecodeState(
+        buf=torch.zeros((B, buf_size), **i32),
+        buf_len=torch.zeros((B,), **i32),
+        prompt_len=torch.zeros((B,), **i32),
+        budget=torch.zeros((B,), **i32),
+        eos_id=torch.full((B,), -1, **i32),
+        done=torch.ones((B,), dtype=torch.bool, device=dev),
+        active=torch.zeros((B,), dtype=torch.bool, device=dev),
+        model=model,
+        stats=_init_stats(spec, B, dev))
+
+
 def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
                       prompt: torch.Tensor,
-                      eos_id: Optional[torch.Tensor] = None) -> DecodeState:
+                      eos_id: Optional[torch.Tensor] = None,
+                      paged: Optional[PagedConfig] = None) -> DecodeState:
     """Prefill every row of ``prompt`` (B, P) into a fresh DecodeState on
     the prompt's device.  The buffer holds P + max_new_tokens + w + 2
     tokens; K1 masks the cache's ragged edge itself, so no kernel alignment
-    is applied.  ``eos_id``: optional per-row override of spec.eos_id."""
+    is applied.  ``eos_id``: optional per-row override of spec.eos_id.
+
+    ``paged`` switches the KV layout to the shared page pool: the buffer is
+    rounded up to whole pages, each row gets ceil(P / page_size) pages up
+    front and grows inside spec_step.  The default pool covers the worst
+    case, so one-shot ``generate`` can never exhaust it."""
     spec.validate()
     if M.has_recurrent(cfg):
         raise NotImplementedError(
@@ -123,7 +197,13 @@ def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
            if eos_id is None
            else torch.as_tensor(eos_id, dtype=torch.int32,
                                 device=dev).expand(B).clone())
-    model = M.init_state(cfg, B, L, device=dev)
+    if paged is not None:
+        model, L = _paged_model(cfg, paged, B, L, dev)
+        C.grow_pages(model, torch.full((B,), P, dtype=torch.int32,
+                                       device=dev),
+                     torch.ones((B,), dtype=torch.bool, device=dev))
+    else:
+        model = M.init_state(cfg, B, L, device=dev)
     buf = torch.zeros((B, L), dtype=torch.int32, device=dev)
     buf[:, :P] = prompt.to(torch.int32)
     logits_p, model = M.prefill(params, cfg, model, tokens=prompt,
@@ -146,21 +226,95 @@ def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
 
 
 # ---------------------------------------------------------------------------
+# slot admission and release (continuous batching)
+# ---------------------------------------------------------------------------
+def admit_slot(params, cfg: ModelConfig, state: DecodeState, slot: int,
+               prompt: torch.Tensor, max_new_tokens: int,
+               eos_id: int) -> DecodeState:
+    """Prefill ``prompt`` (P,) into slot ``slot`` of a shared DecodeState,
+    IN PLACE (the reference donates the state), on the state's device.
+
+    A linear state prefills a batch-1 scratch row of the full buffer
+    length and overwrites every leaf of the slot with it
+    (``cache.insert_slot``), so nothing leaks from the slot's previous
+    occupant.  A paged state prefills a P-long scratch linear row, frees the
+    slot's pages (idempotent: safe if release was skipped), allocates
+    ceil(P / page_size) fresh ones and scatters the prefix KV through them;
+    spec_step grows further pages as the row commits.  The greedy subset of
+    the reference: the first token is the prompt's argmax.  Reads nothing
+    back to the host.
+    """
+    dev = state.buf.device
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int32)
+    P, L = prompt.shape[0], state.buf_size
+    paged = C.is_paged(state.model)
+    row_model = M.init_state(cfg, 1, P if paged else L, device=dev)
+    logits, row_model = M.prefill(params, cfg, row_model, tokens=prompt[None],
+                                  last_only=True)
+    first = torch.argmax(logits[0, -1], dim=-1).to(torch.int32)
+    C.zero_slot_stats(state.stats, slot)
+    state.stats["tokens"][slot] = 1
+    if paged:
+        ps = C.paged_dims(state.model)[1]
+        C.free_slot_pages(state.model, slot)
+        C.alloc_slot_pages(state.model, slot, C.pages_for_len(P, ps))
+        C.insert_slot_paged(state.model, row_model, slot, P)
+    else:
+        C.insert_slot(state.model, row_model, slot)
+    state.buf[slot] = 0
+    state.buf[slot, :P] = prompt
+    state.buf[slot, P] = first
+    state.buf_len[slot] = P + 1
+    state.prompt_len[slot] = P
+    state.budget[slot] = max_new_tokens
+    state.eos_id[slot] = eos_id
+    state.done[slot] = (first == eos_id) & (eos_id >= 0)
+    state.active[slot] = True
+    return state
+
+
+def release_slot(state: DecodeState, slot: int) -> DecodeState:
+    """Mark a retired row's slot free, IN PLACE.  A linear cache is
+    overwritten at the next admission; a paged one returns the slot's pages
+    to the free stack now.  The slot's stats rows are zeroed: read a
+    retiring slot's stats before releasing it."""
+    if C.is_paged(state.model):
+        C.free_slot_pages(state.model, slot)
+    C.zero_slot_stats(state.stats, slot)
+    state.active[slot] = False
+    state.done[slot] = True
+    return state
+
+
+# ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
+def _running(s: DecodeState) -> torch.Tensor:
+    """(B,) bool: rows that may still commit tokens this step."""
+    return s.active & (~s.done) & (s.buf_len - s.prompt_len < s.budget)
+
+
 def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
                tables: Optional[NGramTables], s: DecodeState) -> DecodeState:
     B, L = s.buf.shape
     dev = s.buf.device
+    if C.is_paged(s.model):
+        # this step commits at most w+1 tokens per row (positions
+        # cur_len .. cur_len+w): cover cur_len + w + 1 before the verify
+        # and commit touch the pool
+        C.grow_pages(s.model, s.model["cur_len"] + spec.w + 1, _running(s))
     buf_c, len_c, done_c, state_c = s.buf, s.buf_len, s.done, s.model
-    last = buf_c.gather(1, (len_c - 1)[:, None].long())[:, 0]
+    # a free slot (buf_len 0) reads its last buffer entry, as the
+    # reference's wrapping index does; it commits nothing
+    last_i = torch.remainder(len_c - 1, L)[:, None].long()
+    last = buf_c.gather(1, last_i)[:, 0]
     drafts, valid, n_ctx = _draft(spec, tables, buf_c, len_c, last)
     rows = torch.cat([last[:, None, None].expand(B, spec.k, 1), drafts],
                      dim=-1)                                     # (B,k,w+1)
     logits, tails = M.verify(params, cfg, state_c, rows)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     acc = accept(drafts, greedy)
-    active = s.active & (~done_c) & (len_c - s.prompt_len < s.budget)
+    active = _running(s)
     budget = (s.prompt_len + s.budget - len_c).clamp(min=0)
     n_commit = torch.where(active, torch.minimum(acc.n_commit, budget), 0)
     # eos truncation: commit only up to (and including) the first eos
@@ -207,11 +361,13 @@ def _greedy_body(params, cfg: ModelConfig, spec: SpecConfig,
                  tables: Optional[NGramTables], s: DecodeState) -> DecodeState:
     B, L = s.buf.shape
     dev = s.buf.device
+    active = _running(s)
+    if C.is_paged(s.model):
+        C.grow_pages(s.model, s.model["cur_len"] + 1, active)
     buf_c, len_c, done_c, state_c = s.buf, s.buf_len, s.done, s.model
     cur_c = state_c["cur_len"]
-    last = buf_c.gather(1, (len_c - 1)[:, None].long())
+    last = buf_c.gather(1, torch.remainder(len_c - 1, L)[:, None].long())
     logits, state_n = M.decode(params, cfg, state_c, last)
-    active = s.active & (~done_c) & (len_c - s.prompt_len < s.budget)
     # decode advances cur_len by 1 for every row; freeze inactive rows so
     # the cur_len == buf_len - 1 invariant holds for done rows too (their
     # cache writes are row-local and never read: only p < cur_len is)
@@ -252,16 +408,19 @@ def spec_step(params, cfg: ModelConfig, spec: SpecConfig, state: DecodeState,
 # ---------------------------------------------------------------------------
 def generate(params, cfg: ModelConfig, spec: SpecConfig, prompt,
              tables: Optional[NGramTables] = None,
-             eos_id: Optional[torch.Tensor] = None, device="cuda"
+             eos_id: Optional[torch.Tensor] = None,
+             paged: Optional[PagedConfig] = None, device="cuda"
              ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Generate up to max_new_tokens for every row of ``prompt`` (B, P) on
     ``device`` (where ``params`` and ``tables`` live).  ``eos_id``: optional
-    per-row override of spec.eos_id.  Returns (buf (B, L), buf_len (B,),
+    per-row override of spec.eos_id.  ``paged`` runs the same loop over the
+    paged KV layout (the same outputs).  Returns (buf (B, L), buf_len (B,),
     stats)."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
                              else prompt).to(device=dev, dtype=torch.int32)
-    state = init_decode_state(params, cfg, spec, prompt, eos_id=eos_id)
+    state = init_decode_state(params, cfg, spec, prompt, eos_id=eos_id,
+                              paged=paged)
     # the loop's one host read per step: is any row still running?
     while bool(((~state.done)
                 & (state.buf_len - state.prompt_len < state.budget)).any()):

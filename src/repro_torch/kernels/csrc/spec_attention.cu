@@ -1,7 +1,9 @@
-// K1 for Hopper: bifurcated speculative-verification attention.
+// K1 and K3 for Hopper: bifurcated speculative-verification attention over
+// a linear (K1) or a paged (K3) KV cache.
 //
-// Replaces the TPU kernel repro/kernels/spec_attention.py:spec_attention_call
-// (body _kernel).  For every batch row b and query row i = (draft r, offset t)
+// K1 replaces the TPU kernel repro/kernels/spec_attention.py:
+// spec_attention_call (body _kernel), K3 replaces paged_spec_attention_call
+// (body _paged_kernel).  For every batch row b and query row i = (draft r, offset t)
 // of the (K*W1) verify block, per head h:
 //
 //   out[b,i,h] = softmax( q.k / sqrt(hd) over  cache slots s < cur_len[b]
@@ -13,6 +15,15 @@
 // Layout: the engine's own, read through strides.  q/out (B, K*W1, H, hd);
 // caches (B, S, KV, hd) -- a layer's view of the (R, B, S, KV, hd) state;
 // tails (B, K*W1, KV, hd).  The last dim of every operand is contiguous.
+// K3 reads a pool (NP, ps, KV, hd) -- a layer's view of the engine's
+// (R, NP, ps, KV, hd) pool -- through the (B, PPS) page table: cache slot s
+// of row b is pool row (page_table[b, s / ps], s % ps), a -1 page reads
+// page 0 (every slot it covers is >= cur_len[b], so the mask hides it).
+// Both kernels are one template: only the address of a cache row differs,
+// so the keys, their order and the arithmetic are the same, and K3 over a
+// pool equals K1 over the gathered linear view bit for bit.  A block loads
+// the page-table entries its cur_len needs into shared memory once; a 64-key
+// tile may span pages (ps < 64) or lie inside one (ps >= 64), any ps >= 1.
 //
 // Bound on the H100: bytes.  A verify call reads each committed cache row of
 // its (b, kv head) once and does about 4*hd flops per (query row, key); at
@@ -76,19 +87,32 @@ struct Args {
   void* out;
   int KW1, W1, H, KV, hd, S;
   long long q_sb, q_si, q_sh;   // q and out (B, KW1, H, hd)
-  long long c_sb, c_ss, c_sh;   // caches (B, S, KV, hd)
+  long long c_sb, c_ss, c_sh;   // caches (B, S, KV, hd); paged: the pool
+                                // (NP, ps, KV, hd), c_sb its page stride
   long long t_sb, t_si, t_sh;   // tails (B, KW1, KV, hd)
   float scale;
+  const int* page_table;        // paged only: (B, pps) int32, contiguous
+  int ps, pps;                  // paged only: page size, pages per slot
 };
 
-size_t smem_bytes(int hd) {
+size_t smem_bytes(int hd, int pps) {
   return sizeof(float) *
-         (size_t(kTile) * (hd + 1) + size_t(kTile) * hd +
-          size_t(kRowsPerBlock) * hd);
+             (size_t(kTile) * (hd + 1) + size_t(kTile) * hd +
+              size_t(kRowsPerBlock) * hd) +
+         sizeof(int) * size_t(pps);
+}
+
+// Offset of cache slot s of batch row b (before the head and dim offsets).
+template <bool kPaged>
+__device__ __forceinline__ long long cache_row(const Args& a, int b, int s,
+                                               const int* pt_s) {
+  if (kPaged)
+    return (long long)pt_s[s / a.ps] * a.c_sb + (long long)(s % a.ps) * a.c_ss;
+  return b * a.c_sb + (long long)s * a.c_ss;
 }
 
 // DPL = head dims per lane (ceil(hd / 32)): lane owns dims lane + 32*c.
-template <typename T, int DPL>
+template <typename T, int DPL, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
     spec_attention_kernel(const Args a) {
   extern __shared__ float smem[];
@@ -97,6 +121,7 @@ __global__ void __launch_bounds__(kThreads)
   float* Ks = smem;                            // kTile x (hd + 1)
   float* Vs = Ks + kTile * hdp;                // kTile x hd
   float* Qs = Vs + kTile * hd;                 // kRowsPerBlock x hd
+  int* pt_s = reinterpret_cast<int*>(Qs + kRowsPerBlock * hd);  // pps (K3)
 
   const T* q = static_cast<const T*>(a.q);
   const T* kc = static_cast<const T*>(a.kc);
@@ -124,6 +149,11 @@ __global__ void __launch_bounds__(kThreads)
     }
     Qs[idx] = v;
   }
+  if (kPaged) {  // the row's pages, clamped: -1 (unallocated) reads page 0
+    const int n_pg = (n_keys + a.ps - 1) / a.ps;
+    for (int i = threadIdx.x; i < n_pg; i += kThreads)
+      pt_s[i] = max(a.page_table[(long long)b * a.pps + i], 0);
+  }
   __syncthreads();
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
@@ -143,7 +173,7 @@ __global__ void __launch_bounds__(kThreads)
       float kv = 0.f, vv = 0.f;
       if (s < n_tile) {
         const long long off =
-            b * a.c_sb + (long long)(s0 + s) * a.c_ss + kvh * a.c_sh + d;
+            cache_row<kPaged>(a, b, s0 + s, pt_s) + kvh * a.c_sh + d;
         kv = to_f(kc[off]);
         vv = to_f(vc[off]);
       }
@@ -250,32 +280,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DPL>
+template <typename T, int DPL, bool kPaged>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.hd);
+  const size_t smem = smem_bytes(a.hd, kPaged ? a.pps : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      spec_attention_kernel<T, DPL>,
+      spec_attention_kernel<T, DPL, kPaged>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_rows = (a.H / a.KV) * a.KW1;
   const dim3 grid((n_rows + kRowsPerBlock - 1) / kRowsPerBlock, a.KV, B);
-  spec_attention_kernel<T, DPL><<<grid, kThreads, smem, stream>>>(a);
+  spec_attention_kernel<T, DPL, kPaged><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPaged>
 cudaError_t launch_hd(const Args& a, int B, cudaStream_t stream) {
   switch ((a.hd + 31) / 32) {
-    case 1: return launch<T, 1>(a, B, stream);
-    case 2: return launch<T, 2>(a, B, stream);
-    case 3: return launch<T, 3>(a, B, stream);
-    case 4: return launch<T, 4>(a, B, stream);
-    case 5: return launch<T, 5>(a, B, stream);
-    case 6: return launch<T, 6>(a, B, stream);
-    case 7: return launch<T, 7>(a, B, stream);
-    case 8: return launch<T, 8>(a, B, stream);
+    case 1: return launch<T, 1, kPaged>(a, B, stream);
+    case 2: return launch<T, 2, kPaged>(a, B, stream);
+    case 3: return launch<T, 3, kPaged>(a, B, stream);
+    case 4: return launch<T, 4, kPaged>(a, B, stream);
+    case 5: return launch<T, 5, kPaged>(a, B, stream);
+    case 6: return launch<T, 6, kPaged>(a, B, stream);
+    case 7: return launch<T, 7, kPaged>(a, B, stream);
+    case 8: return launch<T, 8, kPaged>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kPaged>
+int launch_dtype(int dtype, const Args& a, int B, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_hd<float, kPaged>(a, B, st);
+  if (dtype == 1) return (int)launch_hd<__nv_bfloat16, kPaged>(a, B, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -288,11 +326,25 @@ extern "C" int spec_attention_launch(
     long long q_si, long long q_sh, long long c_sb, long long c_ss,
     long long c_sh, long long t_sb, long long t_si, long long t_sh,
     float scale, void* stream) {
-  Args a{q,    k_cache, v_cache, k_tail, v_tail, cur_len, out,  KW1,
-         W1,   H,       KV,      hd,     S,      q_sb,    q_si, q_sh,
-         c_sb, c_ss,    c_sh,    t_sb,   t_si,   t_sh,    scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_hd<float>(a, B, st);
-  if (dtype == 1) return (int)launch_hd<__nv_bfloat16>(a, B, st);
-  return (int)cudaErrorInvalidValue;
+  Args a{q,    k_cache, v_cache, k_tail, v_tail, cur_len, out,    KW1,
+         W1,   H,       KV,      hd,     S,      q_sb,    q_si,   q_sh,
+         c_sb, c_ss,    c_sh,    t_sb,   t_si,   t_sh,    scale,  nullptr,
+         1,    0};
+  return launch_dtype<false>(dtype, a, B, stream);
+}
+
+// K3: the pool (NP, ps, KV, hd) has page stride p_sp, in-page stride p_ss
+// and head stride p_sh; page_table (B, pps) int32 contiguous.
+extern "C" int paged_spec_attention_launch(
+    int dtype, const void* q, const void* k_pool, const void* v_pool,
+    const int* page_table, const void* k_tail, const void* v_tail,
+    const int* cur_len, void* out, int B, int KW1, int W1, int H, int KV,
+    int hd, int ps, int pps, long long q_sb, long long q_si, long long q_sh,
+    long long p_sp, long long p_ss, long long p_sh, long long t_sb,
+    long long t_si, long long t_sh, float scale, void* stream) {
+  Args a{q,    k_pool, v_pool, k_tail, v_tail, cur_len,    out,   KW1,
+         W1,   H,      KV,     hd,     ps * pps, q_sb,     q_si,  q_sh,
+         p_sp, p_ss,   p_sh,   t_sb,   t_si,   t_sh,       scale, page_table,
+         ps,   pps};
+  return launch_dtype<true>(dtype, a, B, stream);
 }

@@ -12,7 +12,9 @@ from typing import Tuple
 import torch
 
 from .ngram_match import ngram_match_cuda, ngram_match_plain
-from .spec_attention import spec_attention_cuda, spec_attention_plain
+from .spec_attention import (paged_spec_attention_cuda,
+                             paged_spec_attention_plain, spec_attention_cuda,
+                             spec_attention_plain)
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -43,6 +45,22 @@ def verify_attention(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
                                    cur_len, w1=w1)
     return spec_attention_plain(q, k_cache, v_cache, k_tail, v_tail,
                                 cur_len, w1=w1)
+
+
+def verify_attention_paged(q, k_pool, v_pool, page_table, k_tail, v_tail,
+                           cur_len, *, w1: int) -> torch.Tensor:
+    """Bifurcated verify attention over a paged KV pool.
+
+    q: (B, K, W1, H, hd); pools (NP, ps, KV, hd); page_table (B, PPS) int32
+    (-1 = unallocated); tails (B, K, W1, KV, hd); cur_len (B,) int32.
+    Returns (B, K, W1, H, hd) in q's dtype: K3 on the card, on the CPU its
+    plain version (the gathered linear view through K1's plain version).
+    """
+    if on_card(q):
+        return paged_spec_attention_cuda(q, k_pool, v_pool, page_table,
+                                         k_tail, v_tail, cur_len, w1=w1)
+    return paged_spec_attention_plain(q, k_pool, v_pool, page_table, k_tail,
+                                      v_tail, cur_len, w1=w1)
 
 
 def ngram_sweep(buf: torch.Tensor, query: torch.Tensor,

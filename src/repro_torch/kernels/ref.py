@@ -38,6 +38,19 @@ def spec_attention_ref(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
     return out.reshape(B, H, KW1, hd).to(q.dtype)
 
 
+def gather_pages(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 page_table: torch.Tensor):
+    """The per-slot linear view (B, PPS*ps, KV, hd) of a paged pool
+    (NP, ps, KV, hd), copied.  An unallocated page (-1) reads physical
+    page 0; every position it covers is >= cur_len, so the verify mask hides
+    it.  (Twin of the reference's ``models/cache.py:gather_pages``.)"""
+    B, PPS = page_table.shape
+    pid = page_table.clamp(min=0).long()
+    tail = k_pool.shape[1:]
+    shape = (B, PPS * tail[0]) + tuple(tail[1:])
+    return k_pool[pid].reshape(shape), v_pool[pid].reshape(shape)
+
+
 def ngram_match_ref(buf_padded: torch.Tensor, query: torch.Tensor,
                     cur_len: torch.Tensor, *, w: int):
     """Oracle of the n-gram sweep over any leading batch dims.

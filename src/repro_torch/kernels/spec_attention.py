@@ -1,9 +1,13 @@
-"""K1: bifurcated speculative-verification attention, CUDA for Hopper.
+"""K1 and K3: bifurcated speculative-verification attention over a linear
+(K1) or a paged (K3) KV cache, CUDA for Hopper.
 
-Replaces the TPU kernel ``repro/kernels/spec_attention.py:spec_attention_call``
-(body ``_kernel``) on the verify path and on decode (verify with one row).
-The kernel is ``csrc/spec_attention.cu``; this module holds its wrapper, its
-launch count and its plain version.
+K1 replaces the TPU kernel ``repro/kernels/spec_attention.py:
+spec_attention_call`` (body ``_kernel``), K3 its paged sibling
+``paged_spec_attention_call`` (body ``_paged_kernel``), on the verify path
+and on decode (verify with one row).  Both are one template in
+``csrc/spec_attention.cu`` that differs only in how a cache row is
+addressed; this module holds their wrappers, launch counts and plain
+versions.
 
 What bounds it on the H100: bytes.  Each call reads every committed cache
 row of a (batch, KV head) once and does ~4*hd flops per (query row, key),
@@ -43,6 +47,15 @@ def spec_attention_plain(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
     return out.reshape(B, H, K, W1, hd).permute(0, 2, 3, 1, 4)
 
 
+def paged_spec_attention_plain(q, k_pool, v_pool, page_table, k_tail,
+                               v_tail, cur_len, *, w1: int) -> torch.Tensor:
+    """Plain version of K3: ``ref.gather_pages`` of the pool (NP, ps, KV,
+    hd) through page_table (B, PPS), then ``spec_attention_plain``."""
+    k_lin, v_lin = ref.gather_pages(k_pool, v_pool, page_table)
+    return spec_attention_plain(q, k_lin, v_lin, k_tail, v_tail, cur_len,
+                                w1=w1)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("spec_attention")
     fn = lib.spec_attention_launch
@@ -51,7 +64,46 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    fn = lib.paged_spec_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_common(name, q, k_cache, v_cache, k_tail, v_tail, cur_len, w1,
+                  extra=()):
+    """Checks shared by K1 and K3; returns (B, K, W1, H, KV, hd)."""
+    B, K, W1, H, hd = q.shape
+    if W1 != w1:
+        raise ValueError(f"w1={w1} but q has W1={W1}")
+    KV = k_cache.shape[-2]
+    ops = (q, k_cache, v_cache, k_tail, v_tail, cur_len) + tuple(extra)
+    if any(not t.is_cuda or t.device != q.device for t in ops):
+        raise ValueError(f"{name} needs every operand on one CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ops[1:5]):
+        raise TypeError(f"{name} takes float32 or bfloat16 operands of one "
+                        f"dtype, got {[t.dtype for t in ops[:5]]}")
+    if cur_len.dtype != torch.int32 or cur_len.shape != (B,) \
+            or not cur_len.is_contiguous():
+        raise TypeError("cur_len must be a contiguous (B,) int32 tensor")
+    if H % KV or not 0 < hd <= _MAX_HD or k_cache.shape[-1] != hd:
+        raise ValueError(f"unsupported heads H={H} KV={KV} hd={hd}")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError(f"k/v cache shapes differ: {tuple(k_cache.shape)} "
+                         f"/ {tuple(v_cache.shape)}")
+    if k_cache.stride() != v_cache.stride() or k_cache.stride(3) != 1:
+        raise ValueError("k/v caches need equal strides and a contiguous "
+                         "last dim")
+    if k_tail.shape != (B, K, W1, KV, hd) or v_tail.shape != k_tail.shape:
+        raise ValueError(f"tail shape {tuple(k_tail.shape)} != "
+                         f"{(B, K, W1, KV, hd)}")
+    if not (q.is_contiguous() and k_tail.is_contiguous()
+            and v_tail.is_contiguous()):
+        raise ValueError("q and the tails must be contiguous")
+    return B, K, W1, H, KV, hd
 
 
 def spec_attention_cuda(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
@@ -64,35 +116,12 @@ def spec_attention_cuda(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
     the current stream; raises on anything the kernel does not take and on
     a failed launch.
     """
-    B, K, W1, H, hd = q.shape
-    if W1 != w1:
-        raise ValueError(f"w1={w1} but q has W1={W1}")
-    S, KV = k_cache.shape[1], k_cache.shape[2]
-    ops = (q, k_cache, v_cache, k_tail, v_tail, cur_len)
-    if any(not t.is_cuda or t.device != q.device for t in ops):
-        raise ValueError("spec_attention_cuda needs every operand on one "
-                         "CUDA device")
-    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ops[1:5]):
-        raise TypeError(f"spec_attention_cuda takes float32 or bfloat16 "
-                        f"operands of one dtype, got "
-                        f"{[t.dtype for t in ops[:5]]}")
-    if cur_len.dtype != torch.int32 or cur_len.shape != (B,) \
-            or not cur_len.is_contiguous():
-        raise TypeError("cur_len must be a contiguous (B,) int32 tensor")
-    if H % KV or not 0 < hd <= _MAX_HD:
-        raise ValueError(f"unsupported heads H={H} KV={KV} hd={hd}")
-    if k_cache.shape != (B, S, KV, hd) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"cache shape {tuple(k_cache.shape)} / "
-                         f"{tuple(v_cache.shape)} != {(B, S, KV, hd)}")
-    if k_cache.stride() != v_cache.stride() or k_cache.stride(3) != 1:
-        raise ValueError("k/v caches need equal strides and a contiguous "
-                         "last dim")
-    if k_tail.shape != (B, K, W1, KV, hd) or v_tail.shape != k_tail.shape:
-        raise ValueError(f"tail shape {tuple(k_tail.shape)} != "
-                         f"{(B, K, W1, KV, hd)}")
-    if not (q.is_contiguous() and k_tail.is_contiguous()
-            and v_tail.is_contiguous()):
-        raise ValueError("q and the tails must be contiguous")
+    B, K, W1, H, KV, hd = _check_common("spec_attention_cuda", q, k_cache,
+                                        v_cache, k_tail, v_tail, cur_len, w1)
+    S = k_cache.shape[1]
+    if k_cache.shape != (B, S, KV, hd):
+        raise ValueError(f"cache shape {tuple(k_cache.shape)} != "
+                         f"{(B, S, KV, hd)}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -114,3 +143,50 @@ def spec_attention_cuda(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
 
 
 spec_attention_cuda.launches = 0
+
+
+def paged_spec_attention_cuda(q, k_pool, v_pool, page_table, k_tail, v_tail,
+                              cur_len, *, w1: int) -> torch.Tensor:
+    """Launch K3: K1's function with cache slot s of row b read from pool
+    row (page_table[b, s // ps], s % ps); a -1 page reads page 0, hidden by
+    the cur_len mask.
+
+    q, tails, cur_len: as ``spec_attention_cuda``; pools (NP, ps, KV, hd)
+    with any strides and a contiguous last dim (a layer's view of the
+    engine's (R, NP, ps, KV, hd) pool, read in place: no gather, no copy,
+    no host read); page_table (B, PPS) contiguous int32.  Raises on anything
+    the kernel does not take and on a failed launch.
+    """
+    B, K, W1, H, KV, hd = _check_common(
+        "paged_spec_attention_cuda", q, k_pool, v_pool, k_tail, v_tail,
+        cur_len, w1, extra=(page_table,))
+    if k_pool.dim() != 4:
+        raise ValueError(f"pool must be (NP, ps, KV, hd), got "
+                         f"{tuple(k_pool.shape)}")
+    ps = k_pool.shape[1]
+    if page_table.dtype != torch.int32 or page_table.dim() != 2 \
+            or page_table.shape[0] != B or not page_table.is_contiguous():
+        raise TypeError("page_table must be a contiguous (B, PPS) int32 "
+                        "tensor")
+    pps = page_table.shape[1]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    ps_ = k_pool.stride()
+    rc = _lib().paged_spec_attention_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_table.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
+        cur_len.data_ptr(), out.data_ptr(),
+        B, K * W1, W1, H, KV, hd, ps, pps,
+        K * W1 * H * hd, H * hd, hd,
+        ps_[0], ps_[1], ps_[2],
+        K * W1 * KV * hd, KV * hd, hd,
+        1.0 / (hd ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_spec_attention kernel launch failed: "
+                           f"CUDA error {rc}")
+    paged_spec_attention_cuda.launches += 1
+    return out
+
+
+paged_spec_attention_cuda.launches = 0

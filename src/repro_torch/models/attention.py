@@ -1,10 +1,11 @@
-"""Attention: MHA / GQA / MQA with (partial) RoPE over a linear KV cache
-(port of ``repro/models/attention.py``).
+"""Attention: MHA / GQA / MQA with (partial) RoPE over a linear or paged KV
+cache (port of ``repro/models/attention.py``).
 
 Prefill and the full forward use ``masked_attention``, plain tensor ops (the
 reference leaves it to XLA as well).  Verify and decode use the bifurcated
 attention of the paper's batched (k, w+1) verification: on the card through
-K1 (``kernels/dispatch.verify_attention``), on the CPU through
+K1 (``kernels/dispatch.verify_attention``) or, over a paged pool, K3
+(``dispatch.verify_attention_paged``); on the CPU through
 ``_verify_attention_xla``, the plain verify.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels import dispatch
+from ..kernels.ref import gather_pages
 from .config import MROPE, ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -172,7 +174,8 @@ def _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail, cache_pos,
 def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
-                cache_pos: torch.Tensor, cur_len: torch.Tensor
+                cache_pos: torch.Tensor, cur_len: torch.Tensor,
+                page_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Bifurcated batched-speculation attention (the paper's verification).
 
@@ -183,6 +186,10 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
     committed cache length; cache_pos: (B, S) (``cache.key_positions``).
     On the card this runs K1, which raises for a config outside its
     contract (``dispatch.verify_kernel_supported``).
+    page_table: (B, PPS) when the cache is PAGED: k_cache/v_cache are then
+    the layer's shared pool (NP, ps, KV, hd).  On the card K3 walks the
+    table; on the CPU the per-slot linear view is gathered first and the
+    plain verify runs on it unchanged, with cache_pos over PPS*ps slots.
     Returns (y (B,k,w1,d), k_new, v_new (B,k,w1,KV,hd)).
     """
     B, K, W1, d = x.shape
@@ -200,8 +207,17 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
             raise ValueError(
                 f"{cfg.name}: sliding-window or softcapped attention is "
                 f"outside the verify kernel's contract")
-        out = dispatch.verify_attention(qk, k_cache, v_cache, kn, vn,
-                                        cur_len, w1=W1)
+        if page_table is not None:
+            out = dispatch.verify_attention_paged(qk, k_cache, v_cache,
+                                                  page_table, kn, vn,
+                                                  cur_len, w1=W1)
+        else:
+            out = dispatch.verify_attention(qk, k_cache, v_cache, kn, vn,
+                                            cur_len, w1=W1)
+    elif page_table is not None:
+        k_lin, v_lin = gather_pages(k_cache, v_cache, page_table)
+        out = _verify_attention_xla(qk, k_lin, v_lin, kn, vn, cache_pos,
+                                    positions, cfg)
     else:
         out = _verify_attention_xla(qk, k_cache, v_cache, kn, vn, cache_pos,
                                     positions, cfg)

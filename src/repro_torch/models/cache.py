@@ -1,16 +1,33 @@
-"""Decode state: the linear KV cache and the speculative commit (port of the
-linear half of ``repro/models/cache.py``).
+"""Decode state: the linear and the paged KV cache, slot management and
+the speculative commit (port of ``repro/models/cache.py``).
 
 State layout, as in the reference (every leaf stacked over the R periods
 of the layer pattern):
 
-  state = {
+  linear = {
     "cur_len": (B,) int32   — #positions committed per sequence,
     "groups": {gid: {"k": (R, B, S, KV, hd), "v": ...}},
+  }
+  paged = {
+    "cur_len": (B,) int32,
+    "groups": {gid: {"k": (R, NP + 1, ps, KV, hd), "v": ...}},  # shared pool
+    "page_table": (B, PPS) int32   — physical page of each logical page,
+                                     -1 = unallocated,
+    "n_pages": (B,) int32,
+    "free_list": (NP + 1,) int32   — stack of free pages, top at free_top,
+    "free_top": () int32,
   }
 
 Where the reference relies on buffer donation, the port updates the cache
 in place (``index_put_``); every such write says so.
+
+Where the reference scatters with JAX's ``mode="drop"`` (an out-of-bounds
+index is skipped), PyTorch has no counterpart, and a clamped index would
+write into another slot's page.  So each paged pool holds one spare TRASH
+page past its ``NP`` real ones, and the free list one trash entry past its
+``NP``: a dropped write lands there, without a host sync.  No page table
+ever names the trash page (it is never on the free stack), so neither the
+verify kernel nor ``gather_pages`` reads it.
 """
 from __future__ import annotations
 
@@ -19,7 +36,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..kernels.ref import gather_pages
 from .config import ATTN, BlockSpec, ModelConfig
+
+__all__ = ["gather_pages"]   # re-exported: the plain paged read path
 
 
 def cache_buffer_len(cfg: ModelConfig, max_len: int) -> int:
@@ -59,6 +79,269 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int,
               for gid, spec, R in group_ids(cfg)}
     return {"cur_len": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "groups": groups}
+
+
+# ----------------------------------------------------------------------------
+# slot management (continuous batching)
+# ----------------------------------------------------------------------------
+def insert_slot(state: Dict, row_state: Dict, slot: int) -> Dict:
+    """Overwrite batch slot ``slot`` of a linear ``state`` with a batch-1
+    state, IN PLACE.  ``row_state`` comes from prefilling one request alone
+    (batch 1, same buffer length); every leaf of the previous occupant is
+    replaced, so request N+1 in a reused slot cannot observe request N's
+    cache."""
+    for gid, g in state["groups"].items():
+        for name, leaf in g.items():
+            row = row_state["groups"][gid][name]
+            if leaf.shape[2:] != row.shape[2:] or row.shape[1] != 1:
+                raise ValueError(f"slot insert shape mismatch: "
+                                 f"{tuple(leaf.shape)} vs {tuple(row.shape)}")
+            leaf[:, slot] = row[:, 0]
+    state["cur_len"][slot] = row_state["cur_len"][0]
+    return state
+
+
+def zero_slot_stats(stats: Dict[str, torch.Tensor], slot: int) -> Dict:
+    """Zero batch slot ``slot``'s row in every per-slot stats array, IN
+    PLACE (any trailing shape: counters (B,) and histograms (B, n))."""
+    for v in stats.values():
+        v[slot] = 0
+    return stats
+
+
+def reset_slot(cfg: ModelConfig, state: Dict, slot: int) -> Dict:
+    """Reset slot ``slot`` to the empty state, IN PLACE.  Paged states free
+    the slot's pages instead of zeroing KV (a freed page is never read:
+    ``phys_slots`` maps unallocated positions to the trash page)."""
+    if is_paged(state):
+        free_slot_pages(state, slot)
+        state["cur_len"][slot] = 0
+        return state
+    S = next(g["k"].shape[2] for g in state["groups"].values())
+    empty = init_state(cfg, 1, S, device=state["cur_len"].device)
+    return insert_slot(state, empty, slot)
+
+
+# ----------------------------------------------------------------------------
+# paged KV cache
+# ----------------------------------------------------------------------------
+def default_page_size(cfg: ModelConfig) -> int:
+    """Pages match the verify kernel's cache tile: 64 keys (``kTile`` in
+    ``kernels/csrc/spec_attention.cu``), so one page fills one tile that
+    K3 stages in shared memory.  (The reference ties pages to its TPU
+    kernel's 512-slot VMEM block instead.)  Any page_size >= 1 is right."""
+    del cfg
+    return 64
+
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    """Paged layout implements linear-cache semantics only: sliding-window
+    ring caches keep the per-slot ring buffer, and at least one attention
+    group must exist for paging to mean anything."""
+    return (cfg.sliding_window is None
+            and any(spec.mixer == ATTN for _, spec, _ in group_ids(cfg)))
+
+
+def is_paged(state: Dict) -> bool:
+    return "page_table" in state
+
+
+def paged_dims(state: Dict) -> Tuple[int, int, int]:
+    """(num_pages, page_size, pages_per_slot) of a paged state; num_pages
+    counts the real pages, not the trash page."""
+    pool = next(iter(state["groups"].values()))["k"]
+    return pool.shape[1] - 1, pool.shape[2], state["page_table"].shape[1]
+
+
+def init_paged_state(cfg: ModelConfig, batch: int, num_pages: int,
+                     page_size: int, pages_per_slot: int,
+                     device="cuda") -> Dict:
+    """Allocate an empty PAGED decode state: attention groups hold a shared
+    (R, num_pages + 1, page_size, KV, hd) pool (the last page is the trash
+    page), all real pages start on the free stack, and every slot's page
+    table is empty."""
+    if not paged_supported(cfg):
+        raise ValueError(f"{cfg.name}: paged KV requires a linear-cache "
+                         f"attention arch (sliding_window=None, >=1 attn "
+                         f"layer)")
+    if num_pages < 1 or page_size < 1 or pages_per_slot < 1:
+        raise ValueError(f"need num_pages, page_size, pages_per_slot >= 1, "
+                         f"got {num_pages}, {page_size}, {pages_per_slot}")
+    dev = resolve_device(device)
+    hd = cfg.resolved_head_dim
+    groups = {}
+    for gid, spec, R in group_ids(cfg):
+        if spec.mixer != ATTN:
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.mixer} state is not ported yet")
+        shape = (R, num_pages + 1, page_size, cfg.num_kv_heads, hd)
+        groups[gid] = {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                        device=dev),
+                       "v": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                        device=dev)}
+    i32 = dict(dtype=torch.int32, device=dev)
+    return {"cur_len": torch.zeros((batch,), **i32),
+            "groups": groups,
+            "page_table": torch.full((batch, pages_per_slot), -1, **i32),
+            "n_pages": torch.zeros((batch,), **i32),
+            "free_list": torch.arange(num_pages + 1, **i32),
+            "free_top": torch.tensor(num_pages, **i32)}
+
+
+def pages_for_len(length, page_size: int):
+    """Pages needed to hold ``length`` positions (int or tensor)."""
+    return (length + page_size - 1) // page_size
+
+
+def phys_slots(page_table: torch.Tensor, pos: torch.Tensor, page_size: int,
+               num_pages: int) -> torch.Tensor:
+    """Physical pool slot of each logical position.  pos: (B, T).
+
+    Positions without an allocated page map to ``num_pages * page_size``,
+    the first slot of the trash page (the reference's out-of-bounds
+    sentinel, which its scatter drops).  (B, T) int64.
+    """
+    PPS = page_table.shape[1]
+    pos = pos.long()
+    pg = torch.div(pos, page_size, rounding_mode="floor")
+    pid = page_table.gather(1, pg.clamp(0, PPS - 1)).long()
+    ok = (pos >= 0) & (pg < PPS) & (pid >= 0)
+    return torch.where(ok, pid * page_size + torch.remainder(pos, page_size),
+                       num_pages * page_size)
+
+
+def paged_kv_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor,
+                   phys: torch.Tensor,
+                   gate: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter new KV into the shared pool, IN PLACE.
+
+    pools: (..., NP + 1, ps, KV, hd), contiguous, with any leading dims
+    (the R periods of a group); k_new/v_new: (..., B, T, KV, hd) with the
+    same leading dims; phys: (B, T) physical slots (``phys_slots``); gate:
+    (B, T) bool, write where True.  Distinct slots own distinct pages, so
+    real writes never collide; gated-off and unallocated writes land on the
+    trash page.  Returns the pools.
+    """
+    lead = k_pool.shape[:-4]
+    slots = k_pool.shape[-4] * k_pool.shape[-3]
+    trash = (k_pool.shape[-4] - 1) * k_pool.shape[-3]
+    if gate is not None:
+        phys = torch.where(gate, phys, trash)
+    n_lead = 1
+    for d in lead:
+        n_lead *= d
+    idx = phys.reshape(1, -1) + (torch.arange(n_lead, device=phys.device)
+                                 * slots)[:, None]
+    tail = k_pool.shape[-2:]
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        pool.view((n_lead * slots,) + tail).index_put_(
+            (idx.reshape(-1),),
+            new.reshape((-1,) + tail).to(pool.dtype))
+    return k_pool, v_pool
+
+
+def alloc_slot_pages(state: Dict, slot: int, n_new) -> Dict:
+    """Pop ``n_new`` pages off the free stack into ``slot``'s page table
+    (after its allocated pages), IN PLACE and without a host sync.  The
+    caller guarantees n_new <= free_top (the serving engine's reservation
+    admission does)."""
+    pt, npg = state["page_table"], state["n_pages"]
+    fl, ft = state["free_list"], state["free_top"]
+    PPS, N = pt.shape[1], fl.shape[0] - 1
+    cur = npg[slot]
+    j = torch.arange(PPS, device=pt.device) - cur    # j-th newly-added page
+    take = (j >= 0) & (j < n_new)
+    src = ft - 1 - j
+    grant = take & (src >= 0) & (src < N)
+    pt[slot] = torch.where(grant, fl[src.clamp(0, N - 1)], pt[slot])
+    npg[slot] = cur + grant.sum().to(torch.int32)
+    ft.copy_((ft - n_new).clamp(min=0))
+    return state
+
+
+def free_slot_pages(state: Dict, slot: int) -> Dict:
+    """Push every page of ``slot`` back onto the free stack and clear its
+    table, IN PLACE.  Idempotent: a slot with n_pages == 0 is a no-op."""
+    pt, npg = state["page_table"], state["n_pages"]
+    fl, ft = state["free_list"], state["free_top"]
+    PPS, N = pt.shape[1], fl.shape[0] - 1
+    n = npg[slot]
+    idx = torch.arange(PPS, device=pt.device)
+    dst = torch.where(idx < n, ft + idx, N).clamp(max=N).long()
+    fl.index_put_((dst,), pt[slot])                  # N: the trash entry
+    ft.add_(n)
+    pt[slot] = -1
+    npg[slot] = 0
+    return state
+
+
+def grow_pages(state: Dict, required_len: torch.Tensor,
+               active: torch.Tensor) -> Dict:
+    """Batched growth, IN PLACE and sync-free: every ``active`` slot gets
+    pages covering ``required_len`` positions (spec_step calls this each
+    iteration with cur_len + w + 1, so commits never outrun the table).
+    On exhaustion a slot's missing pages stay -1 (its writes go to the trash
+    page, its reads are masked); the engine's reservation admission keeps
+    that unreachable in serving."""
+    pt, npg = state["page_table"], state["n_pages"]
+    fl, ft = state["free_list"], state["free_top"]
+    PPS, N = pt.shape[1], fl.shape[0] - 1
+    ps = paged_dims(state)[1]
+    need = (pages_for_len(required_len, ps) - npg).clamp(min=0)
+    need = torch.where(active, need, 0).to(torch.int32)
+    offs = torch.cumsum(need, 0) - need              # exclusive prefix (B,)
+    j = torch.arange(PPS, device=pt.device)[None, :] - npg[:, None]
+    take = (j >= 0) & (j < need[:, None])
+    src = ft - 1 - (offs[:, None] + j)
+    grant = take & (src >= 0)
+    pt.copy_(torch.where(grant, fl[src.clamp(0, N - 1)], pt))
+    npg.add_(grant.sum(dim=1).to(torch.int32))
+    ft.copy_((ft - need.sum()).clamp(min=0))
+    return state
+
+
+def insert_slot_paged(state: Dict, row_state: Dict, slot: int,
+                      row_len: int) -> Dict:
+    """Paged counterpart of insert_slot: scatter a prefilled batch-1 LINEAR
+    row state (cur_len == row_len) into the pool pages already allocated to
+    ``slot`` (``alloc_slot_pages`` first), IN PLACE."""
+    N, ps, _ = paged_dims(state)
+    pos = torch.arange(row_len, device=state["page_table"].device)[None]
+    phys = phys_slots(state["page_table"][slot][None], pos, ps, N)
+    for gid, g in state["groups"].items():
+        row = row_state["groups"][gid]                # (R, 1, row_len, ..)
+        paged_kv_write(g["k"], g["v"], row["k"][:, :, :row_len],
+                       row["v"][:, :, :row_len], phys)
+    state["cur_len"][slot] = row_state["cur_len"][0]
+    return state
+
+
+def check_page_invariants(state: Dict) -> Dict:
+    """Host-side free-list/page-table audit (tests and debugging).
+
+    Asserts: allocated pages are unique, disjoint from the free stack, and
+    together with it cover exactly {0..num_pages-1}; every page table row is
+    n_pages valid entries followed by -1s.  Returns summary counts.
+    """
+    pt = state["page_table"].cpu().numpy()
+    npg = state["n_pages"].cpu().numpy()
+    N = state["free_list"].shape[0] - 1
+    fl = state["free_list"].cpu().numpy()[:N]
+    ft = int(state["free_top"])
+    allocated = []
+    for b in range(pt.shape[0]):
+        row, n = pt[b], int(npg[b])
+        assert (row[:n] >= 0).all() and (row[:n] < N).all(), (b, row, n)
+        assert (row[n:] == -1).all(), (b, row, n)
+        allocated.extend(row[:n].tolist())
+    free = fl[:ft].tolist()
+    assert len(set(allocated)) == len(allocated), "page double-mapped"
+    assert not (set(allocated) & set(free)), "allocated page on free stack"
+    assert set(allocated) | set(free) == set(range(N)), (
+        f"page leak: {sorted(set(range(N)) - set(allocated) - set(free))}")
+    return {"num_pages": N, "free": ft, "allocated": len(allocated)}
 
 
 # ----------------------------------------------------------------------------

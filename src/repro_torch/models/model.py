@@ -1,10 +1,13 @@
 """Top-level language-model API: forward / prefill / decode / verify /
-commit (port of ``repro/models/model.py``).
+commit (port of ``repro/models/model.py``), over a linear or a paged KV
+cache (``models/cache.py``).
 
 The reference's functions are pure and return new states; here ``prefill``,
 ``decode`` and ``commit_kv_tails`` update the state's cache IN PLACE and
 return the same state dict with ``cur_len`` advanced.  ``verify`` only
-reads the state.
+reads the state.  On a paged state each call computes the physical slots
+of its writes once (``cache.phys_slots``) and hands them, with the page
+table, to every layer.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .cache import init_state, key_positions, kv_write, write_slots
+from .cache import (init_state, is_paged, key_positions, kv_write,
+                    paged_dims, paged_kv_write, phys_slots, write_slots)
 from .config import ATTN, ModelConfig, layer_blocks
 from .layers import apply_norm, embed_tokens, lm_logits
 from .transformer import init_params, run_stack
@@ -40,7 +44,19 @@ def make_positions(cfg: ModelConfig, B: int, T: int,
 
 
 def _cache_len(state: State) -> int:
+    """Logical cache capacity per row (pages_per_slot * page_size when
+    paged)."""
+    if is_paged(state):
+        _, ps, pps = paged_dims(state)
+        return pps * ps
     return next(iter(state["groups"].values()))["k"].shape[2]
+
+
+def _paged_ctx(state: State, pos: torch.Tensor) -> Dict[str, Any]:
+    """ctx entries of a paged call whose writes go to logical ``pos``."""
+    N, ps, _ = paged_dims(state)
+    return {"paged": True, "page_table": state["page_table"],
+            "slots": phys_slots(state["page_table"], pos, ps, N)}
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -68,8 +84,13 @@ def prefill(params: Params, cfg: ModelConfig, state: State,
     B, T = x.shape[:2]
     if positions is None:
         positions = make_positions(cfg, B, T, device=x.device)
-    x, _ = run_stack(params, cfg, x, "prefill", state,
-                     {"positions": positions})
+    ctx: Dict[str, Any] = {"positions": positions}
+    if is_paged(state):
+        # positions 0..T-1 of every row, through its page table (the pages
+        # must be allocated already)
+        ctx.update(_paged_ctx(state, make_positions(cfg, B, T,
+                                                    device=x.device)))
+    x, _ = run_stack(params, cfg, x, "prefill", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     if last_only:
         x = x[:, -1:]
@@ -89,6 +110,8 @@ def decode(params: Params, cfg: ModelConfig, state: State,
                            "slots": write_slots(cfg, S, cur, T),
                            "cache_pos": key_positions(cfg, S, cur),
                            "cur_len": cur}
+    if is_paged(state):
+        ctx.update(_paged_ctx(state, ctx["slots"]))
     x = embed_tokens(params["embed"], tokens, cfg)
     x, _ = run_stack(params, cfg, x, "decode", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
@@ -113,6 +136,8 @@ def verify(params: Params, cfg: ModelConfig, state: State,
                            "k_rows": K,
                            "cache_pos": key_positions(cfg, S, cur),
                            "cur_len": cur}
+    if is_paged(state):
+        ctx["page_table"] = state["page_table"]
     x = embed_tokens(params["embed"], tokens.reshape(B * K, W1), cfg)
     x, kv_tails = run_stack(params, cfg, x, "verify", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
@@ -123,9 +148,12 @@ def verify(params: Params, cfg: ModelConfig, state: State,
 def commit_kv_tails(cfg: ModelConfig, state: State, kv_tails: Dict,
                     winner: torch.Tensor, n_commit: torch.Tensor) -> State:
     """Fast commit: write the winning row's first ``n_commit`` KV tail
-    entries into the shared cache, IN PLACE, and advance cur_len."""
+    entries into the shared cache, IN PLACE, and advance cur_len.  Paged
+    states route the same gated write through each slot's page table."""
     cur = state["cur_len"]
     S = _cache_len(state)
+    paged = is_paged(state)
+    phys = None
     for gid, tails in kv_tails.items():
         k_t, v_t = tails["k_tail"], tails["v_tail"]   # (R,B,K,W1,KV,hd)
         R, B, K, W1 = k_t.shape[:4]
@@ -136,6 +164,12 @@ def commit_kv_tails(cfg: ModelConfig, state: State, kv_tails: Dict,
         gate = (torch.arange(W1, device=cur.device)[None, :]
                 < n_commit[:, None])
         g = state["groups"][gid]
+        if paged:
+            if phys is None:
+                N, ps, _ = paged_dims(state)
+                phys = phys_slots(state["page_table"], slots, ps, N)
+            paged_kv_write(g["k"], g["v"], k_w, v_w, phys, gate=gate)
+            continue
         flat = lambda t: t.view((R * B,) + t.shape[2:])   # views: in place
         kv_write(flat(g["k"]), flat(g["v"]), flat(k_w), flat(v_w),
                  slots.repeat(R, 1), gate=gate.repeat(R, 1))

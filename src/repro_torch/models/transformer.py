@@ -22,7 +22,7 @@ import torch
 
 from ..device import resolve_device
 from .attention import attn_full, attn_verify
-from .cache import group_ids, kv_write, prefill_write
+from .cache import group_ids, kv_write, paged_kv_write, prefill_write
 from .config import (ATTN, GEGLU, GELU, MOE, NO_MLP, RELU2, SWIGLU,
                      BlockSpec, ModelConfig)
 from .layers import apply_mlp, apply_norm, dense_init, embed_init
@@ -107,28 +107,39 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
                  spec: BlockSpec, mode: str, gst: Optional[Dict],
                  ctx: Dict) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (x_out, kv tails (verify) or None).  ``gst`` holds the
-    layer's (B, S, KV, hd) cache views; prefill/decode write them in place."""
+    layer's (B, S, KV, hd) cache views, or its (NP + 1, ps, KV, hd) pool
+    view when ``ctx["paged"]``; prefill/decode write them in place, a paged
+    write through the physical slots ``ctx["slots"]`` that the caller
+    computed once for every layer."""
     h = apply_norm(bp["norm1"], x, cfg)
     tails = None
+    paged = ctx.get("paged", False)
     if mode in ("full", "prefill"):
         y, (k_new, v_new) = attn_full(bp["mixer"], h, cfg, ctx["positions"])
         if mode == "prefill":
-            prefill_write(cfg, gst["k"], gst["v"], k_new, v_new)
+            if paged:
+                paged_kv_write(gst["k"], gst["v"], k_new, v_new,
+                               ctx["slots"])
+            else:
+                prefill_write(cfg, gst["k"], gst["v"], k_new, v_new)
     elif mode == "decode":
         # decode = verify with one row: the block attends the shared cache
         # and its own causal tail, then its KV is written (in place)
         y, k_t, v_t = attn_verify(bp["mixer"], h[:, None], cfg,
                                   ctx["positions"], gst["k"], gst["v"],
-                                  ctx["cache_pos"], ctx["cur_len"])
+                                  ctx["cache_pos"], ctx["cur_len"],
+                                  page_table=ctx.get("page_table"))
         y = y[:, 0]
-        kv_write(gst["k"], gst["v"], k_t[:, 0], v_t[:, 0], ctx["slots"])
+        write = paged_kv_write if paged else kv_write
+        write(gst["k"], gst["v"], k_t[:, 0], v_t[:, 0], ctx["slots"])
     elif mode == "verify":
         K = ctx["k_rows"]
         B = h.shape[0] // K
         hv = h.reshape(B, K, h.shape[-2], h.shape[-1])
         y, k_t, v_t = attn_verify(bp["mixer"], hv, cfg, ctx["positions"],
                                   gst["k"], gst["v"], ctx["cache_pos"],
-                                  ctx["cur_len"])
+                                  ctx["cur_len"],
+                                  page_table=ctx.get("page_table"))
         y = y.reshape(x.shape)
         tails = {"k_tail": k_t, "v_tail": v_t}
     else:

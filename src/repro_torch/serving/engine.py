@@ -1,27 +1,45 @@
 """Serving engine: ties the scheduler to the speculative generator (port of
-the static-batching half of ``repro/serving/engine.py``).
+``repro/serving/engine.py``, less its mesh, adaptive-arm, sampling and tree
+branches).
 
 One ``ServingEngine`` owns (params, cfg, tables) and serves batched requests
 with either plain greedy decoding or the paper's batched speculation —
 switching is one constructor argument (the paper's P3, plug-and-play).
-``serve_all`` is static batching: the scheduler forms whole batches and
-each runs one ``generate``; a finished row idles until its batch is done.
+Two serving modes share the engine:
+
+  - ``serve_all``: static batching; the scheduler forms whole batches and
+    each runs one ``generate``; a finished row idles until its batch is
+    done.
+  - ``serve_continuous`` / ``step``: continuous batching over one
+    persistent DecodeState; between steps finished rows are retired and
+    queued prompts are prefilled into the freed slots (``admit_slot``).
+
+Continuous batching can run over the PAGED KV layout (``paged=True``):
+slots share a page pool with per-slot page tables, and admission reserves
+each request's worst-case pages up front (deferring the queue head while
+the pool is short), so one long prompt no longer sizes every slot's
+buffer.  The outputs are the same as the linear layout's.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+import warnings
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.ngram_tables import NGramTables, build_bigram, build_unigram
-from ..core.spec_engine import SpecConfig, generate
+from ..core.spec_engine import (DecodeState, PagedConfig, SpecConfig,
+                                admit_slot, empty_decode_state, generate,
+                                release_slot, spec_step)
 from ..data.tokenizer import ByteTokenizer
 from ..device import resolve_device
+from ..models import cache as Cache
 from ..models import model as M
 from ..models.config import ModelConfig
-from .scheduler import DEFAULT_BUCKETS, Batch, Request, Scheduler
+from .scheduler import DEFAULT_BUCKETS, Batch, Request, Scheduler, SlotMap
 
 
 class ServingEngine:
@@ -30,23 +48,46 @@ class ServingEngine:
                  tables: Optional[NGramTables] = None,
                  max_batch: int = 8,
                  buckets: Optional[Tuple[int, ...]] = None,
+                 max_new_cap: int = 64,
+                 paged: bool = False,
+                 num_pages: Optional[int] = None,
+                 page_size: int = 0,
                  device="cuda"):
         """``params`` live on ``device`` (default the CUDA card; pass
         ``device="cpu"`` for the plain path).  A drafting ``spec`` without
         ``tables`` builds them with one sweep over the vocabulary.
-        ``buckets``: the scheduler's prompt-length ladder."""
+        ``buckets``: the scheduler's prompt-length ladder;
+        ``buckets``/``max_new_cap`` bound the continuous DecodeState
+        (buffer length = largest bucket + max_new_cap + w + 2).
+
+        ``paged``: continuous batching over the paged KV layout: slots
+        share a ``num_pages``-page pool (default: the linear worst case;
+        pass less to cap memory) and admission reserves pages.
+        ``page_size`` 0 follows ``cache.default_page_size``."""
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.spec = (spec or SpecConfig(strategy="greedy")).validate()
         self.tok = ByteTokenizer()
+        self.max_batch = max_batch
+        self.max_new_cap = max_new_cap
+        self._explicit_buckets = buckets is not None
         self.scheduler = Scheduler(
             max_batch=max_batch,
             buckets=buckets if buckets is not None else DEFAULT_BUCKETS)
+        self.paged = paged
+        if paged and not Cache.paged_supported(cfg):
+            raise ValueError(
+                f"{cfg.name}: paged KV needs a linear-cache attention arch "
+                f"(sliding_window=None, >=1 attn layer); run linear instead")
+        self._paged_cfg = (PagedConfig(num_pages or 0, page_size)
+                           if paged else None)
         if self.spec.strategy != "greedy" and tables is None:
             tables = self.build_tables(k_max=max(self.spec.k, 25),
                                        w_max=max(self.spec.w, 16))
         self.tables = tables
+        self._cont_state: Optional[DecodeState] = None
+        self._slots: Optional[SlotMap] = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -115,3 +156,230 @@ class ServingEngine:
             if batch is None:
                 return done
             done.extend(self.run_batch(batch))
+
+    # ------------------------------------------------------------------
+    # continuous batching (slot-level admission and retirement)
+    # ------------------------------------------------------------------
+    def _init_continuous(self) -> None:
+        if any(r.temperature > 0 for r in self.scheduler.queued_requests()):
+            raise NotImplementedError(
+                "sampled requests (temperature > 0) are not ported yet")
+        # size the DecodeState to the queued workload, not the worst case:
+        # a later prompt beyond the sized capacity is REJECTED at admission
+        # (truncating it would corrupt its output).  Paged mode reserves the
+        # full bucket ladder: KV capacity is governed by the page pool.
+        prompt_cap = self.scheduler.buckets[-1]
+        if not self.paged and not self._explicit_buckets:
+            prompt_cap = self.scheduler.max_queued_bucket() or prompt_cap
+        self._cont_prompt_cap = prompt_cap
+        buf_size = prompt_cap + self.max_new_cap + self.spec.w + 2
+        self._cont_state = empty_decode_state(
+            self.cfg, self.spec, self.max_batch, buf_size,
+            paged=self._paged_cfg, device=self.device)
+        self._slots = SlotMap(self.max_batch)
+        # page accounting (paged mode): admission reserves each request's
+        # worst-case page count up front so the in-step growth can never
+        # exhaust the pool mid-flight; physical allocation stays lazy.
+        # All host-side: admitting reads nothing back from the device.
+        if self.paged:
+            self._page_size = self._paged_cfg.resolve_page_size(self.cfg)
+            pps = self._cont_state.buf_size // self._page_size
+            self._pool_pages = (self._paged_cfg.num_pages
+                                or self.max_batch * pps)
+            self._page_reserved: Dict[int, int] = {}
+            self._pool_peak = 0
+            self._deferrals = 0
+        self._rejected = 0
+
+    def in_flight(self) -> int:
+        return len(self._slots) if self._slots is not None else 0
+
+    def _run_step(self, state: DecodeState) -> DecodeState:
+        return spec_step(self.params, self.cfg, self.spec, state, self.tables)
+
+    def _run_admit(self, state: DecodeState, slot: int, toks, mnt: int,
+                   eos: int) -> DecodeState:
+        return admit_slot(self.params, self.cfg, state, slot,
+                          torch.from_numpy(np.asarray(toks)), mnt, eos)
+
+    def _run_release(self, state: DecodeState, slot: int) -> DecodeState:
+        return release_slot(state, slot)
+
+    def _retire_finished(self) -> List[Request]:
+        state = self._cont_state
+        # the one structural host read per step: slot reuse is a host
+        # decision, so the done flags come back every step
+        done = state.done.cpu().numpy()
+        if not done[[s for s, _ in self._slots.occupied()]].any():
+            return []
+        if self.paged:
+            # pool peak: occupancy only falls at release, so sampling here
+            # (before this round's frees) sees every high-water mark
+            in_use = self._pool_pages - int(state.model["free_top"])
+            self._pool_peak = max(self._pool_peak, in_use)
+        # one device->host transfer per array, only on retiring rounds
+        blen = state.buf_len.cpu().numpy()
+        plen = state.prompt_len.cpu().numpy()
+        buf = state.buf.cpu().numpy()
+        calls_np = state.stats["calls"].cpu().numpy()
+        tokens_np = state.stats["tokens"].cpu().numpy()
+        accept_hist_np = state.stats["accept_hist"].cpu().numpy()
+        retired: List[Request] = []
+        for slot, req in self._slots.occupied():
+            if not done[slot]:
+                continue
+            calls = int(calls_np[slot])
+            tokens = int(tokens_np[slot])
+            req.output_ids = buf[slot, plen[slot]:blen[slot]].copy()
+            req.output = self.tok.decode(req.output_ids)
+            req.stats = {
+                "new_tokens": int(blen[slot] - plen[slot]),
+                "model_calls": calls,
+                "tokens_per_call": float(tokens / max(1, calls)),
+                # verify calls that committed exactly n tokens (0..w+1),
+                # read before release zeroes the slot's stats rows
+                "accept_hist": accept_hist_np[slot].tolist(),
+                # admit -> retire latency on the host clock (the done
+                # readback above has synchronised with the device)
+                "latency_s": time.perf_counter() - req.stats["admit_t"],
+            }
+            state = self._run_release(state, slot)
+            self._slots.release(slot)
+            if self.paged:
+                self._page_reserved.pop(slot, None)
+            retired.append(req)
+        self._cont_state = state
+        return retired
+
+    def _slot_pages(self, prompt_len: int, mnt: int) -> int:
+        """Worst-case pool pages one request can ever occupy: the cache
+        holds at most prompt_len + mnt + w positions (cur_len peaks at
+        prompt_len + mnt - 1 and spec growth covers cur_len + w + 1)."""
+        return int(Cache.pages_for_len(prompt_len + mnt + self.spec.w,
+                                       self._page_size))
+
+    def _reject(self, req: Request, reason: str) -> Request:
+        """Per-request admission failure: the request completes with an
+        ``error`` stat instead of silently corrupted output."""
+        req.output = None
+        req.output_ids = np.zeros((0,), np.int32)
+        req.stats = {"error": reason, "new_tokens": 0}
+        self._rejected += 1
+        warnings.warn(f"request {req.request_id} rejected: {reason}")
+        return req
+
+    def _admit_queued(self) -> List[Request]:
+        """Admit queued prompts into free slots; returns the requests
+        REJECTED this round.  Paged mode also gates admission on
+        pages-available (reservation), deferring the queue head, in order,
+        until retirements free enough pages."""
+        state = self._cont_state
+        rejected: List[Request] = []
+        free = self._slots.free_slots()
+        i = 0
+        while i < len(free):
+            slot = free[i]
+            head = self.scheduler.peek_next()
+            if head is None:
+                break
+            req, toks, raw_len = head
+            if toks.shape[0] > self._cont_prompt_cap:
+                # the request's bucket does not fit the self-sized state:
+                # admitting would truncate it; a rejection frees no slot,
+                # so retry this slot with the next queued request
+                self.scheduler.pop_next()
+                rejected.append(self._reject(
+                    req,
+                    f"prompt is {raw_len} tokens ({toks.shape[0]}-bucket) "
+                    f"but the continuous DecodeState was sized for "
+                    f"{self._cont_prompt_cap} (pass buckets= / use paged "
+                    f"mode to admit longer prompts)"))
+                continue
+            if req.temperature > 0:
+                raise NotImplementedError(
+                    f"request {req.request_id}: sampled requests "
+                    f"(temperature > 0) are not ported yet")
+            mnt = min(req.max_new_tokens, self.max_new_cap)
+            if self.paged:
+                pages = self._slot_pages(toks.shape[0], mnt)
+                if pages > self._pool_pages:
+                    # can NEVER fit: deferring would deadlock an idle pool
+                    self.scheduler.pop_next()
+                    rejected.append(self._reject(
+                        req,
+                        f"request needs {pages} pages but the pool has "
+                        f"only {self._pool_pages} (raise num_pages)"))
+                    continue
+                avail = self._pool_pages - sum(self._page_reserved.values())
+                if pages > avail:
+                    # pool short: defer the head (FIFO order is kept) until
+                    # retirements return pages to the free stack
+                    self._deferrals += 1
+                    break
+                self._page_reserved[slot] = pages
+            self.scheduler.pop_next()
+            if mnt < req.max_new_tokens:
+                warnings.warn(
+                    f"request {req.request_id}: max_new_tokens "
+                    f"{req.max_new_tokens} exceeds the engine's continuous "
+                    f"max_new_cap={self.max_new_cap}; clamping (raise "
+                    f"max_new_cap to honour larger budgets)")
+            state = self._run_admit(state, slot, toks, mnt,
+                                    self._effective_eos(req))
+            self._slots.assign(slot, req)
+            req.stats = {"admit_t": time.perf_counter()}
+            i += 1
+        self._cont_state = state
+        return rejected
+
+    def step(self) -> List[Request]:
+        """One continuous-batching iteration: retire finished rows, admit
+        queued prompts into the freed slots, then run one spec_step over
+        every active slot.  Returns the requests completed this step,
+        retired normally or rejected at admission (``stats["error"]``)."""
+        if self._cont_state is None:
+            self._init_continuous()
+        retired = self._retire_finished()
+        retired.extend(self._admit_queued())
+        # occupancy is tracked host-side: after retirement every occupied
+        # slot is runnable (an admission whose first token is eos retires
+        # next step; its one no-op step is cheaper than a per-step read)
+        if len(self._slots):
+            self._cont_state = self._run_step(self._cont_state)
+        return retired
+
+    def reset_pool_counters(self) -> None:
+        """Zero the cumulative pool counters (peak pages, deferral rounds,
+        rejections) without touching the pool, so that a measured window
+        starts clean after a warm-up."""
+        if self._cont_state is None:
+            return
+        if self.paged:
+            self._pool_peak = 0
+            self._deferrals = 0
+        self._rejected = 0
+
+    def pool_stats(self) -> Dict:
+        """Paged-pool occupancy and admission counters (paged mode only).
+
+        ``deferrals`` counts deferral ROUNDS (one per step() in which the
+        queue head could not reserve pages), not distinct requests."""
+        if not self.paged or self._cont_state is None:
+            return {}
+        free = int(self._cont_state.model["free_top"])
+        self._pool_peak = max(self._pool_peak, self._pool_pages - free)
+        return {"num_pages": self._pool_pages,
+                "page_size": self._page_size,
+                "free_pages": free,
+                "reserved_pages": sum(self._page_reserved.values()),
+                "peak_pages": self._pool_peak,
+                "deferrals": self._deferrals,
+                "rejected": self._rejected}
+
+    def serve_continuous(self) -> List[Request]:
+        """Drain the queue with continuous batching; blocks until idle."""
+        done: List[Request] = []
+        while True:
+            done.extend(self.step())
+            if self.scheduler.pending() == 0 and self.in_flight() == 0:
+                return done

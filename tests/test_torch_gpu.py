@@ -8,15 +8,20 @@ on a machine with only the port's dependencies:
 
 Shapes are those of ``chip_smoke.py``'s main path (StableLM-2-1.6B, B=8,
 k=10, w=10, S=332) plus GQA, MQA, hd up to 256 and a 2048-slot cache.
-Tolerances: K1 f32 2e-5, bf16 2e-2 (the reference's kernel tolerance);
-K2 bit-exact.
+Tolerances: K1 and K3 f32 2e-5, bf16 2e-2 (the reference's kernel
+tolerance); K2 bit-exact; K3 over a shuffled pool equals K1 over the
+gathered linear view bit for bit; paged continuous serving equals linear
+continuous serving token for token (tiny f32 model).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.ngram_match import ngram_match_cuda, ngram_match_plain
-from repro_torch.kernels.spec_attention import (spec_attention_cuda,
+from repro_torch.kernels.ref import gather_pages
+from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
+                                                paged_spec_attention_plain,
+                                                spec_attention_cuda,
                                                 spec_attention_plain)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -70,3 +75,81 @@ def test_ngram_match_cuda_matches_plain(cuda_device, B, L, q, w):
     m, h = ngram_match_cuda(buf, query, cl, w=w)
     m_p, h_p = ngram_match_plain(buf, query, cl, w=w)
     assert torch.equal(m, m_p) and torch.equal(h, h_p)
+
+
+def _paged_inputs(device, B, K, W1, H, KV, hd, ps, cur, dtype, seed=0):
+    """K3 operands: the pool is a layer's view into an R-stacked engine
+    pool, each row's pages are shuffled, and -1 past what cur_len needs."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    td = getattr(torch, dtype)
+    rn = lambda *s: torch.randn(s, generator=g, device=device).to(td)
+    pps = max(1, -(-max(cur) // ps) + 1)
+    NP = B * pps + 3
+    perm = torch.randperm(NP, generator=g, device=device).to(torch.int32)
+    pt = perm[:B * pps].reshape(B, pps).clone()
+    for b, c in enumerate(cur):
+        pt[b, -(-c // ps):] = -1
+    k_pool, v_pool = rn(2, NP, ps, KV, hd)[1], rn(2, NP, ps, KV, hd)[1]
+    return (rn(B, K, W1, H, hd), k_pool, v_pool, pt, rn(B, K, W1, KV, hd),
+            rn(B, K, W1, KV, hd),
+            torch.tensor(cur, dtype=torch.int32, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,K,W1,H,KV,hd,ps,cur", [
+    (8, 10, 11, 32, 32, 64, 64, [256, 265, 274, 283, 292, 301, 310, 319]),
+    (8, 1, 1, 32, 32, 64, 64, [256, 265, 274, 283, 292, 301, 310, 319]),
+    (3, 4, 5, 32, 8, 128, 16, [700, 0, 333]),
+    (2, 3, 4, 32, 1, 256, 128, [299, 129]),
+    (2, 2, 41, 4, 2, 80, 1, [70, 7]),
+    (2, 25, 11, 8, 4, 64, 5, [0, 0])])
+def test_paged_spec_attention_cuda_matches_plain_and_k1(cuda_device, B, K,
+                                                        W1, H, KV, hd, ps,
+                                                        cur, dtype):
+    ops = _paged_inputs(cuda_device, B, K, W1, H, KV, hd, ps, cur, dtype)
+    got = paged_spec_attention_cuda(*ops, w1=W1)
+    want = paged_spec_attention_plain(*ops, w1=W1)
+    q, kp, vp, pt, kt, vt, cl = ops
+    k_lin, v_lin = gather_pages(kp, vp, pt)
+    lin = spec_attention_cuda(q, k_lin, v_lin, kt, vt, cl, w1=W1)
+    torch.cuda.synchronize()
+    _close(got, want, TOL[dtype])
+    assert torch.equal(got, lin), "K3 differs from K1 on the gathered view"
+
+
+@pytest.mark.gpu
+def test_paged_continuous_equals_linear_on_the_card(cuda_device):
+    """A tiny f32 model served continuously over a small paged pool (with
+    deferrals) and over the linear layout: the same tokens, K3 launched."""
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.models import model as M
+    from repro_torch.models.cache import check_page_invariants
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(name="tiny", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=128, vocab_size=259,
+                      param_dtype=torch.float32,
+                      compute_dtype=torch.float32).validate()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    outs = {}
+    for paged in (False, True):
+        eng = ServingEngine(params, cfg, SpecConfig(k=4, w=3),
+                            max_batch=3, buckets=(16, 32), max_new_cap=14,
+                            paged=paged, num_pages=9 if paged else None,
+                            page_size=8)
+        for i in range(7):
+            text = f"def f{i}(x): return x * {i} + 1"
+            eng.submit((text * 2)[:30] if i % 3 == 1 else text[:14],
+                       max_new_tokens=(6, 10, 14)[i % 3])
+        paged_spec_attention_cuda.launches = 0
+        done = sorted(eng.serve_continuous(), key=lambda r: r.request_id)
+        outs[paged] = [r.output_ids for r in done]
+        if paged:
+            assert paged_spec_attention_cuda.launches > 0
+            st = eng.pool_stats()
+            assert st["deferrals"] > 0 and st["rejected"] == 0
+            assert check_page_invariants(eng._cont_state.model)["free"] == 9
+    for a, b in zip(outs[False], outs[True]):
+        np.testing.assert_array_equal(a, b)
