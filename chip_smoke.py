@@ -26,6 +26,18 @@ Phases (any failure raises and the script exits non-zero):
                of the linear worst case): paged mixed, linear mixed, paged
                greedy, linear greedy; K3 carries the paged runs, the pool
                defers and leaks no page.
+  6. tree    — tree speculation, bf16: the repetitive branching mix of the
+               reference's tree benchmark (12 prompts, bucket 128, 48 new
+               tokens, 4 slots) served by a (4, 5, 2) tree (69 verify
+               inputs), linear mixed (12, 5) (72 inputs) and greedy,
+               statically and continuously over the 16-page pool (the tree
+               also over the linear cache: paged == linear); K4 carries
+               every tree verify.  6b profiles a tree and a linear (12, 5)
+               step.  In f32 (TF32 off) the tree's static, continuous
+               linear and continuous paged outputs equal greedy_reference.
+Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
+version over six shapes, K4 over the pool == K4 over the gathered view bit
+for bit, and times it at the tree cell's shape.
 The last two lines of stdout are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
 JSON record.
@@ -53,6 +65,10 @@ LOSSLESS_REQUESTS, LOSSLESS_NEW = 4, 32
 CONT_N, CONT_SLOTS, CONT_BUCKETS = 24, 8, (64, 256)
 CONT_NEW, CONT_PAGE, CONT_PAGES = (16, 32, 48), 64, 16
 CONT_LONG_EVERY, CONT_LOSSLESS = 5, 8
+# phase 6: tree speculation on the reference tree benchmark's mix
+TREE_WDB = (4, 5, 2)             # width, depth, branch: 68 nodes + root
+TREE_LINEAR = (12, 5)            # the linear arm of matched cost: 72 inputs
+TREE_N, TREE_BUCKET, TREE_NEW, TREE_SLOTS = 12, 128, 48, 4
 
 
 def card_line() -> str:
@@ -102,16 +118,19 @@ def k1_inputs(B, K, W1, H, KV, hd, S, cur_len, dtype, seed, s_pad=0):
     return q, kc, vc, kt, vt, cl
 
 
-def k1_bound_ms(q, kc, kt, cur_len, W1) -> tuple:
+def k1_bound_ms(q, kc, kt, cur_len, W1, tail_keys=None) -> tuple:
     """Least time for K1's work on these inputs: q, the committed cache rows
     (k and v), the tails and the output moved once; 4*hd flops per (query
-    row, visible key)."""
+    row, visible key).  ``tail_keys``: visible tail keys summed over the
+    rows of one batch row (default: a causal tail per w1-row; K4 passes
+    its ancestor mask's count)."""
     B, K, _, H, hd = q.shape
     S, KV = kc.shape[1], kc.shape[2]
     elt = q.element_size()
     n_keys = cur_len.clamp(0, S).long().cpu()
     kw1 = K * W1
-    tail_keys = kw1 * (W1 + 1) // 2                 # sum over rows of t+1
+    if tail_keys is None:
+        tail_keys = kw1 * (W1 + 1) // 2             # sum over rows of t+1
     bytes_ = (2 * q.numel() * elt + 2 * kt.numel() * elt
               + int(n_keys.sum()) * KV * hd * 2 * elt + 4 * B)
     flops = 4 * hd * H * (kw1 * int(n_keys.sum()) + B * tail_keys)
@@ -122,10 +141,12 @@ def k1_bound_ms(q, kc, kt, cur_len, W1) -> tuple:
                                  else "operations")
 
 
-def sdpa_yardstick(q, kc, vc, kt, vt, cur_len, W1):
+def sdpa_yardstick(q, kc, vc, kt, vt, cur_len, W1, tail=None):
     """One scaled_dot_product_attention call computing K1's function on the
-    same inputs (boolean mask over [cache | tail]); timed as a yardstick,
-    never called by the port.  Returns (fn, output in engine layout)."""
+    same inputs (boolean mask over [cache | tail]; ``tail`` a (KW1, KW1)
+    bool tail mask in place of the causal one, K4's ancestor mask); timed
+    as a yardstick, never called by the port.  Returns (fn, output in
+    engine layout)."""
     import torch
     import torch.nn.functional as F
     B, K, _, H, hd = q.shape
@@ -137,9 +158,10 @@ def sdpa_yardstick(q, kc, vc, kt, vt, cur_len, W1):
                       .transpose(1, 2)], dim=2).repeat_interleave(G, dim=1)
     vals = torch.cat([vc.transpose(1, 2), vt.reshape(B, kw1, KV, hd)
                       .transpose(1, 2)], dim=2).repeat_interleave(G, dim=1)
-    i = torch.arange(kw1, device="cuda")
-    tail = ((i[:, None] // W1) == (i[None, :] // W1)) \
-        & ((i[None, :] % W1) <= (i[:, None] % W1))
+    if tail is None:
+        i = torch.arange(kw1, device="cuda")
+        tail = ((i[:, None] // W1) == (i[None, :] // W1)) \
+            & ((i[None, :] % W1) <= (i[:, None] % W1))
     cache = torch.arange(S, device="cuda")[None, :] < cur_len[:, None].long()
     mask = torch.cat([cache[:, None, :].expand(B, kw1, S),
                       tail[None].expand(B, kw1, kw1)], dim=2)[:, None]
@@ -175,14 +197,14 @@ def k3_inputs(B, K, W1, H, KV, hd, ps, cur_len, dtype, seed, n_pages=0):
             rn(B, K, W1, KV, hd), cl)
 
 
-def k3_bound_ms(q, kp, pt, kt, cur_len, W1) -> tuple:
+def k3_bound_ms(q, kp, pt, kt, cur_len, W1, tail_keys=None) -> tuple:
     """K1's bound on the committed rows plus the page-table entries those
     rows need (4 bytes each)."""
     ps = kp.shape[1]
     n_pages = int(((cur_len.long() + ps - 1) // ps).sum())
     B, S = pt.shape[0], pt.shape[1] * ps
     lin = kp.new_empty((B, S) + tuple(kp.shape[2:]))   # shape carrier only
-    t, by = k1_bound_ms(q, lin, kt, cur_len, W1)
+    t, by = k1_bound_ms(q, lin, kt, cur_len, W1, tail_keys)
     return t + 4 * n_pages / HBM_BYTES_PER_S * 1e3, by
 
 
@@ -262,6 +284,104 @@ def phase_k3(cont_cur: list) -> dict:
           f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
           f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) at B=8 "
           f"KW1={SERVE_K * W1} ps={CONT_PAGE} cur_len={cont_cur}")
+    return rec
+
+
+def phase_k4(cont_cur: list) -> dict:
+    """K4, the tree's ancestor tail, in both instantiations (the linear
+    cache's K1 and the pool's K3) against the plain version with the bool
+    ancestor mask; K4 over the pool equals K4 over the gathered view bit
+    for bit.  Then its times at the tree cell's shape (bf16)."""
+    import torch
+    from repro_torch.core.tree import topology
+    from repro_torch.kernels.ref import gather_pages
+    from repro_torch.kernels.spec_attention import (
+        paged_spec_attention_cuda, paged_spec_attention_plain,
+        spec_attention_cuda, spec_attention_plain, tree_mask)
+    cases = [  # name, (width, depth, branch), B, H, KV, hd, ps, cur_len
+        ("main tree (4,5,2)", TREE_WDB, 8, 32, 32, 64, CONT_PAGE, cont_cur),
+        ("GQA ps=16", TREE_WDB, 3, 32, 8, 128, 16, [700, 0, 333]),
+        ("MQA hd=256 ps=128", (3, 3, 2), 2, 32, 1, 256, 128, [299, 130]),
+        ("branch-1 (16,5,1) ps=5", (16, 5, 1), 2, 8, 4, 64, 5, [70, 7]),
+        ("depth-1 (6,1,2) hd=80", (6, 1, 2), 2, 4, 2, 80, 8, [33, 1]),
+        ("empty cache", TREE_WDB, 2, 8, 4, 64, CONT_PAGE, [0, 0]),
+    ]
+    err = {"tree_spec_attention": 0.0, "paged_tree_spec_attention": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for name, wdb, B, H, KV, hd, ps, cl in cases:
+            topo = topology(*wdb)
+            W1 = topo.num_nodes + 1
+            tm = tree_mask(topo.anc_mask, "cuda")
+            ops = k3_inputs(B, 1, W1, H, KV, hd, ps, cl, dtype,
+                            seed=B * 1000 + W1 * 10 + ps)
+            q, kp, vp, pt, kt, vt, cur = ops
+            k_lin, v_lin = gather_pages(kp, vp, pt)
+            lin = spec_attention_cuda(q, k_lin, v_lin, kt, vt, cur, w1=W1,
+                                      anc=tm.anc)
+            pag = paged_spec_attention_cuda(*ops, w1=W1, anc=tm.anc)
+            want = spec_attention_plain(q, k_lin, v_lin, kt, vt, cur, w1=W1,
+                                        tail_mask=tm.mask)
+            want_pg = paged_spec_attention_plain(*ops, w1=W1,
+                                                 tail_mask=tm.mask)
+            sync()
+            ok_l, e_l = close(lin, want, TOL[dname])
+            ok_p, e_p = close(pag, want_pg, TOL[dname])
+            same = torch.equal(pag, lin)
+            err["tree_spec_attention"] = max(err["tree_spec_attention"], e_l)
+            err["paged_tree_spec_attention"] = max(
+                err["paged_tree_spec_attention"], e_p)
+            print(f"  K4 {name:22s} {dname:8s} B={B} W1={W1} H={H} KV={KV} "
+                  f"hd={hd} ps={ps} cur_len={cl} linear max_abs_err="
+                  f"{e_l:.3g} {'ok' if ok_l else 'FAIL'}, paged max_abs_err="
+                  f"{e_p:.3g} {'ok' if ok_p else 'FAIL'} (tol {TOL[dname]});"
+                  f" paged == linear: {'ok' if same else 'FAIL'}")
+            if not (ok_l and ok_p):
+                raise AssertionError(f"K4 {name} {dname} disagrees with its "
+                                     f"plain version ({e_l}, {e_p})")
+            if not same:
+                raise AssertionError(f"K4 {name} {dname}: paged differs "
+                                     f"from linear on the gathered view")
+    topo = topology(*TREE_WDB)
+    W1 = topo.num_nodes + 1
+    tm = tree_mask(topo.anc_mask, "cuda")
+    ops = k3_inputs(8, 1, W1, 32, 32, 64, CONT_PAGE, cont_cur,
+                    torch.bfloat16, seed=5, n_pages=CONT_PAGES + 1)
+    q, kp, vp, pt, kt, vt, cur = ops
+    k_lin, v_lin = gather_pages(kp, vp, pt)
+    lib_fn, lib_out = sdpa_yardstick(q, k_lin, v_lin, kt, vt, cur, W1,
+                                     tail=tm.mask)
+    ok, e = close(spec_attention_cuda(q, k_lin, v_lin, kt, vt, cur, w1=W1,
+                                      anc=tm.anc), lib_out, 2e-2)
+    tail_keys = int(tm.mask.sum())
+    lib_ms = time_ms(lib_fn)
+    b_lin, by_lin = k1_bound_ms(q, k_lin, kt, cur, W1, tail_keys)
+    b_pag, by_pag = k3_bound_ms(q, kp, pt, kt, cur, W1, tail_keys)
+    rec = {"tree_spec_attention": dict(
+               max_abs_err=err["tree_spec_attention"],
+               ms=time_ms(lambda: spec_attention_cuda(
+                   q, k_lin, v_lin, kt, vt, cur, w1=W1, anc=tm.anc)),
+               plain_ms=time_ms(lambda: spec_attention_plain(
+                   q, k_lin, v_lin, kt, vt, cur, w1=W1, tail_mask=tm.mask)),
+               library_ms=lib_ms, bound_ms=b_lin, bound_by=by_lin),
+           "paged_tree_spec_attention": dict(
+               max_abs_err=err["paged_tree_spec_attention"],
+               ms=time_ms(lambda: paged_spec_attention_cuda(
+                   *ops, w1=W1, anc=tm.anc)),
+               plain_ms=time_ms(lambda: paged_spec_attention_plain(
+                   *ops, w1=W1, tail_mask=tm.mask)),
+               library_ms=lib_ms, bound_ms=b_pag, bound_by=by_pag)}
+    causal_ms = time_ms(lambda: spec_attention_cuda(q, k_lin, v_lin, kt, vt,
+                                                    cur, w1=W1))
+    print(f"  K4 vs SDPA yardstick (ancestor mask folded into the boolean "
+          f"mask, gathered view): max_abs_err={e:.3g}; K1 with a causal "
+          f"tail on the same inputs ms={causal_ms:.4f}; tail keys "
+          f"{tail_keys} of {W1 * W1}")
+    for name, r in rec.items():
+        print(f"  {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} bound_ms="
+              f"{r['bound_ms']:.5f} ({r['bound_by']}) at B=8 W1={W1} "
+              f"H=KV=32 hd=64 ps={CONT_PAGE} cur_len={cont_cur}")
     return rec
 
 
@@ -398,7 +518,8 @@ def top2_margin(params, cfg, ids, pos) -> float:
     return float(top[0] - top[1])
 
 
-def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4):
+def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
+                  bucket: int = SERVE_BUCKET, label: str = ""):
     """Where a static step's time goes: spec_steps of a fresh batch of the
     served prompts under torch.profiler (``profile_window``)."""
     import numpy as np
@@ -406,14 +527,14 @@ def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4):
     from repro_torch.core.spec_engine import init_decode_state, spec_step
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.serving.scheduler import Scheduler
-    sched = Scheduler(buckets=(SERVE_BUCKET,))
+    sched = Scheduler(buckets=(bucket,))
     toks = torch.as_tensor(np.stack([sched.pad_to_bucket(
         ByteTokenizer().encode(p)) for p in prompts]), device="cuda")
     box = [init_decode_state(params, cfg, spec, toks)]
 
     def one_step():
         box[0] = spec_step(params, cfg, spec, box[0], tables)
-    profile_window(f"{spec.strategy} step", one_step, steps)
+    profile_window(label or f"{spec.strategy} step", one_step, steps)
 
 
 def profile_window(label: str, one_step, steps: int = 4):
@@ -597,6 +718,8 @@ def reset_launches():
     for fn in (spec_attention_cuda, ngram_match_cuda,
                paged_spec_attention_cuda):
         fn.launches = 0
+    spec_attention_cuda.tree_launches = 0
+    paged_spec_attention_cuda.tree_launches = 0
 
 
 def read_launches() -> dict:
@@ -605,7 +728,10 @@ def read_launches() -> dict:
                                                     spec_attention_cuda)
     return {"spec_attention": spec_attention_cuda.launches,
             "ngram_match": ngram_match_cuda.launches,
-            "paged_spec_attention": paged_spec_attention_cuda.launches}
+            "paged_spec_attention": paged_spec_attention_cuda.launches,
+            "tree_spec_attention": spec_attention_cuda.tree_launches,
+            "paged_tree_spec_attention":
+                paged_spec_attention_cuda.tree_launches}
 
 
 def check_paged_run(engine, done, work):
@@ -760,6 +886,220 @@ def phase_continuous(tables) -> int:
     return runs[("mixed", True)][1]["paged_spec_attention"]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: tree speculation
+# ---------------------------------------------------------------------------
+def tree_workload():
+    """The reference tree benchmark's mix (``make_repetitive_prompts``,
+    benchmarks/continuous_batching.py), rebuilt: 12 code prompts, the even
+    ones one chunk looped verbatim, the odd ones two chunks with a shared
+    prefix alternating (the top-1 n-gram successor is right half the time
+    at a seam, the top-2 set always), cut to the 128 bucket."""
+    from repro_torch.data.datasets import make_prompts
+    texts = [p for p, _ in make_prompts("code", TREE_N, seed=1)]
+    out = []
+    for i, t in enumerate(texts):
+        a = t[:14].strip() or "for i in"
+        if i % 2 == 0:
+            body = (a + " ") * 8
+        else:
+            b = (a[:6] + t[20:28]).strip() or a + "x"
+            body = "".join((a if j % 2 else b) + " " for j in range(8))
+        out.append(body[:TREE_BUCKET - 1])
+    return out
+
+
+def tree_specs() -> dict:
+    """name -> (SpecConfig, verify inputs per call)."""
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.core.tree import num_nodes
+    wd, dp, br = TREE_WDB
+    k, w = TREE_LINEAR
+    return {f"tree {TREE_WDB}": (SpecConfig(k=wd, w=dp, strategy="mixed",
+                                            tree=True, tree_branch=br),
+                                 num_nodes(*TREE_WDB) + 1),
+            f"linear {TREE_LINEAR}": (SpecConfig(k=k, w=w, strategy="mixed"),
+                                      k * (w + 1)),
+            "greedy": (SpecConfig(strategy="greedy"), 1)}
+
+
+def tree_engine(params, cfg, spec, tables, paged=None):
+    """A 4-slot engine over the 128 bucket; ``paged`` None: static (the
+    linear cache), else continuous over the 16-page pool or linear."""
+    from repro_torch.serving.engine import ServingEngine
+    kw = {} if not paged else dict(paged=True, num_pages=CONT_PAGES,
+                                   page_size=CONT_PAGE)
+    return ServingEngine(params, cfg, spec,
+                         tables=None if spec.strategy == "greedy" else tables,
+                         max_batch=TREE_SLOTS, buckets=(TREE_BUCKET,),
+                         max_new_cap=TREE_NEW, **kw)
+
+
+def check_pool_drained(engine):
+    from repro_torch.models.cache import check_page_invariants
+    st = engine.pool_stats()
+    inv = check_page_invariants(engine._cont_state.model)
+    if st["free_pages"] != st["num_pages"] or inv["allocated"] != 0 \
+            or st["rejected"] != 0:
+        raise AssertionError(f"pool not drained cleanly: {st}, {inv}")
+    return st
+
+
+def profile_fill_tree(tables, prompts):
+    """``fill_tree`` alone on a batch of the mix's committed buffers: the
+    device ops and time the level-wise fill adds to a tree step."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tree import fill_tree, topology
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving.scheduler import Scheduler
+    sched = Scheduler(buckets=(TREE_BUCKET,))
+    buf = torch.as_tensor(np.stack([sched.pad_to_bucket(
+        ByteTokenizer().encode(p)) for p in prompts]), device="cuda")
+    buf_len = torch.full((buf.shape[0],), TREE_BUCKET, dtype=torch.int32,
+                         device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    drafts = torch.randint(0, 256, (buf.shape[0],) + TREE_WDB[:2],
+                           generator=g, device="cuda", dtype=torch.int32)
+    topo = topology(*TREE_WDB)
+    profile_window(f"fill_tree {TREE_WDB} alone", lambda: fill_tree(
+        topo, drafts, tables, buf=buf, buf_len=buf_len), steps=8)
+
+
+def phase_tree(tables) -> dict:
+    """Phase 6: the tree mix served statically and continuously (bf16),
+    6b: a tree step and a linear (12, 5) step profiled, then the f32
+    lossless check.  Returns K4's launches on the tree path: the linear
+    instantiation's in the static tree run, the paged one's in the
+    continuous paged tree run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.spec_engine import greedy_reference
+    from repro_torch.models import model as M
+    cfg = get_config("stablelm-1.6b")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    prompts = tree_workload()
+    work = [(p, TREE_NEW) for p in prompts]
+    specs = tree_specs()
+    tree_name = f"tree {TREE_WDB}"
+    k4 = {}
+    runs = {}
+
+    def report(mode, name, done, wall, launches, extra=""):
+        n_new = sum(r.stats["new_tokens"] for r in done)
+        calls = sum(r.stats["model_calls"] for r in done)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist = np.sum([r.stats["accept_hist"] for r in done], axis=0)
+        print(f"  {mode} {name} ({specs[name][1]} verify inputs): {n_new} "
+              f"new tokens in {wall:.3f} s = {n_new / wall:.1f} tokens/s, "
+              f"tokens/call {n_new / max(calls, 1):.3f}, {calls} calls, "
+              f"accept_hist {hist.tolist()}, peak memory {peak:.2f} GiB"
+              f"{extra}, launches {launches}")
+        check_budgets(done, work)
+        return n_new / max(calls, 1)
+
+    tpc = {}
+    for name, (spec, _) in specs.items():
+        eng = tree_engine(params, cfg, spec, tables)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()              # counts from zero just before the run
+        done, wall = serve(eng, prompts, TREE_NEW)
+        launches = read_launches()
+        tpc[name] = report("static", name, done, wall, launches)
+        if spec.tree:
+            k4["tree_spec_attention"] = launches["tree_spec_attention"]
+            if launches["tree_spec_attention"] <= 0 \
+                    or launches["spec_attention"] != 0:
+                raise AssertionError(f"static tree run not carried by K4: "
+                                     f"{launches}")
+        runs["static", name] = done
+    for name in specs:
+        print(f"  static tokens/call at verify cost: {name}: "
+              f"{tpc[name]:.3f} ({specs[name][1]} inputs)")
+    for name, paged in ((tree_name, True), (tree_name, False),
+                        (f"linear {TREE_LINEAR}", True), ("greedy", True)):
+        spec = specs[name][0]
+        eng = tree_engine(params, cfg, spec, tables, paged=paged)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()              # counts from zero just before the run
+        done, wall = serve_continuous(eng, work)
+        launches = read_launches()
+        pool = ""
+        if paged:
+            st = check_pool_drained(eng)
+            pool = (f", peak pages {st['peak_pages']} of {st['num_pages']},"
+                    f" deferrals {st['deferrals']}")
+        lat = np.array([r.stats["latency_s"] for r in done])
+        pool += (f", latency p50 {np.percentile(lat, 50):.3f} s p99 "
+                 f"{np.percentile(lat, 99):.3f} s")
+        mode = f"continuous {'paged' if paged else 'linear'}"
+        report(mode, name, done, wall, launches, pool)
+        if spec.tree:
+            key = "paged_tree_spec_attention" if paged \
+                else "tree_spec_attention"
+            other = ("spec_attention", "paged_spec_attention",
+                     "tree_spec_attention" if paged
+                     else "paged_tree_spec_attention")
+            if launches[key] <= 0 or any(launches[o] for o in other):
+                raise AssertionError(f"{mode} tree run not carried by K4 "
+                                     f"alone: {launches}")
+            if paged:
+                k4["paged_tree_spec_attention"] = launches[key]
+        runs[mode, name] = done
+    same = [bool(np.array_equal(a.output_ids, b.output_ids)) for a, b in
+            zip(runs["continuous paged", tree_name],
+                runs["continuous linear", tree_name])]
+    print(f"  bf16 continuous tree: paged == linear for {sum(same)} of "
+          f"{len(same)} requests")
+    if not all(same):
+        raise AssertionError("bf16 tree paged differs from tree linear")
+    print("phase 6b: where a tree step's time goes (torch.profiler, "
+          f"{TREE_SLOTS} prompts of the mix, static)")
+    for name in (tree_name, f"linear {TREE_LINEAR}"):
+        profile_steps(params, cfg, specs[name][0], tables,
+                      prompts[:TREE_SLOTS], bucket=TREE_BUCKET,
+                      label=f"{name} step")
+    profile_fill_tree(tables, prompts[:TREE_SLOTS])
+    del params
+    torch.cuda.empty_cache()
+
+    print("phase 6, lossless: the tree in f32 (TF32 off)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = M.init_params(cfg32, seed=0, device="cuda")
+    tree_spec = specs[tree_name][0]
+    eng = tree_engine(params32, cfg32, tree_spec, tables)
+    toks = np.stack([eng.scheduler.pad_to_bucket(eng.tok.encode(p))
+                     for p in prompts])
+    ref = greedy_reference(params32, cfg32, toks, TREE_NEW).cpu().numpy()
+    outs = {"static": serve(eng, prompts, TREE_NEW)[0]}
+    for paged in (False, True):
+        eng = tree_engine(params32, cfg32, tree_spec, tables, paged=paged)
+        outs[f"continuous {'paged' if paged else 'linear'}"] = \
+            serve_continuous(eng, work)[0]
+    for mode, done in outs.items():
+        for i, r in enumerate(done):
+            want = ref[i, TREE_BUCKET:]
+            if not np.array_equal(r.output_ids, want):
+                j = int(np.argmax(r.output_ids != want))
+                m = top2_margin(params32, cfg32, ref[i], TREE_BUCKET + j - 1)
+                print(f"  request {r.request_id}: f32 {mode} tree != "
+                      f"greedy_reference at new token {j} (top-2 margin "
+                      f"{m:.4g})")
+                raise AssertionError(f"f32 {mode} tree is not lossless")
+        calls = sum(r.stats["model_calls"] for r in done)
+        print(f"  f32 {mode} tree == greedy_reference for {len(done)} "
+              f"requests x {TREE_NEW} tokens ({calls} verify calls)")
+    del params32, eng
+    torch.cuda.empty_cache()
+    return k4
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -792,6 +1132,10 @@ def main() -> int:
           f"ragged cur_len={cont_cur})")
     rec["paged_spec_attention"] = phase_k3(cont_cur)
 
+    print(f"phase 2c: K4 (tree {TREE_WDB} ancestor tail, linear and paged,"
+          f" ragged cur_len={cont_cur})")
+    rec.update(phase_k4(cont_cur))
+
     print("phase 3: serve")
     launches, tables = phase_serve()
 
@@ -799,19 +1143,26 @@ def main() -> int:
           f"(bf16, {CONT_N} requests, {CONT_SLOTS} slots)")
     launches["paged_spec_attention"] = phase_continuous(tables)
 
+    print(f"phase 6: tree speculation (bf16, {TREE_N} requests of the tree "
+          f"mix, {TREE_SLOTS} slots, bucket {TREE_BUCKET}, {TREE_NEW} new "
+          f"tokens)")
+    launches.update(phase_tree(tables))
+
+    cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
-                   "src/repro_torch/kernels/csrc/spec_attention.cu",
-                   "src/repro/kernels/spec_attention.py:137"),
+                   cu, "src/repro/kernels/spec_attention.py:137"),
                "ngram_match": (
                    "src/repro_torch/kernels/csrc/ngram_match.cu",
                    "src/repro/kernels/ngram_match.py:50"),
                "paged_spec_attention": (
-                   "src/repro_torch/kernels/csrc/spec_attention.cu",
-                   "src/repro/kernels/spec_attention.py:204")}
+                   cu, "src/repro/kernels/spec_attention.py:204"),
+               "tree_spec_attention": (
+                   cu, "src/repro/kernels/spec_attention.py:174"),
+               "paged_tree_spec_attention": (
+                   cu, "src/repro/kernels/spec_attention.py:240")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1], launches=launches[n], **rec[n])
-               for n in ("spec_attention", "ngram_match",
-                         "paged_spec_attention")]
+               for n in sources]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,16 @@ Invariants (as in the reference):
 
 The commit writes the winner's verified KV tail into the shared cache in
 place (attention-only stacks; the reference's gated replay for recurrent
-mixers, the tree and adaptive branches and sampling are not ported yet).
-Over a paged cache the step first grows every running row's pages to cover
-what it may commit (``cache.grow_pages``, device-side, no host read).
+mixers, the adaptive branch and sampling are not ported yet).  Over a paged
+cache the step first grows every running row's pages to cover what it may
+commit (``cache.grow_pages``, device-side, no host read).
+
+Tree mode (``SpecConfig.tree``): the k independent rows become ONE token
+tree per slot (``core/tree.py``), (k, w) read as (tree width, depth).  The
+whole tree is verified in a single (B, 1, N+1) call whose attention sees
+each node's ancestors only (K4 on the card); acceptance runs over the
+tree's root-to-leaf paths, and the winning path's KV tail is gathered and
+committed through the unchanged ``commit_kv_tails``, linear or paged.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from ..device import resolve_device
 from ..models import cache as C
 from ..models import model as M
 from ..models.config import ModelConfig
+from . import tree as T
 from .drafters import (bigram_draft, context_ngram_draft, mixed_draft,
                        unigram_draft)
 from .ngram_tables import NGramTables
@@ -64,8 +72,29 @@ class SpecConfig:
     strategy: str = "mixed"     # mixed | bigram | unigram | context | greedy
     max_new_tokens: int = 64
     eos_id: int = -1            # -1: never stop on eos
+    # Tree mode: verify one draft TREE per slot instead of k independent
+    # rows; (k, w) read as (tree width, depth), and ``tree_branch`` is how
+    # many of the first depths fan out over the drafter's top-k candidates
+    # (deeper levels chain).  Attention-only archs, tables required.
+    tree: bool = False
+    tree_branch: int = 2
+
+    def validate_tree(self) -> "SpecConfig":
+        """Raise unless the tree knobs are a buildable topology."""
+        if not self.tree:
+            return self
+        if self.strategy == "greedy":
+            raise ValueError("tree mode needs a drafting strategy "
+                             "(strategy='greedy' verifies nothing)")
+        if self.w < 1:
+            raise ValueError(f"tree mode needs w >= 1, got w={self.w}")
+        if self.tree_branch < 1:
+            raise ValueError(
+                f"tree_branch must be >= 1, got {self.tree_branch}")
+        return self
 
     def validate(self) -> "SpecConfig":
+        self.validate_tree()
         if self.strategy not in STRATEGIES:
             raise ValueError(f"strategy must be one of {STRATEGIES}, got "
                              f"{self.strategy!r}")
@@ -114,13 +143,16 @@ def _draft(spec: SpecConfig, tables: NGramTables, buf, buf_len, last):
 
 def _init_stats(spec: SpecConfig, B: int, device) -> Dict[str, torch.Tensor]:
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)
+    # tree mode ranks over root-to-leaf PATHS, not drafter rows
+    ranks = (T.num_paths(spec.k, spec.w, spec.tree_branch) if spec.tree
+             else spec.k)
     return {
         "calls": z(B),
         "tokens": z(B),
         # n_commit per verify call in bins 0..w+1; bin 0 stays zero (every
         # call commits >= 1 token) and hist.sum() == calls
         "accept_hist": z(B, spec.w + 2),
-        "rank_hist": z(B, max(spec.k, 1)),
+        "rank_hist": z(B, max(ranks, 1)),
         "alloc_ctx": z(B, spec.k + 1),          # n_ctx per call
         "accepted_ctx": z(B),                   # drafted tokens accepted
         "accepted_bigram": z(B),                # per source
@@ -309,11 +341,27 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
     last_i = torch.remainder(len_c - 1, L)[:, None].long()
     last = buf_c.gather(1, last_i)[:, 0]
     drafts, valid, n_ctx = _draft(spec, tables, buf_c, len_c, last)
-    rows = torch.cat([last[:, None, None].expand(B, spec.k, 1), drafts],
-                     dim=-1)                                     # (B,k,w+1)
-    logits, tails = M.verify(params, cfg, state_c, rows)
-    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    acc = accept(drafts, greedy)
+    if spec.tree:
+        # ONE (B, 1, N+1) verify call scores the whole token tree; the
+        # ancestor mask and per-level positions make every root-to-leaf
+        # path score exactly as a linear row of its tokens would
+        topo = T.topology(spec.k, spec.w, spec.tree_branch)
+        tc = T.device_constants(spec.k, spec.w, spec.tree_branch, dev)
+        nodes = T.fill_tree(topo, drafts, tables, buf=buf_c,
+                            buf_len=len_c)                       # (B, N)
+        rows = torch.cat([last[:, None], nodes], dim=1)[:, None]  # (B,1,N+1)
+        logits, tails = M.verify(params, cfg, state_c, rows,
+                                 pos_off=tc.pos_off,
+                                 tail_mask=tc.tail_mask)
+        preds = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        # path views: (B, P, w) draft tokens, (B, P, w+1) predictions
+        acc = accept(nodes[:, tc.path_nodes], preds[:, tc.path_inputs])
+    else:
+        rows = torch.cat([last[:, None, None].expand(B, spec.k, 1), drafts],
+                         dim=-1)                                 # (B,k,w+1)
+        logits, tails = M.verify(params, cfg, state_c, rows)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        acc = accept(drafts, greedy)
     active = _running(s)
     budget = (s.prompt_len + s.budget - len_c).clamp(min=0)
     n_commit = torch.where(active, torch.minimum(acc.n_commit, budget), 0)
@@ -324,7 +372,19 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
     n_commit = torch.where(has_eos, first_eos + 1, n_commit).to(torch.int32)
     done_c = done_c | (has_eos & active)
     # commit the model state (in place)
-    state_n = M.commit_kv_tails(cfg, state_c, tails, acc.winner, n_commit)
+    b_idx = torch.arange(B, device=dev)
+    if spec.tree:
+        # gather the winning PATH's inputs out of the (N+1)-wide tree tails
+        # into a (w+1)-wide linear tail; the stock commit (winner row 0 of
+        # 1) writes it, linear or paged
+        sel = tc.path_inputs[acc.winner.long()]                 # (B, w+1)
+        tails = {g: {kk: tt[:, :, 0][:, b_idx[:, None], sel][:, :, None]
+                     for kk, tt in d.items()} for g, d in tails.items()}
+        state_n = M.commit_kv_tails(cfg, state_c, tails,
+                                    torch.zeros_like(acc.winner), n_commit)
+    else:
+        state_n = M.commit_kv_tails(cfg, state_c, tails, acc.winner,
+                                    n_commit)
     # write accepted tokens into the buffer (in place)
     pos = torch.arange(spec.w + 1, device=dev)[None, :]
     slots = (len_c[:, None].long() + pos).clamp(0, L - 1)
@@ -336,7 +396,6 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
     # ---- stats ----
     st = dict(s.stats)
     act = active.to(torch.int32)
-    b_idx = torch.arange(B, device=dev)
     st["calls"] = st["calls"] + act
     st["tokens"] = st["tokens"] + n_commit
     st["accept_hist"] = st["accept_hist"].index_put(
@@ -347,7 +406,10 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
         accumulate=True)
     st["alloc_ctx"] = st["alloc_ctx"].index_put(
         (b_idx, n_ctx.long().clamp(0, spec.k)), act, accumulate=True)
-    from_ctx = acc.winner < n_ctx
+    # the winning path's origin: the drafter row its first branch tracks
+    # (tree) or the winning row itself (linear)
+    from_ctx = ((tc.path_first[acc.winner.long()] if spec.tree
+                 else acc.winner) < n_ctx)
     acc_drafted = (n_commit - 1).clamp(min=0)
     st["accepted_ctx"] = st["accepted_ctx"] + torch.where(
         active & from_ctx, acc_drafted, 0)

@@ -1,5 +1,6 @@
-// K1 and K3 for Hopper: bifurcated speculative-verification attention over
-// a linear (K1) or a paged (K3) KV cache.
+// K1, K3 and K4 for Hopper: bifurcated speculative-verification attention
+// over a linear (K1) or a paged (K3) KV cache, and its tree variant (K4) over
+// either.
 //
 // K1 replaces the TPU kernel repro/kernels/spec_attention.py:
 // spec_attention_call (body _kernel), K3 replaces paged_spec_attention_call
@@ -9,6 +10,16 @@
 //   out[b,i,h] = softmax( q.k / sqrt(hd) over  cache slots s < cur_len[b]
 //                                          and tail keys j with j/W1 == i/W1,
 //                                                          j%W1 <= i%W1 ) . v
+//
+// K4 replaces the reference's tree tail_mask operand of both kernels
+// (_pad_mask and the mask select in _kernel): the tail keys of row i are
+// instead the entries of row i of an ancestor table anc (K*W1, anc_w) int32,
+// [n_i, a_0 < a_1 < .. < a_{n_i-1}, -1 ..] -- the tree inputs that are
+// ancestors-or-self of input i.  The row walks its <= depth+1 ancestors in
+// ascending order, the order in which a masked scan over all K*W1 inputs
+// would meet them, so the tail costs what a linear row's does.  A null anc
+// selects the linear tail at run time (uniform across the grid), so K4 adds
+// no template instance to the build.
 //
 // GQA maps head h to KV head h / G.  Accumulation is f32; out has q's dtype.
 //
@@ -84,8 +95,9 @@ struct Args {
   const void* kt;
   const void* vt;
   const int* cur_len;
+  const int* anc;               // K4 only: (KW1, anc_w) ancestor table
   void* out;
-  int KW1, W1, H, KV, hd, S;
+  int KW1, W1, H, KV, hd, S, anc_w;
   long long q_sb, q_si, q_sh;   // q and out (B, KW1, H, hd)
   long long c_sb, c_ss, c_sh;   // caches (B, S, KV, hd); paged: the pool
                                 // (NP, ps, KV, hd), c_sb its page stride
@@ -231,21 +243,26 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // ---- speculative tail: each row's own draft, causal, then write ----
+  // ---- speculative tail: each row's own draft (causal) or, K4, its
+  // ancestors-or-self in the tree; then write ----
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int r = warp * kRowsPerWarp + rr;
     const int row = row0 + r;
     if (row < n_rows) {
       const int g = row / a.KW1, i = row - g * a.KW1;
-      const int first = (i / a.W1) * a.W1;     // tail keys first..i visible
-      const int n_vis = i - first + 1;
+      // tail key t of this row: first + t (linear), arow[t] (K4)
+      const int first = (i / a.W1) * a.W1;
+      const int* arow = a.anc ? a.anc + (long long)i * a.anc_w + 1 : nullptr;
+      const int n_vis = arow ? min(max(arow[-1], 0), a.anc_w - 1)
+                             : i - first + 1;
       const float* qr = Qs + r * hd;
       for (int t0 = 0; t0 < n_vis; t0 += 32) {
         const int t = t0 + lane;
         float s = -INFINITY;
         if (t < n_vis) {
-          const T* kr = kt + b * a.t_sb + (long long)(first + t) * a.t_si +
+          const int j = arow ? arow[t] : first + t;
+          const T* kr = kt + b * a.t_sb + (long long)j * a.t_si +
                         kvh * a.t_sh;
           float dot = 0.f;
           for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], to_f(kr[d]), dot);
@@ -261,7 +278,8 @@ __global__ void __launch_bounds__(kThreads)
         const int nt = min(32, n_vis - t0);
         for (int jj = 0; jj < nt; ++jj) {
           const float pj = __shfl_sync(kFull, p, jj);
-          const T* vr = vt + b * a.t_sb + (long long)(first + t0 + jj) * a.t_si +
+          const int j = arow ? arow[t0 + jj] : first + t0 + jj;
+          const T* vr = vt + b * a.t_sb + (long long)j * a.t_si +
                         kvh * a.t_sh;
 #pragma unroll
           for (int dd = 0; dd < DPL; ++dd) {
@@ -318,33 +336,36 @@ int launch_dtype(int dtype, const Args& a, int B, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  anc: null (K1) or K4's ancestor table
+// (KW1, anc_w) int32.  Returns cudaGetLastError() of the launch.
 extern "C" int spec_attention_launch(
     int dtype, const void* q, const void* k_cache, const void* v_cache,
-    const void* k_tail, const void* v_tail, const int* cur_len, void* out,
-    int B, int KW1, int W1, int H, int KV, int hd, int S, long long q_sb,
-    long long q_si, long long q_sh, long long c_sb, long long c_ss,
-    long long c_sh, long long t_sb, long long t_si, long long t_sh,
-    float scale, void* stream) {
-  Args a{q,    k_cache, v_cache, k_tail, v_tail, cur_len, out,    KW1,
-         W1,   H,       KV,      hd,     S,      q_sb,    q_si,   q_sh,
-         c_sb, c_ss,    c_sh,    t_sb,   t_si,   t_sh,    scale,  nullptr,
-         1,    0};
+    const void* k_tail, const void* v_tail, const int* cur_len,
+    const int* anc, void* out, int B, int KW1, int W1, int H, int KV, int hd,
+    int S, int anc_w, long long q_sb, long long q_si, long long q_sh,
+    long long c_sb, long long c_ss, long long c_sh, long long t_sb,
+    long long t_si, long long t_sh, float scale, void* stream) {
+  Args a{q,    k_cache, v_cache, k_tail, v_tail, cur_len, anc,    out,
+         KW1,  W1,      H,       KV,     hd,     S,       anc_w,  q_sb,
+         q_si, q_sh,    c_sb,    c_ss,   c_sh,   t_sb,    t_si,   t_sh,
+         scale, nullptr, 1,      0};
   return launch_dtype<false>(dtype, a, B, stream);
 }
 
-// K3: the pool (NP, ps, KV, hd) has page stride p_sp, in-page stride p_ss
-// and head stride p_sh; page_table (B, pps) int32 contiguous.
+// K3 (K4 over the pool when anc is given): the pool (NP, ps, KV, hd) has
+// page stride p_sp, in-page stride p_ss and head stride p_sh; page_table
+// (B, pps) int32 contiguous.
 extern "C" int paged_spec_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const int* page_table, const void* k_tail, const void* v_tail,
-    const int* cur_len, void* out, int B, int KW1, int W1, int H, int KV,
-    int hd, int ps, int pps, long long q_sb, long long q_si, long long q_sh,
-    long long p_sp, long long p_ss, long long p_sh, long long t_sb,
-    long long t_si, long long t_sh, float scale, void* stream) {
-  Args a{q,    k_pool, v_pool, k_tail, v_tail, cur_len,    out,   KW1,
-         W1,   H,      KV,     hd,     ps * pps, q_sb,     q_si,  q_sh,
-         p_sp, p_ss,   p_sh,   t_sb,   t_si,   t_sh,       scale, page_table,
-         ps,   pps};
+    const int* cur_len, const int* anc, void* out, int B, int KW1, int W1,
+    int H, int KV, int hd, int ps, int pps, int anc_w, long long q_sb,
+    long long q_si, long long q_sh, long long p_sp, long long p_ss,
+    long long p_sh, long long t_sb, long long t_si, long long t_sh,
+    float scale, void* stream) {
+  Args a{q,    k_pool, v_pool, k_tail, v_tail, cur_len,  anc,   out,
+         KW1,  W1,     H,      KV,     hd,     ps * pps, anc_w, q_sb,
+         q_si, q_sh,   p_sp,   p_ss,   p_sh,   t_sb,     t_si,  t_sh,
+         scale, page_table, ps, pps};
   return launch_dtype<true>(dtype, a, B, stream);
 }

@@ -7,12 +7,12 @@ tensor the kernel refuses raises from the kernel's wrapper.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .ngram_match import ngram_match_cuda, ngram_match_plain
-from .spec_attention import (paged_spec_attention_cuda,
+from .spec_attention import (TreeMask, paged_spec_attention_cuda,
                              paged_spec_attention_plain, spec_attention_cuda,
                              spec_attention_plain)
 
@@ -34,33 +34,45 @@ def verify_kernel_supported(cfg) -> bool:
 
 
 def verify_attention(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
-                     w1: int) -> torch.Tensor:
+                     w1: int, tail_mask: Optional[TreeMask] = None
+                     ) -> torch.Tensor:
     """Bifurcated verify attention in the engine layout.
 
     q: (B, K, W1, H, hd); caches (B, S, KV, hd); tails (B, K, W1, KV, hd);
-    cur_len (B,) int32.  Returns (B, K, W1, H, hd) in q's dtype.
+    cur_len (B,) int32.  ``tail_mask``: optional static (K*W1, K*W1) tail
+    visibility replacing the per-row causal one, tree verification's
+    ancestor mask (K == 1 there): K4 on the card reads its ancestor table,
+    the plain version its bool mask.  Returns (B, K, W1, H, hd) in q's
+    dtype.
     """
     if on_card(q):
-        return spec_attention_cuda(q, k_cache, v_cache, k_tail, v_tail,
-                                   cur_len, w1=w1)
-    return spec_attention_plain(q, k_cache, v_cache, k_tail, v_tail,
-                                cur_len, w1=w1)
+        return spec_attention_cuda(
+            q, k_cache, v_cache, k_tail, v_tail, cur_len, w1=w1,
+            anc=None if tail_mask is None else tail_mask.anc)
+    return spec_attention_plain(
+        q, k_cache, v_cache, k_tail, v_tail, cur_len, w1=w1,
+        tail_mask=None if tail_mask is None else tail_mask.mask)
 
 
 def verify_attention_paged(q, k_pool, v_pool, page_table, k_tail, v_tail,
-                           cur_len, *, w1: int) -> torch.Tensor:
+                           cur_len, *, w1: int,
+                           tail_mask: Optional[TreeMask] = None
+                           ) -> torch.Tensor:
     """Bifurcated verify attention over a paged KV pool.
 
     q: (B, K, W1, H, hd); pools (NP, ps, KV, hd); page_table (B, PPS) int32
-    (-1 = unallocated); tails (B, K, W1, KV, hd); cur_len (B,) int32.
-    Returns (B, K, W1, H, hd) in q's dtype: K3 on the card, on the CPU its
-    plain version (the gathered linear view through K1's plain version).
+    (-1 = unallocated); tails (B, K, W1, KV, hd); cur_len (B,) int32;
+    ``tail_mask`` as in ``verify_attention``.  Returns (B, K, W1, H, hd) in
+    q's dtype: K3 (K4 given a tree) on the card, on the CPU its plain
+    version (the gathered linear view through K1's plain version).
     """
     if on_card(q):
-        return paged_spec_attention_cuda(q, k_pool, v_pool, page_table,
-                                         k_tail, v_tail, cur_len, w1=w1)
-    return paged_spec_attention_plain(q, k_pool, v_pool, page_table, k_tail,
-                                      v_tail, cur_len, w1=w1)
+        return paged_spec_attention_cuda(
+            q, k_pool, v_pool, page_table, k_tail, v_tail, cur_len, w1=w1,
+            anc=None if tail_mask is None else tail_mask.anc)
+    return paged_spec_attention_plain(
+        q, k_pool, v_pool, page_table, k_tail, v_tail, cur_len, w1=w1,
+        tail_mask=None if tail_mask is None else tail_mask.mask)
 
 
 def ngram_sweep(buf: torch.Tensor, query: torch.Tensor,

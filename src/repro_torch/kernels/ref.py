@@ -10,13 +10,14 @@ NEG_INF = -1e30
 
 
 def spec_attention_ref(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
-                       w1: int) -> torch.Tensor:
+                       w1: int, tail_mask=None) -> torch.Tensor:
     """Bifurcated verify attention, computed densely in f32.
 
     q: (B,H,KW1,hd); k/v_cache: (B,KV,S,hd); k/v_tail: (B,KV,KW1,hd);
     cur_len: (B,).  Cache slots >= cur_len are masked; tail key j is
-    visible to query i iff both lie in the same w1-row and j%w1 <= i%w1.
-    Returns (B,H,KW1,hd) in q's dtype.
+    visible to query i iff both lie in the same w1-row and j%w1 <= i%w1,
+    or, given ``tail_mask`` (KW1, KW1) bool (a tree's ancestor-or-self
+    mask), iff ``tail_mask[i, j]``.  Returns (B,H,KW1,hd) in q's dtype.
     """
     B, H, KW1, hd = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
@@ -28,10 +29,13 @@ def spec_attention_ref(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
              < cur_len.to(q.device)[:, None])
     lc = torch.where(valid[:, None, None, None, :], lc, NEG_INF)
     lt = torch.einsum("bngqh,bnth->bngqt", qf, k_tail.float()) * scale
-    qi = torch.arange(KW1, device=q.device)
-    same_row = (qi[:, None] // w1) == (qi[None, :] // w1)
-    causal = (qi[None, :] % w1) <= (qi[:, None] % w1)
-    lt = torch.where(same_row & causal, lt, NEG_INF)
+    if tail_mask is None:
+        qi = torch.arange(KW1, device=q.device)
+        same_row = (qi[:, None] // w1) == (qi[None, :] // w1)
+        causal = (qi[None, :] % w1) <= (qi[:, None] % w1)
+        tail_mask = same_row & causal
+    lt = torch.where(torch.as_tensor(tail_mask, dtype=torch.bool,
+                                     device=q.device), lt, NEG_INF)
     w = torch.softmax(torch.cat([lc, lt], dim=-1), dim=-1)
     out = (torch.einsum("bngqs,bnsh->bngqh", w[..., :S], v_cache.float())
            + torch.einsum("bngqt,bnth->bngqh", w[..., S:], v_tail.float()))

@@ -5,8 +5,8 @@ Prefill and the full forward use ``masked_attention``, plain tensor ops (the
 reference leaves it to XLA as well).  Verify and decode use the bifurcated
 attention of the paper's batched (k, w+1) verification: on the card through
 K1 (``kernels/dispatch.verify_attention``) or, over a paged pool, K3
-(``dispatch.verify_attention_paged``); on the CPU through
-``_verify_attention_xla``, the plain verify.
+(``dispatch.verify_attention_paged``), and K4 for a token tree in either
+layout; on the CPU through ``_verify_attention_xla``, the plain verify.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from ..kernels import dispatch
 from ..kernels.ref import gather_pages
+from ..kernels.spec_attention import TreeMask
 from .config import MROPE, ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -128,12 +129,16 @@ def attn_full(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail, cache_pos,
-                          pos2d, cfg: ModelConfig) -> torch.Tensor:
+                          pos2d, cfg: ModelConfig,
+                          tail_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Plain bifurcated verify attention (the reference's XLA path).
 
     q: (B,K,W1,H,hd); caches (B,S,KV,hd); tails (B,K,W1,KV,hd);
     cache_pos: (B,S) absolute position per slot (-1 = empty, ring-aware);
-    pos2d: (B,W1) query positions.  Returns (B,K,W1,H,hd) f32.
+    pos2d: (B,W1) query positions.  ``tail_mask``: optional static (W1, W1)
+    bool tail visibility replacing the causal triangle, tree verification's
+    ancestor mask (K == 1 there).  Returns (B,K,W1,H,hd) f32.
     Covers softcap and sliding-window ring caches, which K1 does not.
     """
     B, K, W1, H, hd = q.shape
@@ -157,8 +162,9 @@ def _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail, cache_pos,
     ll = torch.einsum("bkwnGh,bkvnh->bknGwv", qg, kn) * scale
     if cfg.attn_logit_softcap:
         ll = cfg.attn_logit_softcap * torch.tanh(ll / cfg.attn_logit_softcap)
-    local = torch.tril(torch.ones((W1, W1), dtype=torch.bool,
-                                  device=q.device))
+    local = (torch.tril(torch.ones((W1, W1), dtype=torch.bool,
+                                   device=q.device))
+             if tail_mask is None else tail_mask)
     ll = torch.where(local, ll, NEG_INF)
     # merged softmax without concatenating [lc | ll]
     m = torch.maximum(lc.amax(dim=-1), ll.amax(dim=-1))     # (b,k,n,G,w)
@@ -175,7 +181,8 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
                 cache_pos: torch.Tensor, cur_len: torch.Tensor,
-                page_table: Optional[torch.Tensor] = None
+                page_table: Optional[torch.Tensor] = None,
+                tail_mask: Optional[TreeMask] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Bifurcated batched-speculation attention (the paper's verification).
 
@@ -190,6 +197,9 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
     the layer's shared pool (NP, ps, KV, hd).  On the card K3 walks the
     table; on the CPU the per-slot linear view is gathered first and the
     plain verify runs on it unchanged, with cache_pos over PPS*ps slots.
+    tail_mask: optional static tail visibility of a token tree (the tree
+    rides as the single row k == 1; ``core/tree.device_constants``):
+    K4 on the card, the plain verify with its bool mask on the CPU.
     Returns (y (B,k,w1,d), k_new, v_new (B,k,w1,KV,hd)).
     """
     B, K, W1, d = x.shape
@@ -210,17 +220,18 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
         if page_table is not None:
             out = dispatch.verify_attention_paged(qk, k_cache, v_cache,
                                                   page_table, kn, vn,
-                                                  cur_len, w1=W1)
+                                                  cur_len, w1=W1,
+                                                  tail_mask=tail_mask)
         else:
             out = dispatch.verify_attention(qk, k_cache, v_cache, kn, vn,
-                                            cur_len, w1=W1)
-    elif page_table is not None:
-        k_lin, v_lin = gather_pages(k_cache, v_cache, page_table)
-        out = _verify_attention_xla(qk, k_lin, v_lin, kn, vn, cache_pos,
-                                    positions, cfg)
+                                            cur_len, w1=W1,
+                                            tail_mask=tail_mask)
     else:
+        mask = None if tail_mask is None else tail_mask.mask
+        if page_table is not None:
+            k_cache, v_cache = gather_pages(k_cache, v_cache, page_table)
         out = _verify_attention_xla(qk, k_cache, v_cache, kn, vn, cache_pos,
-                                    positions, cfg)
+                                    positions, cfg, tail_mask=mask)
     out = out.reshape(B, K, W1, cfg.num_heads * hd).to(cd)
     y = out @ params["wo"].to(cd)
     return y, kn, vn

@@ -121,18 +121,29 @@ def decode(params: Params, cfg: ModelConfig, state: State,
 
 
 def verify(params: Params, cfg: ModelConfig, state: State,
-           tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+           tokens: torch.Tensor, pos_off: Optional[torch.Tensor] = None,
+           tail_mask=None) -> Tuple[torch.Tensor, Dict]:
     """The paper's batched verification call.
 
     tokens: (B, k, w+1) — row i is [last_token, draft_i(0..w-1)].
     Returns (logits (B, k, w+1, V) f32, kv tails {gid: {"k_tail",
     "v_tail": (R, B, k, w+1, KV, hd)}}).  The state is only read.
+
+    Tree mode passes the whole token tree as the single row k == 1 with two
+    per-topology constants (``core/tree.device_constants``):
+      pos_off:   (w+1,) int tensor, each input's position offset (its tree
+                 level; 0 for the committed last token) in place of the
+                 linear arange: input i sits at cur_len + pos_off[i];
+      tail_mask: the topology's ``TreeMask``, ancestor-or-self visibility
+                 between tree inputs, threaded to the attention tail.
     """
     B, K, W1 = tokens.shape
     cur = state["cur_len"]
     S = _cache_len(state)
-    ctx: Dict[str, Any] = {"positions": make_positions(cfg, B, W1,
-                                                       offset=cur),
+    positions = (make_positions(cfg, B, W1, offset=cur) if pos_off is None
+                 else pos_off[None, :] + cur[:, None].long())
+    ctx: Dict[str, Any] = {"positions": positions,
+                           "tail_mask": tail_mask,
                            "k_rows": K,
                            "cache_pos": key_positions(cfg, S, cur),
                            "cur_len": cur}

@@ -139,7 +139,8 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
         y, k_t, v_t = attn_verify(bp["mixer"], hv, cfg, ctx["positions"],
                                   gst["k"], gst["v"], ctx["cache_pos"],
                                   ctx["cur_len"],
-                                  page_table=ctx.get("page_table"))
+                                  page_table=ctx.get("page_table"),
+                                  tail_mask=ctx.get("tail_mask"))
         y = y.reshape(x.shape)
         tails = {"k_tail": k_t, "v_tail": v_t}
     else:

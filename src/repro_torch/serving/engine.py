@@ -1,5 +1,5 @@
 """Serving engine: ties the scheduler to the speculative generator (port of
-``repro/serving/engine.py``, less its mesh, adaptive-arm, sampling and tree
+``repro/serving/engine.py``, less its mesh, adaptive-arm and sampling
 branches).
 
 One ``ServingEngine`` owns (params, cfg, tables) and serves batched requests
@@ -68,6 +68,11 @@ class ServingEngine:
         self.params = params
         self.cfg = cfg
         self.spec = (spec or SpecConfig(strategy="greedy")).validate()
+        if self.spec.tree and M.has_recurrent(cfg):
+            raise ValueError(
+                f"{cfg.name}: tree speculation needs an attention-only "
+                f"arch — recurrent mixers verify rows as causal "
+                f"sequences, which has no valid tree layout")
         self.tok = ByteTokenizer()
         self.max_batch = max_batch
         self.max_new_cap = max_new_cap

@@ -7,11 +7,13 @@ on a machine with only the port's dependencies:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Shapes are those of ``chip_smoke.py``'s main path (StableLM-2-1.6B, B=8,
-k=10, w=10, S=332) plus GQA, MQA, hd up to 256 and a 2048-slot cache.
-Tolerances: K1 and K3 f32 2e-5, bf16 2e-2 (the reference's kernel
+k=10, w=10, S=332) plus GQA, MQA, hd up to 256 and a 2048-slot cache; K4's
+are phase 2c's (tree (4, 5, 2), 69 inputs, and others).
+Tolerances: K1, K3 and K4 f32 2e-5, bf16 2e-2 (the reference's kernel
 tolerance); K2 bit-exact; K3 over a shuffled pool equals K1 over the
-gathered linear view bit for bit; paged continuous serving equals linear
-continuous serving token for token (tiny f32 model).
+gathered linear view bit for bit, and K4 over the pool equals K4 over the
+gathered view; paged continuous serving equals linear continuous serving
+token for token (tiny f32 model), with a tree too.
 """
 import numpy as np
 import pytest
@@ -19,10 +21,12 @@ import torch
 
 from repro_torch.kernels.ngram_match import ngram_match_cuda, ngram_match_plain
 from repro_torch.kernels.ref import gather_pages
+from repro_torch.core.tree import topology
 from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
                                                 paged_spec_attention_plain,
                                                 spec_attention_cuda,
-                                                spec_attention_plain)
+                                                spec_attention_plain,
+                                                tree_mask)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -119,6 +123,40 @@ def test_paged_spec_attention_cuda_matches_plain_and_k1(cuda_device, B, K,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wdb,B,H,KV,hd,ps,cur", [
+    ((4, 5, 2), 8, 32, 32, 64, 64, [64 + 40 * i for i in range(8)]),
+    ((4, 5, 2), 3, 32, 8, 128, 16, [700, 0, 333]),
+    ((3, 3, 2), 2, 32, 1, 256, 128, [299, 129]),
+    ((16, 5, 1), 2, 8, 4, 64, 5, [70, 7]),
+    ((6, 1, 2), 2, 4, 2, 80, 8, [33, 1]),
+    ((4, 5, 2), 2, 8, 4, 64, 64, [0, 0])])
+def test_tree_kernels_match_plain(cuda_device, wdb, B, H, KV, hd, ps, cur,
+                                  dtype):
+    """K4 over the linear cache and over the pool against the plain version
+    with the bool ancestor mask; over the pool it equals the linear one on
+    the gathered view bit for bit."""
+    topo = topology(*wdb)
+    W1 = topo.num_nodes + 1
+    tm = tree_mask(topo.anc_mask, cuda_device)
+    q, kp, vp, pt, kt, vt, cl = _paged_inputs(cuda_device, B, 1, W1, H, KV,
+                                              hd, ps, cur, dtype, seed=W1)
+    k_lin, v_lin = gather_pages(kp, vp, pt)
+    got_pg = paged_spec_attention_cuda(q, kp, vp, pt, kt, vt, cl, w1=W1,
+                                       anc=tm.anc)
+    got_lin = spec_attention_cuda(q, k_lin, v_lin, kt, vt, cl, w1=W1,
+                                  anc=tm.anc)
+    want = spec_attention_plain(q, k_lin, v_lin, kt, vt, cl, w1=W1,
+                                tail_mask=tm.mask)
+    want_pg = paged_spec_attention_plain(q, kp, vp, pt, kt, vt, cl, w1=W1,
+                                         tail_mask=tm.mask)
+    torch.cuda.synchronize()
+    _close(got_lin, want, TOL[dtype])
+    _close(got_pg, want_pg, TOL[dtype])
+    assert torch.equal(got_pg, got_lin), "K4 paged differs from K4 linear"
+
+
+@pytest.mark.gpu
 def test_paged_continuous_equals_linear_on_the_card(cuda_device):
     """A tiny f32 model served continuously over a small paged pool (with
     deferrals) and over the linear layout: the same tokens, K3 launched."""
@@ -134,22 +172,27 @@ def test_paged_continuous_equals_linear_on_the_card(cuda_device):
                       compute_dtype=torch.float32).validate()
     params = M.init_params(cfg, seed=0, device="cuda")
     outs = {}
-    for paged in (False, True):
-        eng = ServingEngine(params, cfg, SpecConfig(k=4, w=3),
-                            max_batch=3, buckets=(16, 32), max_new_cap=14,
-                            paged=paged, num_pages=9 if paged else None,
-                            page_size=8)
-        for i in range(7):
-            text = f"def f{i}(x): return x * {i} + 1"
-            eng.submit((text * 2)[:30] if i % 3 == 1 else text[:14],
-                       max_new_tokens=(6, 10, 14)[i % 3])
-        paged_spec_attention_cuda.launches = 0
-        done = sorted(eng.serve_continuous(), key=lambda r: r.request_id)
-        outs[paged] = [r.output_ids for r in done]
-        if paged:
-            assert paged_spec_attention_cuda.launches > 0
-            st = eng.pool_stats()
-            assert st["deferrals"] > 0 and st["rejected"] == 0
-            assert check_page_invariants(eng._cont_state.model)["free"] == 9
-    for a, b in zip(outs[False], outs[True]):
-        np.testing.assert_array_equal(a, b)
+    for tree in (False, True):
+        for paged in (False, True):
+            eng = ServingEngine(params, cfg, SpecConfig(k=4, w=3, tree=tree),
+                                max_batch=3, buckets=(16, 32),
+                                max_new_cap=14, paged=paged,
+                                num_pages=9 if paged else None, page_size=8)
+            for i in range(7):
+                text = f"def f{i}(x): return x * {i} + 1"
+                eng.submit((text * 2)[:30] if i % 3 == 1 else text[:14],
+                           max_new_tokens=(6, 10, 14)[i % 3])
+            fn = paged_spec_attention_cuda if paged else spec_attention_cuda
+            fn.launches = fn.tree_launches = 0
+            done = sorted(eng.serve_continuous(),
+                          key=lambda r: r.request_id)
+            outs[tree, paged] = [r.output_ids for r in done]
+            assert (fn.tree_launches if tree else fn.launches) > 0
+            if paged:
+                st = eng.pool_stats()
+                assert st["deferrals"] > 0 and st["rejected"] == 0
+                assert check_page_invariants(
+                    eng._cont_state.model)["free"] == 9
+    for key in outs:
+        for a, b in zip(outs[False, False], outs[key]):
+            np.testing.assert_array_equal(a, b)
