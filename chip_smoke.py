@@ -35,9 +35,25 @@ Phases (any failure raises and the script exits non-zero):
                every tree verify.  6b profiles a tree and a linear (12, 5)
                step.  In f32 (TF32 off) the tree's static, continuous
                linear and continuous paged outputs equal greedy_reference.
+  7. hybrid  — Jamba-1.5-Large cut to one period without experts
+               (``no_experts``: 7 Mamba + 1 attention layer at full width,
+               dense SwiGLU FFNs, 9.0 B parameters), bf16, seeded weights,
+               after StableLM is freed: 7a serves phase 3's 8 requests
+               statically, mixed and greedy (K5, K1 and K2 launch); 7b
+               profiles a mixed and a greedy step (K5's share); 7c serves
+               phase 5's 24-request mix continuously (paged mixed, linear
+               mixed, paged greedy; K3 on the paged runs; bf16 paged ==
+               linear); 7d, in f32 (TF32 off), 4 requests x 32 tokens
+               static and continuous paged are greedy decoding: equal to
+               greedy_reference, or, at a tie closer than f32 evaluation
+               can separate (measured in the run), the oracle's argmax on
+               their own prefix (``check_lossless``).
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
-for bit, and times it at the tree cell's shape.
+for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
+Mamba selective scan) against its plain version at the hybrid's prefill,
+verify, decode and replay shapes and odd ones (f32 2e-4), times it, and
+holds K1 at the hybrid's attention shape (H=64, KV=8, hd=128).
 The last two lines of stdout are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
 JSON record.
@@ -57,7 +73,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
               "float32": 67e12}      # float32 outside the tensor cores
+# exp on the special-function units: 16 results per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz boost clock (H100 SXM data sheet)
+SFU_PER_S = 16 * 132 * 1.98e9
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+K5_TOL = 2e-4                        # f32, the reference's kernel tolerance
 
 SERVE_K, SERVE_W, SERVE_NEW, SERVE_BUCKET = 10, 10, 64, 256
 LOSSLESS_REQUESTS, LOSSLESS_NEW = 4, 32
@@ -69,6 +90,8 @@ CONT_LONG_EVERY, CONT_LOSSLESS = 5, 8
 TREE_WDB = (4, 5, 2)             # width, depth, branch: 68 nodes + root
 TREE_LINEAR = (12, 5)            # the linear arm of matched cost: 72 inputs
 TREE_N, TREE_BUCKET, TREE_NEW, TREE_SLOTS = 12, 128, 48, 4
+# phase 7: the hybrid (Jamba, one period, no experts)
+HYB_PERIODS = 1
 
 
 def card_line() -> str:
@@ -385,6 +408,122 @@ def phase_k4(cont_cur: list) -> dict:
     return rec
 
 
+def k5_inputs(Bt, T, di, ds, seed, h0_rep=1, zero_h0=False):
+    """K5 operands with the reference kernel test's distributions; B and C
+    are strided views of one projection output, as in the Mamba layer."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    u = rn(Bt, T, di)
+    dt = torch.nn.functional.softplus(rn(Bt, T, di))
+    A = -torch.exp(rn(di, ds) * 0.3)
+    proj = rn(Bt, T, 7 + 2 * ds)
+    h0 = rn(Bt // h0_rep, di, ds)
+    if zero_h0:
+        h0.zero_()
+    return (u, dt, A, proj[..., 7:7 + ds], proj[..., 7 + ds:], rn(di), h0)
+
+
+def k5_bound_ms(Bt, T, di, ds, h0_rows, final, steps) -> tuple:
+    """Least time for K5's work: u, dt, B, C, A, D and h0 read once, y (and
+    the final or per-step states) written once, f32; per (row, step,
+    channel, state) one exp on the special-function units and 6 flops
+    (dt*A, the state's FMA, dt*u*B, the output's FMA), 3 more per (row,
+    step, channel)."""
+    n = Bt * T * di
+    bytes_ = 4 * (3 * n + 2 * Bt * T * ds + di * ds + di + h0_rows * di * ds
+                  + (Bt * di * ds if final else 0) + (n * ds if steps else 0))
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = max((6 * n * ds + 3 * n) / PEAK_FLOPS["float32"],
+                n * ds / SFU_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_k5(S_main: int, cur_main: list) -> dict:
+    """K5 against its plain version at the hybrid's shapes and odd ones
+    (f32 2e-4), its times at the prefill and verify shapes, and K1 at the
+    hybrid's attention shape."""
+    import torch
+    from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
+                                                mamba_scan_plain)
+    from repro_torch.kernels.spec_attention import (spec_attention_cuda,
+                                                    spec_attention_plain)
+    di, ds = 16384, 16                       # Jamba: d_inner, d_state
+    rows = 8 * SERVE_K
+    cases = [  # name, Bt, T, di, ds, h0_rep, final, steps, zero h0
+        ("prefill", 8, SERVE_BUCKET, di, ds, 1, True, False, True),
+        ("verify", rows, SERVE_W + 1, di, ds, SERVE_K, False, False, False),
+        ("decode", 8, 1, di, ds, 1, True, False, False),
+        ("replay", 8, SERVE_W + 1, di, ds, 1, False, True, False),
+        ("T=37 di=200 ds=8", 3, 37, 200, 8, 1, True, True, False),
+        ("T=1 di=130 ds=2", 4, 1, 130, 2, 2, True, True, False),
+        ("T=300 di=1000 ds=16", 2, 300, 1000, 16, 1, True, True, False),
+    ]
+    err = 0.0
+    for name, Bt, T, d_, s_, rep, final, steps, zero in cases:
+        ops = k5_inputs(Bt, T, d_, s_, seed=Bt * 100 + T, h0_rep=rep,
+                        zero_h0=zero)
+        kw = dict(h0_rep=rep, final=final, steps=steps)
+        got = mamba_scan_cuda(*ops, **kw)
+        want = mamba_scan_plain(*ops, **kw)
+        sync()
+        errs = []
+        for a, b in zip(got, want):
+            if (a is None) != (b is None):
+                raise AssertionError(f"K5 {name}: outputs differ in kind")
+            if a is not None:
+                ok, e = close(a, b, K5_TOL)
+                errs.append(e)
+                if not ok:
+                    raise AssertionError(f"K5 {name} disagrees with its "
+                                         f"plain version (max err {e})")
+        err = max([err] + errs)
+        print(f"  K5 {name:20s} Bt={Bt} T={T} di={d_} ds={s_} h0_rep={rep} "
+              f"final={final} steps={steps} max_abs_err={max(errs):.3g} "
+              f"tol={K5_TOL} ok")
+    rec = {}
+    for name, Bt, T, rep, final in (
+            ("prefill", 8, SERVE_BUCKET, 1, True),
+            ("verify", rows, SERVE_W + 1, SERVE_K, False)):
+        ops = k5_inputs(Bt, T, di, ds, seed=7, h0_rep=rep)
+        kw = dict(h0_rep=rep, final=final)
+        bound, by = k5_bound_ms(Bt, T, di, ds, Bt // rep, final, False)
+        r = dict(max_abs_err=err,
+                 ms=time_ms(lambda: mamba_scan_cuda(*ops, **kw)),
+                 plain_ms=time_ms(lambda: mamba_scan_plain(*ops, **kw),
+                                  iters=5, warmup=1),
+                 library_ms=None, bound_ms=bound, bound_by=by)
+        print(f"  mamba_scan {name} (Bt={Bt}, T={T}, di={di}, ds={ds}, "
+              f"h0_rep={rep}): ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.3f} bound_ms={bound:.4f} ({by}), "
+              f"{bound / r['ms']:.1%} of the bound")
+        rec[name] = r
+    # K1 at the hybrid's attention shape (64 heads, 8 KV heads, hd 128)
+    W1 = SERVE_W + 1
+    k1_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        ops = k1_inputs(8, SERVE_K, W1, 64, 8, 128, S_main, cur_main, dtype,
+                        seed=11)
+        ok, e = close(spec_attention_cuda(*ops, w1=W1),
+                      spec_attention_plain(*ops, w1=W1), TOL[dname])
+        k1_err = max(k1_err, e)
+        print(f"  K1 hybrid attention {dname:8s} B=8 K={SERVE_K} W1={W1} "
+              f"H=64 KV=8 hd=128 S={S_main} max_abs_err={e:.3g} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K1 at H=64 KV=8 hd=128 {dname} "
+                                 f"disagrees with its plain version ({e})")
+    lib_fn, _ = sdpa_yardstick(*ops, W1)
+    bound, by = k1_bound_ms(ops[0], ops[1], ops[3], ops[5], W1)
+    print(f"  spec_attention at H=64 KV=8 hd=128 (bf16): ms="
+          f"{time_ms(lambda: spec_attention_cuda(*ops, w1=W1)):.4f} "
+          f"plain_ms={time_ms(lambda: spec_attention_plain(*ops, w1=W1)):.4f}"
+          f" library_ms={time_ms(lib_fn):.4f} bound_ms={bound:.5f} ({by})")
+    return rec
+
+
 def phase_kernels(S_main: int, cur_main: list) -> dict:
     import torch
     from repro_torch.kernels.ngram_match import (ngram_match_cuda,
@@ -519,7 +658,8 @@ def top2_margin(params, cfg, ids, pos) -> float:
 
 
 def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
-                  bucket: int = SERVE_BUCKET, label: str = ""):
+                  bucket: int = SERVE_BUCKET, label: str = "",
+                  focus: str = ""):
     """Where a static step's time goes: spec_steps of a fresh batch of the
     served prompts under torch.profiler (``profile_window``)."""
     import numpy as np
@@ -534,13 +674,16 @@ def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
 
     def one_step():
         box[0] = spec_step(params, cfg, spec, box[0], tables)
-    profile_window(label or f"{spec.strategy} step", one_step, steps)
+    return profile_window(label or f"{spec.strategy} step", one_step, steps,
+                          focus)
 
 
-def profile_window(label: str, one_step, steps: int = 4):
+def profile_window(label: str, one_step, steps: int = 4, focus: str = ""):
     """``steps`` calls of ``one_step`` under torch.profiler after two warm
     ones: wall ms per step, the device-busy share (kernel time / wall),
-    device ops per step and the kernels with the most device time."""
+    device ops per step and the kernels with the most device time; with
+    ``focus``, also the device ms per step of the kernels whose name holds
+    it.  Returns those numbers."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         one_step()
@@ -558,12 +701,17 @@ def profile_window(label: str, one_step, steps: int = 4):
                             getattr(e, "self_cuda_time_total", 0.0))
     busy_ms = sum(dev(e) for e in kernels) / 1e3 / steps
     n_launch = sum(e.count for e in kernels) / steps
+    focus_ms = (sum(dev(e) for e in kernels if focus in e.key) / 1e3 / steps
+                if focus else None)
     print(f"  {label}: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
           f"({busy_ms / max(wall_ms, 1e-9):.1%}), {n_launch:.0f} device ops "
-          f"per step")
+          f"per step" + (f", {focus} {focus_ms:.3f} ms per step"
+                         if focus else ""))
     for e in sorted(kernels, key=dev, reverse=True)[:6]:
         print(f"    {dev(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:4d}"
               f"  {e.key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, ops=n_launch,
+                focus_ms=focus_ms)
 
 
 def phase_serve() -> dict:
@@ -712,21 +860,24 @@ def serve_continuous(engine, work):
 
 
 def reset_launches():
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
     from repro_torch.kernels.ngram_match import ngram_match_cuda
     from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
                                                     spec_attention_cuda)
     for fn in (spec_attention_cuda, ngram_match_cuda,
-               paged_spec_attention_cuda):
+               paged_spec_attention_cuda, mamba_scan_cuda):
         fn.launches = 0
     spec_attention_cuda.tree_launches = 0
     paged_spec_attention_cuda.tree_launches = 0
 
 
 def read_launches() -> dict:
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
     from repro_torch.kernels.ngram_match import ngram_match_cuda
     from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
                                                     spec_attention_cuda)
-    return {"spec_attention": spec_attention_cuda.launches,
+    return {"mamba_scan": mamba_scan_cuda.launches,
+            "spec_attention": spec_attention_cuda.launches,
             "ngram_match": ngram_match_cuda.launches,
             "paged_spec_attention": paged_spec_attention_cuda.launches,
             "tree_spec_attention": spec_attention_cuda.tree_launches,
@@ -1100,6 +1251,211 @@ def phase_tree(tables) -> dict:
     return k4
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the hybrid (Mamba + attention) at full width
+# ---------------------------------------------------------------------------
+def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode):
+    """Each output is greedy decoding of its prompt, up to f32 ties.
+
+    The outputs are compared with greedy_reference token for token, and
+    every output token is held against the oracle's full forward over its
+    own prefix (prompt + the output before it, one forward for all
+    positions): it must be the oracle's argmax there, or lie within the
+    f32 noise of it, measured in this run as the largest logit difference
+    between two oracle evaluations of the same sequences (batch of all
+    requests against one at a time).  A token within that noise is a tie
+    (two top logits closer than f32 evaluation can separate); each is
+    printed with its margin.  Any other difference fails the run."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spec_engine import greedy_reference
+    from repro_torch.models import model as M
+    toks = np.stack([tok_fn(p) for p in prompts])
+    P, n = toks.shape[1], len(done)
+    ref = greedy_reference(params32, cfg32, toks, max_new).cpu().numpy()
+    out = np.stack([r.output_ids for r in done])
+    if out.shape != (n, max_new):
+        raise AssertionError(f"f32 hybrid {mode}: outputs {out.shape}")
+    seq = torch.as_tensor(np.concatenate([toks, out], 1), device="cuda")
+    with torch.no_grad():
+        logits = M.forward(params32, cfg32, tokens=seq)[0][:, P - 1:-1]
+        one = torch.cat([M.forward(params32, cfg32, tokens=seq[i:i + 1])[0]
+                         [:, P - 1:-1] for i in range(n)])
+    noise = float((logits - one).abs().max())
+    chosen = logits.gather(-1, seq[:, P:, None].long())[..., 0]
+    gap = (logits.max(-1).values - chosen).cpu().numpy()     # >= 0
+    exact = [bool(np.array_equal(out[i], ref[i, P:])) for i in range(n)]
+    for i in range(n):
+        if not exact[i]:
+            j = int(np.argmax(out[i] != ref[i, P:]))
+            m = top2_margin(params32, cfg32, ref[i], P + j - 1)
+            print(f"  request {done[i].request_id}: f32 hybrid {mode} != "
+                  f"greedy_reference from new token {j} (greedy_reference's"
+                  f" top-2 margin there {m:.4g})")
+    for i, t in zip(*np.nonzero(gap > 0)):
+        tie = gap[i, t] <= noise
+        print(f"  request {done[i].request_id} new token {t}: the oracle's "
+              f"argmax on this prefix leads by {gap[i, t]:.4g} "
+              f"({'a tie within' if tie else 'ABOVE'} the f32 noise "
+              f"{noise:.4g})")
+        if not tie:
+            raise AssertionError(f"f32 hybrid {mode} is not lossless")
+    calls = sum(r.stats["model_calls"] for r in done)
+    print(f"  f32 hybrid {mode}: == greedy_reference for {sum(exact)} of {n}"
+          f" requests x {max_new} tokens; every token the oracle's argmax on"
+          f" its own prefix but {int((gap > 0).sum())} f32 tie(s) (noise "
+          f"{noise:.4g}); {calls} verify calls")
+
+
+def phase_hybrid() -> dict:
+    """Phase 7 (see the module docstring).  Returns K5's launches in the
+    static mixed run (7a), the hybrid's main path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import no_experts
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+    # full width, one period (7 Mamba + 1 attention), dense SwiGLU FFNs
+    cfg = no_experts(get_config("jamba-1.5-large-398b"), HYB_PERIODS)
+    gib = torch.cuda.memory_allocated() / 2**30
+    print(f"  memory after freeing StableLM: {gib:.2f} GiB allocated, peak "
+          f"so far {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    sync()
+    print(f"  {cfg.name}: {cfg.param_count() / 1e9:.3f}B params, "
+          f"{cfg.num_layers} layers "
+          f"({[b.mixer for b in cfg.block_pattern]}), d_model {cfg.d_model},"
+          f" H={cfg.num_heads} KV={cfg.num_kv_heads}, Mamba d_inner "
+          f"{cfg.mamba_d_inner} d_state {cfg.mamba_d_state}, vocab "
+          f"{cfg.vocab_size}, bf16, seeded init "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+    t0 = time.perf_counter()
+    eng = ServingEngine(params, cfg, spec, buckets=(SERVE_BUCKET,))
+    sync()
+    print(f"  n-gram tables (bigram sweep over {cfg.vocab_size} tokens): "
+          f"{time.perf_counter() - t0:.2f} s")
+    tables = eng.tables
+    prompts = smoke_prompts()
+
+    # ---- 7a: static, the hybrid's main path ----
+    print("phase 7a: static serving (8 requests, bucket 256, 64 new tokens)")
+    runs = {}
+    for name, e in (("mixed", eng), ("greedy", ServingEngine(
+            params, cfg, SpecConfig(strategy="greedy"),
+            buckets=(SERVE_BUCKET,)))):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()              # counts from zero just before the run
+        done, wall = serve(e, prompts, SERVE_NEW)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_new = sum(r.stats["new_tokens"] for r in done)
+        calls = sum(r.stats["model_calls"] for r in done)
+        print(f"  {name}: {n_new} new tokens in {wall:.3f} s = "
+              f"{n_new / wall:.1f} tokens/s, tokens/call "
+              f"{n_new / max(calls, 1):.3f}, {calls} calls, peak memory "
+              f"{peak:.2f} GiB, launches {launches}")
+        if any(r.stats["new_tokens"] != SERVE_NEW for r in done):
+            raise AssertionError("a hybrid request did not reach its budget")
+        runs[name] = (done, launches)
+    k5 = runs["mixed"][1]
+    if min(k5["mamba_scan"], k5["spec_attention"], k5["ngram_match"]) <= 0:
+        raise AssertionError(f"a kernel of the hybrid's path never "
+                             f"launched: {k5}")
+    if runs["greedy"][1]["mamba_scan"] <= 0:
+        raise AssertionError("the greedy hybrid run did not launch K5")
+    same = [bool(np.array_equal(a.output_ids, b.output_ids))
+            for a, b in zip(runs["mixed"][0], runs["greedy"][0])]
+    print(f"  bf16 mixed == bf16 greedy for {sum(same)} of {len(same)} "
+          f"requests")
+
+    # ---- 7b: profile ----
+    print("phase 7b: where a hybrid step's time goes (torch.profiler, 8 "
+          "prompts, static)")
+    profile_steps(params, cfg, spec, tables, prompts, steps=3,
+                  label="hybrid mixed step", focus="mamba_scan")
+    profile_steps(params, cfg, SpecConfig(strategy="greedy"), None, prompts,
+                  steps=3, label="hybrid greedy step", focus="mamba_scan")
+
+    # ---- 7c: continuous ----
+    print(f"phase 7c: continuous batching ({CONT_N} requests, "
+          f"{CONT_SLOTS} slots, {CONT_PAGES}-page pool)")
+    work = cont_workload()
+    cont = {}
+    for strategy, paged in (("mixed", True), ("mixed", False),
+                            ("greedy", True)):
+        sp = SpecConfig(k=SERVE_K, w=SERVE_W, strategy=strategy)
+        e = cont_engine(params, cfg, sp,
+                        tables if strategy == "mixed" else None, paged)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        done, wall = serve_continuous(e, work)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_new = sum(r.stats["new_tokens"] for r in done)
+        calls = sum(r.stats["model_calls"] for r in done)
+        lat = np.array([r.stats["latency_s"] for r in done])
+        name = f"{'paged' if paged else 'linear'} {strategy}"
+        print(f"  {name}: {n_new} new tokens in {wall:.3f} s = "
+              f"{n_new / wall:.1f} tokens/s, tokens/call "
+              f"{n_new / max(calls, 1):.3f}, latency p50 "
+              f"{np.percentile(lat, 50):.3f} s p99 "
+              f"{np.percentile(lat, 99):.3f} s, peak memory {peak:.2f} GiB, "
+              f"launches {launches}")
+        if paged:
+            check_paged_run(e, done, work)
+            if launches["paged_spec_attention"] <= 0 \
+                    or launches["spec_attention"] != 0:
+                raise AssertionError(f"paged hybrid run not carried by K3:"
+                                     f" {launches}")
+        else:
+            check_budgets(done, work)
+        if launches["mamba_scan"] <= 0:
+            raise AssertionError(f"continuous hybrid run without K5: "
+                                 f"{launches}")
+        cont[strategy, paged] = done
+    same = [bool(np.array_equal(a.output_ids, b.output_ids))
+            for a, b in zip(cont["mixed", True], cont["mixed", False])]
+    print(f"  bf16 mixed: paged == linear for {sum(same)} of {len(same)} "
+          f"requests")
+    if not all(same):
+        raise AssertionError("bf16 hybrid paged differs from linear")
+    del eng, e, params
+    torch.cuda.empty_cache()
+
+    # ---- 7d: lossless in f32 ----
+    print("phase 7d: lossless (f32, TF32 off)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = M.init_params(cfg32, seed=0, device="cuda")
+    lprompts = prompts[:LOSSLESS_REQUESTS]
+    e = ServingEngine(params32, cfg32, spec, tables=tables,
+                      buckets=(SERVE_BUCKET,))
+    tok_fn = lambda p: e.scheduler.pad_to_bucket(e.tok.encode(p))
+    done, _ = serve(e, lprompts, LOSSLESS_NEW)
+    check_lossless(params32, cfg32, done, lprompts, tok_fn, LOSSLESS_NEW,
+                   "static")
+    e = ServingEngine(params32, cfg32, spec, tables=tables,
+                      max_batch=CONT_SLOTS, buckets=(SERVE_BUCKET,),
+                      max_new_cap=LOSSLESS_NEW, paged=True,
+                      num_pages=CONT_PAGES, page_size=CONT_PAGE)
+    done, _ = serve_continuous(e, [(p, LOSSLESS_NEW) for p in lprompts])
+    print(f"    pool: {check_pool_drained(e)}")
+    check_lossless(params32, cfg32, done, lprompts, tok_fn, LOSSLESS_NEW,
+                   "continuous paged")
+    del params32, e
+    torch.cuda.empty_cache()
+    return k5
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1136,6 +1492,11 @@ def main() -> int:
           f" ragged cur_len={cont_cur})")
     rec.update(phase_k4(cont_cur))
 
+    print("phase 2d: K5 (selective scan, Jamba's d_inner 16384, d_state 16)"
+          " and K1 at the hybrid's attention shape")
+    k5 = phase_k5(S_main, cur_main)
+    rec["mamba_scan"] = k5["prefill"]
+
     print("phase 3: serve")
     launches, tables = phase_serve()
 
@@ -1148,6 +1509,11 @@ def main() -> int:
           f"tokens)")
     launches.update(phase_tree(tables))
 
+    print(f"phase 7: the hybrid (Jamba-1.5-Large, {HYB_PERIODS} period, no "
+          f"experts, full width)")
+    hyb = phase_hybrid()
+    launches["mamba_scan"] = hyb["mamba_scan"]
+
     cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
                    cu, "src/repro/kernels/spec_attention.py:137"),
@@ -1159,7 +1525,10 @@ def main() -> int:
                "tree_spec_attention": (
                    cu, "src/repro/kernels/spec_attention.py:174"),
                "paged_tree_spec_attention": (
-                   cu, "src/repro/kernels/spec_attention.py:240")}
+                   cu, "src/repro/kernels/spec_attention.py:240"),
+               "mamba_scan": (
+                   "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:61")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1], launches=launches[n], **rec[n])
                for n in sources]

@@ -6,9 +6,10 @@
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import stablelm_1_6b
+from . import jamba_1_5_large_398b, stablelm_1_6b
 
 _MODULES = {
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
     "stablelm-1.6b": stablelm_1_6b,
 }
 

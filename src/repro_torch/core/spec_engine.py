@@ -15,10 +15,13 @@ Invariants (as in the reference):
     committed token's KV is written by the next call).
 
 The commit writes the winner's verified KV tail into the shared cache in
-place (attention-only stacks; the reference's gated replay for recurrent
-mixers, the adaptive branch and sampling are not ported yet).  Over a paged
-cache the step first grows every running row's pages to cover what it may
-commit (``cache.grow_pages``, device-side, no host read).
+place for attention-only stacks; a stack with Mamba layers instead replays
+the winning row through ``decode(n_commit=)``, which writes only the first
+n_commit positions of the KV cache and keeps the recurrent state after
+n_commit tokens (the reference's gated replay).  The adaptive branch and
+sampling are not ported yet.  Over a paged cache the step first grows every
+running row's pages to cover what it may commit (``cache.grow_pages``,
+device-side, no host read).
 
 Tree mode (``SpecConfig.tree``): the k independent rows become ONE token
 tree per slot (``core/tree.py``), (k, w) read as (tree width, depth).  The
@@ -26,6 +29,8 @@ whole tree is verified in a single (B, 1, N+1) call whose attention sees
 each node's ancestors only (K4 on the card); acceptance runs over the
 tree's root-to-leaf paths, and the winning path's KV tail is gathered and
 committed through the unchanged ``commit_kv_tails``, linear or paged.
+Recurrent stacks have no tree layout (their rows are causal sequences):
+tree mode raises for them, as in the reference.
 """
 from __future__ import annotations
 
@@ -183,9 +188,6 @@ def empty_decode_state(cfg: ModelConfig, spec: SpecConfig, num_slots: int,
     buffer and logical KV capacity per slot) is rounded up to whole pages.
     """
     spec.validate()
-    if M.has_recurrent(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent mixers are not ported yet")
     dev = resolve_device(device)
     B = num_slots
     if paged is not None:
@@ -219,9 +221,6 @@ def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
     front and grows inside spec_step.  The default pool covers the worst
     case, so one-shot ``generate`` can never exhaust it."""
     spec.validate()
-    if M.has_recurrent(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent mixers are not ported yet")
     dev = prompt.device
     B, P = prompt.shape
     L = P + spec.max_new_tokens + spec.w + 2
@@ -342,6 +341,11 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
     last = buf_c.gather(1, last_i)[:, 0]
     drafts, valid, n_ctx = _draft(spec, tables, buf_c, len_c, last)
     if spec.tree:
+        if M.has_recurrent(cfg):
+            raise ValueError(
+                "tree speculation needs an attention-only arch: recurrent "
+                "mixers verify rows as causal sequences, which has no "
+                "valid tree layout")
         # ONE (B, 1, N+1) verify call scores the whole token tree; the
         # ancestor mask and per-level positions make every root-to-leaf
         # path score exactly as a linear row of its tokens would
@@ -382,9 +386,15 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
                      for kk, tt in d.items()} for g, d in tails.items()}
         state_n = M.commit_kv_tails(cfg, state_c, tails,
                                     torch.zeros_like(acc.winner), n_commit)
-    else:
+    elif not M.has_recurrent(cfg):
         state_n = M.commit_kv_tails(cfg, state_c, tails, acc.winner,
                                     n_commit)
+    else:
+        # gated replay: the winning row's tokens through decode, which keeps
+        # the first n_commit positions' KV and recurrent state
+        row_tok = rows[b_idx, acc.winner.long()]                # (B, w+1)
+        _, state_n = M.decode(params, cfg, state_c, row_tok,
+                              n_commit=n_commit)
     # write accepted tokens into the buffer (in place)
     pos = torch.arange(spec.w + 1, device=dev)[None, :]
     slots = (len_c[:, None].long() + pos).clamp(0, L - 1)

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .mamba_scan import mamba_scan_cuda, mamba_scan_plain
 from .ngram_match import ngram_match_cuda, ngram_match_plain
 from .spec_attention import (TreeMask, paged_spec_attention_cuda,
                              paged_spec_attention_plain, spec_attention_cuda,
@@ -89,3 +90,18 @@ def ngram_sweep(buf: torch.Tensor, query: torch.Tensor,
     if on_card(buf):
         return ngram_match_cuda(buf, query, cur_len, w=w)
     return ngram_match_plain(buf, query, cur_len, w=w)
+
+
+def selective_scan(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
+                   final: bool = True, steps: bool = False):
+    """The Mamba selective scan (K5 on the card, its plain version on the
+    CPU).
+
+    u/dt: (Bt, T, di) f32; A: (di, ds); B/C: (Bt, T, ds); D: (di,); h0:
+    (Bt // h0_rep, di, ds) f32, row b starting from h0 row b // h0_rep.
+    Returns (y (Bt, T, di), the final state (Bt, di, ds) or None unless
+    ``final``, the state after every step (Bt, T, di, ds) or None unless
+    ``steps``), all f32.
+    """
+    fn = mamba_scan_cuda if on_card(u) else mamba_scan_plain
+    return fn(u, dt, A, B, C, D, h0, h0_rep=h0_rep, final=final, steps=steps)

@@ -76,3 +76,28 @@ def ngram_match_ref(buf_padded: torch.Tensor, query: torch.Tensor,
     for j in range(w):
         h = hash_step(h, buf_padded[..., q + j:q + j + L])
     return match.to(torch.int32), h
+
+
+def mamba_scan_ref(u, dt, A, B, C, D, h0, *, steps: bool = False):
+    """Oracle of the selective scan: the sequential recurrence in f32.
+
+    u/dt: (Bt, T, di); A: (di, ds); B/C: (Bt, T, ds); D: (di,); h0:
+    (Bt, di, ds).  Per step t:  h = exp(dt_t * A) * h + (dt_t * u_t) * B_t,
+    y_t = h . C_t + u_t * D.  Returns (y (Bt, T, di), hT (Bt, di, ds), the
+    state after every step (Bt, T, di, ds) when ``steps``, else None), all
+    f32; T >= 1.  (Twin of the reference's ``kernels/ref.py:
+    mamba_scan_ref``, plus the per-step states that the gated replay
+    selects from.)
+    """
+    uf, dtf = u.float(), dt.float()
+    Af, Bf, Cf = A.float(), B.float(), C.float()
+    h = h0.float()
+    ys, hs = [], []
+    for t in range(uf.shape[1]):
+        dA = torch.exp(dtf[:, t, :, None] * Af)
+        h = dA * h + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, Cf[:, t]))
+        if steps:
+            hs.append(h)
+    y = torch.stack(ys, dim=1) + uf * D.float()
+    return y, h, torch.stack(hs, dim=1) if steps else None

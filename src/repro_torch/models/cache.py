@@ -6,11 +6,14 @@ of the layer pattern):
 
   linear = {
     "cur_len": (B,) int32   — #positions committed per sequence,
-    "groups": {gid: {"k": (R, B, S, KV, hd), "v": ...}},
+    "groups": {gid: {"k": (R, B, S, KV, hd), "v": ...}        # attention
+               gid: {"conv": (R, B, dc-1, di) compute dtype,  # Mamba
+                     "ssm": (R, B, di, ds) float32}},
   }
   paged = {
     "cur_len": (B,) int32,
-    "groups": {gid: {"k": (R, NP + 1, ps, KV, hd), "v": ...}},  # shared pool
+    "groups": {gid: {"k": (R, NP + 1, ps, KV, hd), "v": ...}, # shared pool
+               gid: {"conv": ..., "ssm": ...}},   # per slot, as linear
     "page_table": (B, PPS) int32   — physical page of each logical page,
                                      -1 = unallocated,
     "n_pages": (B,) int32,
@@ -37,7 +40,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.ref import gather_pages
-from .config import ATTN, BlockSpec, ModelConfig
+from .config import ATTN, MAMBA, BlockSpec, ModelConfig
 
 __all__ = ["gather_pages"]   # re-exported: the plain paged read path
 
@@ -61,13 +64,30 @@ def group_ids(cfg: ModelConfig):
 
 def _init_group(cfg: ModelConfig, spec: BlockSpec, R: int, batch: int,
                 S: int, device) -> Dict:
-    """Empty decode-state group for one layer position (linear ATTN)."""
+    """Empty decode-state group for one layer position (linear ATTN
+    layout; Mamba's per-slot conv and ssm states)."""
+    if spec.mixer == MAMBA:
+        di = cfg.mamba_d_inner
+        return {"conv": torch.zeros((R, batch, cfg.mamba_d_conv - 1, di),
+                                    dtype=cfg.compute_dtype, device=device),
+                "ssm": torch.zeros((R, batch, di, cfg.mamba_d_state),
+                                   dtype=torch.float32, device=device)}
     if spec.mixer != ATTN:
         raise NotImplementedError(
             f"{cfg.name}: {spec.mixer} state is not ported yet")
     shape = (R, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+def attn_groups(state: Dict) -> Dict[str, Dict]:
+    """The attention groups (those holding a KV cache or pool) of a
+    state."""
+    return {gid: g for gid, g in state["groups"].items() if "k" in g}
+
+
+def _recurrent_groups(state: Dict) -> Dict[str, Dict]:
+    return {gid: g for gid, g in state["groups"].items() if "k" not in g}
 
 
 def init_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -112,12 +132,16 @@ def zero_slot_stats(stats: Dict[str, torch.Tensor], slot: int) -> Dict:
 def reset_slot(cfg: ModelConfig, state: Dict, slot: int) -> Dict:
     """Reset slot ``slot`` to the empty state, IN PLACE.  Paged states free
     the slot's pages instead of zeroing KV (a freed page is never read:
-    ``phys_slots`` maps unallocated positions to the trash page)."""
+    ``phys_slots`` maps unallocated positions to the trash page) and zero
+    the slot's recurrent state."""
     if is_paged(state):
         free_slot_pages(state, slot)
+        for g in _recurrent_groups(state).values():
+            for leaf in g.values():
+                leaf[:, slot] = 0
         state["cur_len"][slot] = 0
         return state
-    S = next(g["k"].shape[2] for g in state["groups"].values())
+    S = next((g["k"].shape[2] for g in attn_groups(state).values()), 1)
     empty = init_state(cfg, 1, S, device=state["cur_len"].device)
     return insert_slot(state, empty, slot)
 
@@ -149,7 +173,7 @@ def is_paged(state: Dict) -> bool:
 def paged_dims(state: Dict) -> Tuple[int, int, int]:
     """(num_pages, page_size, pages_per_slot) of a paged state; num_pages
     counts the real pages, not the trash page."""
-    pool = next(iter(state["groups"].values()))["k"]
+    pool = next(iter(attn_groups(state).values()))["k"]
     return pool.shape[1] - 1, pool.shape[2], state["page_table"].shape[1]
 
 
@@ -159,7 +183,7 @@ def init_paged_state(cfg: ModelConfig, batch: int, num_pages: int,
     """Allocate an empty PAGED decode state: attention groups hold a shared
     (R, num_pages + 1, page_size, KV, hd) pool (the last page is the trash
     page), all real pages start on the free stack, and every slot's page
-    table is empty."""
+    table is empty.  Recurrent groups stay per slot (O(1) in length)."""
     if not paged_supported(cfg):
         raise ValueError(f"{cfg.name}: paged KV requires a linear-cache "
                          f"attention arch (sliding_window=None, >=1 attn "
@@ -172,8 +196,8 @@ def init_paged_state(cfg: ModelConfig, batch: int, num_pages: int,
     groups = {}
     for gid, spec, R in group_ids(cfg):
         if spec.mixer != ATTN:
-            raise NotImplementedError(
-                f"{cfg.name}: {spec.mixer} state is not ported yet")
+            groups[gid] = _init_group(cfg, spec, R, batch, 0, dev)
+            continue
         shape = (R, num_pages + 1, page_size, cfg.num_kv_heads, hd)
         groups[gid] = {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
                                         device=dev),
@@ -306,12 +330,17 @@ def insert_slot_paged(state: Dict, row_state: Dict, slot: int,
                       row_len: int) -> Dict:
     """Paged counterpart of insert_slot: scatter a prefilled batch-1 LINEAR
     row state (cur_len == row_len) into the pool pages already allocated to
-    ``slot`` (``alloc_slot_pages`` first), IN PLACE."""
+    ``slot`` (``alloc_slot_pages`` first), IN PLACE; recurrent leaves copy
+    as in ``insert_slot``."""
     N, ps, _ = paged_dims(state)
     pos = torch.arange(row_len, device=state["page_table"].device)[None]
     phys = phys_slots(state["page_table"][slot][None], pos, ps, N)
     for gid, g in state["groups"].items():
         row = row_state["groups"][gid]                # (R, 1, row_len, ..)
+        if "k" not in g:
+            for name, leaf in g.items():
+                leaf[:, slot] = row[name][:, 0]
+            continue
         paged_kv_write(g["k"], g["v"], row["k"][:, :, :row_len],
                        row["v"][:, :, :row_len], phys)
     state["cur_len"][slot] = row_state["cur_len"][0]
@@ -423,3 +452,18 @@ def prefill_write(cfg: ModelConfig, k_cache, v_cache, k_new, v_new,
     cur0 = torch.zeros((B,), dtype=torch.int32, device=k_new.device)
     slots = write_slots(cfg, S, cur0, T)
     return kv_write(k_cache, v_cache, k_new, v_new, slots, gate=seq_mask)
+
+
+# ----------------------------------------------------------------------------
+# recurrent-state select (the gated replay commit)
+# ----------------------------------------------------------------------------
+def select_step_state(per_step: torch.Tensor, old: torch.Tensor,
+                      n_commit: torch.Tensor) -> torch.Tensor:
+    """per_step: (B, T, ...) states after each step; old: (B, ...) the state
+    before them; n_commit: (B,).  Returns the state after n_commit steps
+    (``old`` where n_commit == 0)."""
+    B, T = per_step.shape[:2]
+    idx = (n_commit.long() - 1).clamp(0, T - 1)
+    picked = per_step[torch.arange(B, device=per_step.device), idx]
+    keep = (n_commit > 0).reshape((B,) + (1,) * (old.dim() - 1))
+    return torch.where(keep, picked, old)

@@ -153,6 +153,15 @@ class ModelConfig:
         return rd - (rd % 2)
 
     @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.mamba_dt_rank if self.mamba_dt_rank \
+            else -(-self.d_model // 16)
+
+    @property
     def body_layers(self) -> int:
         return self.num_layers - len(self.prefix_blocks)
 
@@ -184,13 +193,21 @@ class ModelConfig:
         return self
 
     def param_count(self) -> int:
-        """Parameters of a dense attention stack (embeddings included)."""
+        """Parameters of the attention and Mamba stacks with dense MLPs
+        (embeddings included), counted as the reference counts them."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for b in layer_blocks(self):
             if b.mixer == ATTN:
                 total += d * (self.num_heads * hd) * 2
                 total += d * (self.num_kv_heads * hd) * 2
+            elif b.mixer == MAMBA:
+                di, dtr = self.mamba_d_inner, self.resolved_dt_rank
+                total += d * di * 2                      # in_proj (x, z)
+                total += di * self.mamba_d_conv          # conv
+                total += di * (dtr + 2 * self.mamba_d_state)   # x_proj
+                total += dtr * di + di * self.mamba_d_state    # dt_proj, A
+                total += di * d                          # out_proj
             if b.mlp in (SWIGLU, GEGLU):
                 total += 3 * d * self.d_ff
             elif b.mlp in (RELU2, GELU):

@@ -1,6 +1,6 @@
 """Top-level language-model API: forward / prefill / decode / verify /
 commit (port of ``repro/models/model.py``), over a linear or a paged KV
-cache (``models/cache.py``).
+cache and the per-slot Mamba states (``models/cache.py``).
 
 The reference's functions are pure and return new states; here ``prefill``,
 ``decode`` and ``commit_kv_tails`` update the state's cache IN PLACE and
@@ -15,8 +15,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .cache import (init_state, is_paged, key_positions, kv_write,
-                    paged_dims, paged_kv_write, phys_slots, write_slots)
+from .cache import (attn_groups, init_state, is_paged, key_positions,
+                    kv_write, paged_dims, paged_kv_write, phys_slots,
+                    write_slots)
 from .config import ATTN, ModelConfig, layer_blocks
 from .layers import apply_norm, embed_tokens, lm_logits
 from .transformer import init_params, run_stack
@@ -30,6 +31,10 @@ __all__ = ["init_params", "init_state", "forward", "prefill", "decode",
 
 def has_recurrent(cfg: ModelConfig) -> bool:
     return any(b.mixer != ATTN for b in layer_blocks(cfg))
+
+
+def _pure_recurrent(cfg: ModelConfig) -> bool:
+    return all(b.mixer != ATTN for b in layer_blocks(cfg))
 
 
 def make_positions(cfg: ModelConfig, B: int, T: int,
@@ -49,7 +54,7 @@ def _cache_len(state: State) -> int:
     if is_paged(state):
         _, ps, pps = paged_dims(state)
         return pps * ps
-    return next(iter(state["groups"].values()))["k"].shape[2]
+    return next(iter(attn_groups(state).values()))["k"].shape[2]
 
 
 def _paged_ctx(state: State, pos: torch.Tensor) -> Dict[str, Any]:
@@ -100,23 +105,39 @@ def prefill(params: Params, cfg: ModelConfig, state: State,
 
 
 def decode(params: Params, cfg: ModelConfig, state: State,
-           tokens: torch.Tensor) -> Tuple[torch.Tensor, State]:
-    """Decode T new tokens from the cached state; their KV is written in
-    place and cur_len advances by T for every row."""
+           tokens: torch.Tensor, n_commit: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, State]:
+    """Decode T new tokens from the cached state; their KV and the
+    recurrent state are written in place and cur_len advances by T for
+    every row.
+
+    With ``n_commit`` (B,), runs in *replay* mode: only the first n_commit
+    positions of each row update the KV cache and the recurrent state, and
+    cur_len advances by n_commit — the speculative commit of the winning
+    row for recurrent stacks (the paper's "overwrite all rows with the
+    accepted speculation", adapted to recurrent state)."""
     B, T = tokens.shape[:2]
     cur = state["cur_len"]
-    S = _cache_len(state)
-    ctx: Dict[str, Any] = {"positions": make_positions(cfg, B, T, offset=cur),
-                           "slots": write_slots(cfg, S, cur, T),
-                           "cache_pos": key_positions(cfg, S, cur),
-                           "cur_len": cur}
-    if is_paged(state):
-        ctx.update(_paged_ctx(state, ctx["slots"]))
+    ctx: Dict[str, Any] = {"positions": make_positions(cfg, B, T,
+                                                       offset=cur)}
+    if not _pure_recurrent(cfg):
+        S = _cache_len(state)
+        ctx.update(slots=write_slots(cfg, S, cur, T),
+                   cache_pos=key_positions(cfg, S, cur), cur_len=cur)
+        if is_paged(state):
+            ctx.update(_paged_ctx(state, ctx["slots"]))
+    mode = "decode"
+    if n_commit is not None:
+        mode = "replay"
+        ctx["n_commit"] = n_commit
+        ctx["gate"] = (torch.arange(T, device=cur.device)[None, :]
+                       < n_commit[:, None])
     x = embed_tokens(params["embed"], tokens, cfg)
-    x, _ = run_stack(params, cfg, x, "decode", state, ctx)
+    x, _ = run_stack(params, cfg, x, mode, state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)
-    state["cur_len"] = cur + T
+    state["cur_len"] = cur + (T if n_commit is None
+                              else n_commit.to(cur.dtype))
     return logits, state
 
 
@@ -126,8 +147,9 @@ def verify(params: Params, cfg: ModelConfig, state: State,
     """The paper's batched verification call.
 
     tokens: (B, k, w+1) — row i is [last_token, draft_i(0..w-1)].
-    Returns (logits (B, k, w+1, V) f32, kv tails {gid: {"k_tail",
-    "v_tail": (R, B, k, w+1, KV, hd)}}).  The state is only read.
+    Returns (logits (B, k, w+1, V) f32, kv tails of the attention groups
+    {gid: {"k_tail", "v_tail": (R, B, k, w+1, KV, hd)}}).  The state is only
+    read; Mamba layers run every row from its slot's state.
 
     Tree mode passes the whole token tree as the single row k == 1 with two
     per-topology constants (``core/tree.device_constants``):
@@ -139,16 +161,16 @@ def verify(params: Params, cfg: ModelConfig, state: State,
     """
     B, K, W1 = tokens.shape
     cur = state["cur_len"]
-    S = _cache_len(state)
     positions = (make_positions(cfg, B, W1, offset=cur) if pos_off is None
                  else pos_off[None, :] + cur[:, None].long())
     ctx: Dict[str, Any] = {"positions": positions,
                            "tail_mask": tail_mask,
-                           "k_rows": K,
-                           "cache_pos": key_positions(cfg, S, cur),
-                           "cur_len": cur}
-    if is_paged(state):
-        ctx["page_table"] = state["page_table"]
+                           "k_rows": K}
+    if not _pure_recurrent(cfg):
+        S = _cache_len(state)
+        ctx.update(cache_pos=key_positions(cfg, S, cur), cur_len=cur)
+        if is_paged(state):
+            ctx["page_table"] = state["page_table"]
     x = embed_tokens(params["embed"], tokens.reshape(B * K, W1), cfg)
     x, kv_tails = run_stack(params, cfg, x, "verify", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
@@ -158,9 +180,10 @@ def verify(params: Params, cfg: ModelConfig, state: State,
 
 def commit_kv_tails(cfg: ModelConfig, state: State, kv_tails: Dict,
                     winner: torch.Tensor, n_commit: torch.Tensor) -> State:
-    """Fast commit: write the winning row's first ``n_commit`` KV tail
-    entries into the shared cache, IN PLACE, and advance cur_len.  Paged
-    states route the same gated write through each slot's page table."""
+    """Fast commit for attention-only stacks: write the winning row's first
+    ``n_commit`` KV tail entries into the shared cache, IN PLACE, and
+    advance cur_len.  Paged states route the same gated write through each
+    slot's page table."""
     cur = state["cur_len"]
     S = _cache_len(state)
     paged = is_paged(state)

@@ -1,5 +1,5 @@
-"""Transformer assembly: a stack of attention blocks with dense MLPs (port of
-``repro/models/transformer.py``).
+"""Transformer assembly: a stack of attention and Mamba blocks with dense
+MLPs (port of ``repro/models/transformer.py``).
 
 Parameters keep the reference's layout: the layers at one position of the
 repeating ``block_pattern`` form a group ``p{j}`` (``pre{i}`` for prefix
@@ -7,12 +7,18 @@ layers) whose leaves are stacked over the R repetitions.  A Python loop over
 the layers takes the place of the reference's ``lax.scan``.
 
 Execution modes:
-  "full"    — forward / scoring: full causal self-attention.
-  "prefill" — "full" + write the KV cache (in place).
-  "decode"  — T new tokens against the cache, written after (in place).
+  "full"    — forward / scoring: full causal self-attention, recurrent
+              state from zero.
+  "prefill" — "full" + write the KV cache and the recurrent state (in place).
+  "decode"  — T new tokens against the cache/state, written after (in
+              place).
+  "replay"  — decode gated per row by ``n_commit``: only the first n_commit
+              positions update the KV cache and the recurrent state (the
+              speculative commit of the winning row for recurrent stacks).
   "verify"  — the paper's batched speculation: (B, k, w+1) rows attend the
-              shared cache bifurcated-ly; the cache is read-only and the
-              per-row KV tails are returned for the commit.
+              shared cache bifurcated-ly and run Mamba from their slot's
+              state; nothing is written and the attention layers' per-row
+              KV tails are returned for the attention-only commit.
 """
 from __future__ import annotations
 
@@ -22,10 +28,14 @@ import torch
 
 from ..device import resolve_device
 from .attention import attn_full, attn_verify
-from .cache import group_ids, kv_write, paged_kv_write, prefill_write
-from .config import (ATTN, GEGLU, GELU, MOE, NO_MLP, RELU2, SWIGLU,
+from .cache import (group_ids, kv_write, paged_kv_write, prefill_write,
+                    select_step_state)
+from .config import (ATTN, GEGLU, GELU, MAMBA, MOE, NO_MLP, RELU2, SWIGLU,
                      BlockSpec, ModelConfig)
 from .layers import apply_mlp, apply_norm, dense_init, embed_init
+from .mamba import (a_log_init, dt_bias_init, init_mamba_state, mamba_mix,
+                    mamba_mix_steps)
+from .mamba import param_shapes as mamba_param_shapes
 
 Params = Dict[str, Any]
 
@@ -34,45 +44,50 @@ Params = Dict[str, Any]
 # parameter shapes and init
 # ----------------------------------------------------------------------------
 def _check_block(cfg: ModelConfig, spec: BlockSpec) -> None:
-    if spec.mixer != ATTN or spec.mlp == MOE:
+    if spec.mixer not in (ATTN, MAMBA) or spec.mlp == MOE:
         raise NotImplementedError(
-            f"{cfg.name}: {spec} blocks are not ported yet (attention "
-            f"blocks with dense MLPs only)")
+            f"{cfg.name}: {spec} blocks are not ported yet (attention and "
+            f"Mamba blocks with dense MLPs only)")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Nested dict of (shape, init) leaves in the reference's layout, with
-    init one of "dense", "embed", "ones", "zeros"."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+    """Nested dict of (shape, init, dtype) leaves in the reference's
+    layout, with init one of "dense", "embed", "ones", "zeros", "a_log",
+    "dt_bias"; dtype is ``cfg.param_dtype`` except for the float32 leaves
+    of a Mamba mixer."""
+    d, hd, pd = cfg.d_model, cfg.resolved_head_dim, cfg.param_dtype
     H, KV = cfg.num_heads, cfg.num_kv_heads
 
     def norm(R=None):
         lead = () if R is None else (R,)
-        out = {"scale": (lead + (d,), "ones")}
+        out = {"scale": (lead + (d,), "ones", pd)}
         if cfg.norm != "rmsnorm":
-            out["bias"] = (lead + (d,), "zeros")
+            out["bias"] = (lead + (d,), "zeros", pd)
         return out
 
-    embed = {"embedding": ((cfg.vocab_size, d), "embed")}
+    embed = {"embedding": ((cfg.vocab_size, d), "embed", pd)}
     if not cfg.tie_embeddings:
-        embed["lm_head"] = ((d, cfg.vocab_size), "dense")
+        embed["lm_head"] = ((d, cfg.vocab_size), "dense", pd)
     shapes: Dict[str, Any] = {"embed": embed, "final_norm": norm()}
     for gid, spec, R in group_ids(cfg):
         _check_block(cfg, spec)
-        block = {"norm1": norm(R),
-                 "mixer": {"wq": ((R, d, H * hd), "dense"),
-                           "wk": ((R, d, KV * hd), "dense"),
-                           "wv": ((R, d, KV * hd), "dense"),
-                           "wo": ((R, H * hd, d), "dense")}}
+        if spec.mixer == MAMBA:
+            mixer = mamba_param_shapes(cfg, R)
+        else:
+            mixer = {"wq": ((R, d, H * hd), "dense", pd),
+                     "wk": ((R, d, KV * hd), "dense", pd),
+                     "wv": ((R, d, KV * hd), "dense", pd),
+                     "wo": ((R, H * hd, d), "dense", pd)}
+        block = {"norm1": norm(R), "mixer": mixer}
         if spec.mlp != NO_MLP:
             block["norm2"] = norm(R)
             if spec.mlp in (SWIGLU, GEGLU):
-                block["mlp"] = {"w_gate": ((R, d, cfg.d_ff), "dense"),
-                                "w_up": ((R, d, cfg.d_ff), "dense"),
-                                "w_down": ((R, cfg.d_ff, d), "dense")}
+                block["mlp"] = {"w_gate": ((R, d, cfg.d_ff), "dense", pd),
+                                "w_up": ((R, d, cfg.d_ff), "dense", pd),
+                                "w_down": ((R, cfg.d_ff, d), "dense", pd)}
             elif spec.mlp in (RELU2, GELU):
-                block["mlp"] = {"w_up": ((R, d, cfg.d_ff), "dense"),
-                                "w_down": ((R, cfg.d_ff, d), "dense")}
+                block["mlp"] = {"w_up": ((R, d, cfg.d_ff), "dense", pd),
+                                "w_down": ((R, cfg.d_ff, d), "dense", pd)}
         shapes[gid] = block
     return shapes
 
@@ -89,13 +104,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     def make(tree):
         if isinstance(tree, dict):
             return {k: make(v) for k, v in tree.items()}
-        shape, init = tree
+        shape, init, dtype = tree
         if init == "dense":
-            return dense_init(shape, cfg.param_dtype, gen, dev)
+            return dense_init(shape, dtype, gen, dev)
         if init == "embed":
-            return embed_init(shape, cfg.param_dtype, gen, dev)
+            return embed_init(shape, dtype, gen, dev)
+        if init == "a_log":
+            return a_log_init(shape, dev)
+        if init == "dt_bias":
+            return dt_bias_init(shape, gen, dev)
         fill = torch.ones if init == "ones" else torch.zeros
-        return fill(shape, dtype=cfg.param_dtype, device=dev)
+        return fill(shape, dtype=dtype, device=dev)
 
     return make(param_shapes(cfg))
 
@@ -103,48 +122,96 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 # ----------------------------------------------------------------------------
 # one block in one mode
 # ----------------------------------------------------------------------------
-def _apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
-                 spec: BlockSpec, mode: str, gst: Optional[Dict],
-                 ctx: Dict) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x_out, kv tails (verify) or None).  ``gst`` holds the
-    layer's (B, S, KV, hd) cache views, or its (NP + 1, ps, KV, hd) pool
-    view when ``ctx["paged"]``; prefill/decode write them in place, a paged
-    write through the physical slots ``ctx["slots"]`` that the caller
-    computed once for every layer."""
-    h = apply_norm(bp["norm1"], x, cfg)
-    tails = None
+def _attn_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
+                gst: Optional[Dict], ctx: Dict):
+    """Attention sublayer: (y, kv tails (verify) or None).  ``gst`` holds
+    the layer's (B, S, KV, hd) cache views, or its (NP + 1, ps, KV, hd)
+    pool view when ``ctx["paged"]``; prefill/decode/replay write them in
+    place, a paged write through the physical slots ``ctx["slots"]`` that
+    the caller computed once for every layer."""
     paged = ctx.get("paged", False)
     if mode in ("full", "prefill"):
-        y, (k_new, v_new) = attn_full(bp["mixer"], h, cfg, ctx["positions"])
+        y, (k_new, v_new) = attn_full(bp, h, cfg, ctx["positions"])
         if mode == "prefill":
             if paged:
                 paged_kv_write(gst["k"], gst["v"], k_new, v_new,
                                ctx["slots"])
             else:
                 prefill_write(cfg, gst["k"], gst["v"], k_new, v_new)
-    elif mode == "decode":
+        return y, None
+    if mode in ("decode", "replay"):
         # decode = verify with one row: the block attends the shared cache
-        # and its own causal tail, then its KV is written (in place)
-        y, k_t, v_t = attn_verify(bp["mixer"], h[:, None], cfg,
-                                  ctx["positions"], gst["k"], gst["v"],
-                                  ctx["cache_pos"], ctx["cur_len"],
+        # and its own causal tail, then its KV is written (in place; replay
+        # gates the write to each row's first n_commit positions)
+        y, k_t, v_t = attn_verify(bp, h[:, None], cfg, ctx["positions"],
+                                  gst["k"], gst["v"], ctx["cache_pos"],
+                                  ctx["cur_len"],
                                   page_table=ctx.get("page_table"))
-        y = y[:, 0]
         write = paged_kv_write if paged else kv_write
-        write(gst["k"], gst["v"], k_t[:, 0], v_t[:, 0], ctx["slots"])
-    elif mode == "verify":
+        write(gst["k"], gst["v"], k_t[:, 0], v_t[:, 0], ctx["slots"],
+              gate=ctx.get("gate"))
+        return y[:, 0], None
+    if mode == "verify":
         K = ctx["k_rows"]
         B = h.shape[0] // K
         hv = h.reshape(B, K, h.shape[-2], h.shape[-1])
-        y, k_t, v_t = attn_verify(bp["mixer"], hv, cfg, ctx["positions"],
+        y, k_t, v_t = attn_verify(bp, hv, cfg, ctx["positions"],
                                   gst["k"], gst["v"], ctx["cache_pos"],
                                   ctx["cur_len"],
                                   page_table=ctx.get("page_table"),
                                   tail_mask=ctx.get("tail_mask"))
-        y = y.reshape(x.shape)
-        tails = {"k_tail": k_t, "v_tail": v_t}
+        return y.reshape(h.shape), {"k_tail": k_t, "v_tail": v_t}
+    raise ValueError(mode)
+
+
+def _mamba_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
+                 gst: Optional[Dict], ctx: Dict) -> torch.Tensor:
+    """Mamba sublayer.  ``gst`` holds the layer's (B, dc-1, di) conv and
+    (B, di, ds) f32 ssm state views; prefill/decode/replay write them in
+    place."""
+    if mode in ("full", "prefill"):
+        conv0, ssm0 = init_mamba_state(cfg, h.shape[0], h.device)
+        y, conv, ssm = mamba_mix(bp, h, cfg, conv0, ssm0,
+                                 final=mode == "prefill")
+        if mode == "prefill":
+            gst["conv"].copy_(conv)
+            gst["ssm"].copy_(ssm)
+        return y
+    if mode == "decode":
+        y, conv, ssm = mamba_mix(bp, h, cfg, gst["conv"], gst["ssm"])
+        gst["conv"].copy_(conv)
+        gst["ssm"].copy_(ssm)
+        return y
+    if mode == "replay":
+        y, ext, ssm_steps = mamba_mix_steps(bp, h, cfg, gst["conv"],
+                                            gst["ssm"])
+        n = ctx["n_commit"].long()
+        # conv state after n steps = ext[:, n : n+dc-1]
+        idx = n[:, None] + torch.arange(cfg.mamba_d_conv - 1,
+                                        device=h.device)[None]
+        conv = ext.gather(1, idx[..., None].expand(-1, -1, ext.shape[-1]))
+        ssm = select_step_state(ssm_steps, gst["ssm"], ctx["n_commit"])
+        gst["conv"].copy_(conv)
+        gst["ssm"].copy_(ssm)
+        return y
+    if mode == "verify":
+        # every draft row runs from its slot's state; nothing is written
+        y, _, _ = mamba_mix(bp, h, cfg, gst["conv"], gst["ssm"],
+                            rep=ctx["k_rows"], final=False)
+        return y
+    raise ValueError(mode)
+
+
+def _apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
+                 spec: BlockSpec, mode: str, gst: Optional[Dict],
+                 ctx: Dict) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (x_out, kv tails (attention in verify mode) or None)."""
+    h = apply_norm(bp["norm1"], x, cfg)
+    tails = None
+    if spec.mixer == MAMBA:
+        y = _mamba_mixer(bp["mixer"], h, cfg, mode, gst, ctx)
     else:
-        raise ValueError(mode)
+        y, tails = _attn_mixer(bp["mixer"], h, cfg, mode, gst, ctx)
     x = x + y.to(x.dtype)
     if spec.mlp != NO_MLP:
         h2 = apply_norm(bp["norm2"], x, cfg)
@@ -172,8 +239,8 @@ def _layers(cfg: ModelConfig):
 def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
               state: Optional[Dict], ctx: Dict
               ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
-    """Apply every layer. Returns (x, kv tails per gid stacked over R —
-    verify mode only, else {})."""
+    """Apply every layer. Returns (x, kv tails per attention gid stacked
+    over R — verify mode only, else {})."""
     tails: Dict[str, Dict[str, list]] = {}
     for gid, spec, r in _layers(cfg):
         gst = (None if state is None

@@ -29,8 +29,10 @@ def from_jax_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
                   device="cuda") -> Dict[str, Any]:
     """The port's parameters from the reference's flattened parameters
     (``{'embed/embedding': array, 'p0/mixer/wq': (R, d, H*hd) array, ...}``),
-    in ``cfg.param_dtype`` on ``device``.  Raises on a missing, extra or
-    misshapen leaf."""
+    each leaf in its dtype in ``transformer.param_shapes`` (the config's
+    ``param_dtype``; float32 for Mamba's ``A_log``, ``D`` and ``dt_bias``,
+    as the reference keeps them) on ``device``.  Raises on a missing, extra
+    or misshapen leaf."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     want: Dict[str, tuple] = {}
@@ -41,14 +43,14 @@ def from_jax_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
             if isinstance(v, dict):
                 walk(v, key)
             else:
-                want[key] = v[0]
+                want[key] = v
     walk(param_shapes(cfg), "")
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
         raise ValueError(f"{cfg.name}: checkpoint keys differ — missing "
                          f"{missing}, unexpected {extra}")
-    for key, shape in want.items():
+    for key, (shape, _, dtype) in want.items():
         arr = flat[key]
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{cfg.name}: {key} has shape {arr.shape}, "
@@ -57,7 +59,7 @@ def from_jax_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
         *parents, leaf = key.split("/")
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = _to_tensor(arr).to(device=dev, dtype=cfg.param_dtype)
+        node[leaf] = _to_tensor(arr).to(device=dev, dtype=dtype)
     return out
 
 

@@ -8,17 +8,22 @@ on a machine with only the port's dependencies:
 
 Shapes are those of ``chip_smoke.py``'s main path (StableLM-2-1.6B, B=8,
 k=10, w=10, S=332) plus GQA, MQA, hd up to 256 and a 2048-slot cache; K4's
-are phase 2c's (tree (4, 5, 2), 69 inputs, and others).
+are phase 2c's (tree (4, 5, 2), 69 inputs, and others); K5's are phase
+2d's (Jamba's d_inner 16384 at the prefill, verify and decode shapes, and
+odd ones).
 Tolerances: K1, K3 and K4 f32 2e-5, bf16 2e-2 (the reference's kernel
 tolerance); K2 bit-exact; K3 over a shuffled pool equals K1 over the
 gathered linear view bit for bit, and K4 over the pool equals K4 over the
 gathered view; paged continuous serving equals linear continuous serving
-token for token (tiny f32 model), with a tree too.
+token for token (tiny f32 model), with a tree too.  K5 f32 rtol = atol =
+2e-4 (the reference's kernel tolerance), and a tiny f32 hybrid served
+through K5 equals its greedy reference, paged and linear.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
 from repro_torch.kernels.ngram_match import ngram_match_cuda, ngram_match_plain
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.core.tree import topology
@@ -196,3 +201,68 @@ def test_paged_continuous_equals_linear_on_the_card(cuda_device):
     for key in outs:
         for a, b in zip(outs[False, False], outs[key]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bt,T,di,ds,rep,steps", [
+    (8, 256, 16384, 16, 1, False),     # prefill
+    (80, 11, 16384, 16, 10, False),    # verify: 8 slots x k=10 rows
+    (8, 1, 16384, 16, 1, False),       # decode
+    (8, 11, 16384, 16, 1, True),       # replay, per-step states
+    (3, 37, 200, 8, 1, True),          # odd T and di
+    (4, 1, 130, 2, 2, True)])
+def test_mamba_scan_cuda_matches_plain(cuda_device, Bt, T, di, ds, rep,
+                                       steps):
+    g = torch.Generator(device=cuda_device).manual_seed(T + di)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda_device)
+    u, dt = rn(Bt, T, di), torch.nn.functional.softplus(rn(Bt, T, di))
+    A = -torch.exp(rn(di, ds) * 0.3)
+    proj = rn(Bt, T, 5 + 2 * ds)          # B, C as strided views
+    B, C = proj[..., 5:5 + ds], proj[..., 5 + ds:]
+    D, h0 = rn(di), rn(Bt // rep, di, ds)
+    got = mamba_scan_cuda(u, dt, A, B, C, D, h0, h0_rep=rep, steps=steps)
+    want = mamba_scan_plain(u, dt, A, B, C, D, h0, h0_rep=rep, steps=steps)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            _close(a, b, 2e-4)
+
+
+@pytest.mark.gpu
+def test_hybrid_serving_is_lossless_on_the_card(cuda_device):
+    """A tiny f32 hybrid (Mamba, attention) served speculatively, static
+    and continuous over a small pool and the linear layout: every output
+    equals greedy_reference, and K5 carried the scans."""
+    from repro_torch.core.spec_engine import SpecConfig, greedy_reference
+    from repro_torch.models import model as M
+    from repro_torch.models.config import BlockSpec, ModelConfig
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(name="tiny-hyb", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=259,
+                      block_pattern=(BlockSpec("mamba", "swiglu"),
+                                     BlockSpec("attn", "swiglu")),
+                      rope="none", param_dtype=torch.float32,
+                      compute_dtype=torch.float32).validate()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    for paged in (None, False, True):
+        eng = ServingEngine(params, cfg, SpecConfig(k=4, w=3), max_batch=3,
+                            buckets=(16, 32), max_new_cap=14,
+                            paged=bool(paged), num_pages=9 if paged else None,
+                            page_size=8)
+        for i in range(5):
+            text = f"def f{i}(x): return x * {i} + 1"
+            eng.submit((text * 2)[:30] if i % 3 == 1 else text[:14],
+                       max_new_tokens=(6, 10, 14)[i % 3])
+        mamba_scan_cuda.launches = 0
+        done = (eng.serve_all() if paged is None
+                else eng.serve_continuous())
+        assert mamba_scan_cuda.launches > 0
+        for r in done:
+            toks = eng.scheduler.pad_to_bucket(eng.tok.encode(r.prompt))
+            ref = greedy_reference(params, cfg, toks[None],
+                                   r.stats["new_tokens"])
+            np.testing.assert_array_equal(r.output_ids,
+                                          ref[0, len(toks):].cpu().numpy())
