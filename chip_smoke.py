@@ -5,12 +5,21 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. build   — compile every kernel in src/repro_torch/kernels/csrc with nvcc
-               (sm_90a), one process per source, in parallel;
+               (sm_90a), one process per source, in parallel, and print
+               each kernel instance's -Xptxas -v register, shared-memory
+               and spill report;
   2. kernels — hold each CUDA kernel against its plain PyTorch version on the
                card (K1 spec_attention and K3 paged_spec_attention: f32 2e-5,
-               bf16 2e-2; K2 ngram_match: bit-exact; K3 over a shuffled
-               pool == K1 over the gathered view, bit for bit) and time
-               kernel, plain version, library call;
+               bf16 2e-2, including the bf16 tensor-core kernel's edges:
+               fragments across heads and drafts, hd 36/80/96/256, cache
+               rows aligned below 16 bytes; K2 ngram_match: bit-exact; K3
+               over a shuffled pool == K1 over the gathered view, bit for
+               bit) and time kernel, plain version and library call (SDPA,
+               also at the decode shape) by CUDA events over 20 calls and,
+               for kernel and library call, by device time (the same
+               calls enqueued while the card spins, so that they run back
+               to back), beside the kernel's time before the redesign
+               (PR 14);
   3. serve   — StableLM-2-1.6B at full width, bf16, seeded random weights:
                a mixed-strategy ServingEngine builds its n-gram tables and
                serves 8 requests statically (serve_all); the kernels' launch
@@ -79,6 +88,15 @@ PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core bf16
 SFU_PER_S = 16 * 132 * 1.98e9
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 K5_TOL = 2e-4                        # f32, the reference's kernel tolerance
+# bf16 kernel times at the main path's shapes before the tensor-core
+# redesign of K1/K3/K4 (PERF.md section 6, run B of PR 14; NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's
+EARLIER_MS = {"spec_attention": 0.4222, "spec_attention hybrid": 1.4793,
+              "spec_attention decode": 0.0429,
+              "paged_spec_attention": 0.3585,
+              "paged_spec_attention decode": 0.0565,
+              "tree_spec_attention": 0.2667,
+              "paged_tree_spec_attention": 0.2819}
 
 SERVE_K, SERVE_W, SERVE_NEW, SERVE_BUCKET = 10, 10, 64, 256
 LOSSLESS_REQUESTS, LOSSLESS_NEW = 4, 32
@@ -125,17 +143,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def k1_inputs(B, K, W1, H, KV, hd, S, cur_len, dtype, seed, s_pad=0):
+def k1_inputs(B, K, W1, H, KV, hd, S, cur_len, dtype, seed, s_pad=0,
+              d_off=0):
     """Engine-layout K1 operands; caches are a view into a longer buffer
     when ``s_pad`` > 0, so that the kernel's strided cache reads are held
-    too."""
+    too, and start ``d_off`` elements into a wider last dim (rows aligned
+    below 16 bytes: the bf16 kernel's plain-load copies)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *shape: torch.randn(shape, generator=g, device="cuda",
                                     dtype=torch.float32).to(dtype)
     q = rn(B, K, W1, H, hd)
-    kc = rn(B, S + s_pad, KV, hd)[:, :S]
-    vc = rn(B, S + s_pad, KV, hd)[:, :S]
+    kc = rn(B, S + s_pad, KV, hd + d_off)[:, :S, :, d_off:]
+    vc = rn(B, S + s_pad, KV, hd + d_off)[:, :S, :, d_off:]
     kt, vt = rn(B, K, W1, KV, hd), rn(B, K, W1, KV, hd)
     cl = torch.as_tensor(cur_len, dtype=torch.int32, device="cuda")
     return q, kc, vc, kt, vt, cl
@@ -194,15 +214,70 @@ def sdpa_yardstick(q, kc, vc, kt, vt, cur_len, W1, tail=None):
     return fn, out
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """Mean device time of ``fn()`` in ms, by CUDA events over ``iters``
+    calls that the host enqueues while the card spins (~10 ms, doubled
+    when the enqueue takes longer), so that the card runs them back to
+    back: unlike ``time_ms`` it leaves out the host's time between
+    launches, which a small kernel called from Python cannot hide.  (Not
+    torch.profiler: its sessions leave the process's host path slower for
+    the serving phases after them.)  None if the enqueue outlasted even
+    the longest spin."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    sync()
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    for cycles in (20_000_000, 80_000_000, 320_000_000):
+        before, start, end = ev(), ev(), ev()
+        before.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        sync()
+        if host_ms < 0.8 * before.elapsed_time(start):
+            return start.elapsed_time(end) / iters
+    print("  (the host's enqueue outlasted the spin: no device time)")
+    return None
+
+
+def timed(name: str, fn, lib_fn, rec: dict = None) -> dict:
+    """Time a kernel and its library yardstick both ways (``time_ms`` and
+    ``device_ms``) and print them beside the kernel's earlier time;
+    returns (and fills) the record."""
+    rec = {} if rec is None else rec
+    rec.update(ms=time_ms(fn), device_ms=device_ms(fn))
+    if lib_fn is not None:
+        rec.update(library_ms=time_ms(lib_fn),
+                   library_device_ms=device_ms(lib_fn))
+    lib = (f"SDPA {rec['library_ms']:.4f} ms (device "
+           f"{fmt_ms(rec['library_device_ms'])})" if lib_fn is not None
+           else "no library call")
+    print(f"  {name}: ms={rec['ms']:.4f} (device "
+          f"{fmt_ms(rec['device_ms'])}); earlier (PR 14) "
+          f"{EARLIER_MS.get(name, 'not timed')}; {lib} in this run")
+    return rec
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def close(out, want, tol) -> tuple:
     diff = (out.float() - want.float()).abs()
     ok = bool((diff <= tol + tol * want.float().abs()).all())
     return ok, float(diff.max())
 
 
-def k3_inputs(B, K, W1, H, KV, hd, ps, cur_len, dtype, seed, n_pages=0):
+def k3_inputs(B, K, W1, H, KV, hd, ps, cur_len, dtype, seed, n_pages=0,
+              d_off=0):
     """Engine-layout K3 operands: the pool is one layer's view of a
-    2-period (R, NP, ps, KV, hd) pool; each row's pages are a shuffled
+    2-period (R, NP, ps, KV, hd) pool (starting ``d_off`` elements into a
+    wider last dim, as ``k1_inputs``); each row's pages are a shuffled
     draw, -1 past what its cur_len needs."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -214,7 +289,8 @@ def k3_inputs(B, K, W1, H, KV, hd, ps, cur_len, dtype, seed, n_pages=0):
     pt = perm[:B * pps].reshape(B, pps).clone()
     for b, c in enumerate(cur_len):
         pt[b, -(-c // ps):] = -1
-    kp, vp = rn(2, NP, ps, KV, hd)[1], rn(2, NP, ps, KV, hd)[1]
+    kp = rn(2, NP, ps, KV, hd + d_off)[1, ..., d_off:]
+    vp = rn(2, NP, ps, KV, hd + d_off)[1, ..., d_off:]
     cl = torch.as_tensor(cur_len, dtype=torch.int32, device="cuda")
     return (rn(B, K, W1, H, hd), kp, vp, pt, rn(B, K, W1, KV, hd),
             rn(B, K, W1, KV, hd), cl)
@@ -248,13 +324,27 @@ def phase_k3(cont_cur: list) -> dict:
         ("ps=1 w=40 hd=80", 2, 2, 41, 4, 2, 80, 1, [70, 7]),
         ("ps=5 k=25 multi-tile", 2, 25, 11, 8, 2, 96, 5, [1024, 513]),
         ("empty cache ps=64", 2, 25, 11, 8, 4, 64, 64, [0, 0]),
+        # the hybrid's decode, verify and replay over the served page size
+        ("hybrid decode KW1=1", 8, 1, 1, 64, 8, 128, CONT_PAGE, cont_cur),
+        ("hybrid verify KW1=110", 8, SERVE_K, SERVE_W + 1, 64, 8, 128,
+         CONT_PAGE, cont_cur),
+        ("hybrid replay KW1=11", 8, 1, SERVE_W + 1, 64, 8, 128, CONT_PAGE,
+         cont_cur),
+        # the bf16 kernel's edges, as phase 2's
+        ("frag x heads ps=5", 2, 3, 7, 16, 2, 64, 5, [100, 37]),
+        ("frag 6 drafts ps=16", 2, 5, 3, 16, 2, 96, 16, [129, 0]),
+        ("frag hd=80 ps=3", 2, 3, 7, 16, 2, 80, 3, [64, 65]),
+        ("frag hd=256 ps=64", 2, 3, 7, 16, 2, 256, 64, [99, 33]),
+        ("rows unaligned hd=36", 2, 3, 7, 16, 2, 36, 16, [64, 65]),
+        ("rows unaligned view+1", 2, 3, 7, 16, 2, 64, 16, [64, 65], 1),
     ]
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for name, B, K, W1, H, KV, hd, ps, cl in cases:
+        for name, B, K, W1, H, KV, hd, ps, cl, *off in cases:
             ops = k3_inputs(B, K, W1, H, KV, hd, ps, cl, dtype,
-                            seed=B * 1000 + K * 10 + ps)
+                            seed=B * 1000 + K * 10 + ps,
+                            d_off=off[0] if off else 0)
             out = paged_spec_attention_cuda(*ops, w1=W1)
             want = paged_spec_attention_plain(*ops, w1=W1)
             q, kp, vp, pt, kt, vt, cur = ops
@@ -283,26 +373,33 @@ def phase_k3(cont_cur: list) -> dict:
     lib_fn, lib_out = sdpa_yardstick(q, k_lin, v_lin, kt, vt, cur, W1)
     ok, e = close(paged_spec_attention_cuda(*ops, w1=W1), lib_out, 2e-2)
     gather_ms = time_ms(lambda: gather_pages(kp, vp, pt))
-    k1_lin_ms = time_ms(lambda: spec_attention_cuda(q, k_lin, v_lin, kt, vt,
-                                                    cur, w1=W1))
+    k1_lin = lambda: spec_attention_cuda(q, k_lin, v_lin, kt, vt, cur, w1=W1)
     bound, bound_by = k3_bound_ms(q, kp, pt, kt, cur, W1)
-    rec = dict(max_abs_err=err,
-               ms=time_ms(lambda: paged_spec_attention_cuda(*ops, w1=W1)),
-               plain_ms=time_ms(lambda: paged_spec_attention_plain(*ops,
-                                                                   w1=W1)),
-               library_ms=time_ms(lib_fn), bound_ms=bound,
-               bound_by=bound_by)
+    rec = timed("paged_spec_attention",
+                lambda: paged_spec_attention_cuda(*ops, w1=W1), lib_fn,
+                dict(max_abs_err=err,
+                     plain_ms=time_ms(lambda: paged_spec_attention_plain(
+                         *ops, w1=W1)),
+                     bound_ms=bound, bound_by=bound_by))
     print(f"  K3 vs SDPA yardstick (gathered view): max_abs_err={e:.3g}; "
           f"SDPA ms excludes the gather, gather_pages ms={gather_ms:.4f}; "
-          f"K1 on the gathered view ms={k1_lin_ms:.4f}")
+          f"K1 on the gathered view ms={time_ms(k1_lin):.4f} (device "
+          f"{fmt_ms(device_ms(k1_lin))})")
     dops = k3_inputs(8, 1, 1, 32, 32, 64, CONT_PAGE, cont_cur,
                      torch.bfloat16, seed=4, n_pages=CONT_PAGES + 1)
     d_bound, _ = k3_bound_ms(dops[0], dops[1], dops[3], dops[4], dops[6], 1)
-    print(f"  K3 decode shape (KW1=1): ms="
-          f"{time_ms(lambda: paged_spec_attention_cuda(*dops, w1=1)):.4f}"
-          f" plain_ms="
+    dk, dv = gather_pages(dops[1], dops[2], dops[3])
+    d_lib, d_out = sdpa_yardstick(dops[0], dk, dv, dops[4], dops[5],
+                                  dops[6], 1)
+    ok, e = close(paged_spec_attention_cuda(*dops, w1=1), d_out, 2e-2)
+    d = timed("paged_spec_attention decode",
+              lambda: paged_spec_attention_cuda(*dops, w1=1), d_lib)
+    print(f"  K3 decode shape (KW1=1): ms={d['ms']:.4f} device_ms="
+          f"{fmt_ms(d['device_ms'])} library_ms={d['library_ms']:.4f} "
+          f"library_device_ms={fmt_ms(d['library_device_ms'])} plain_ms="
           f"{time_ms(lambda: paged_spec_attention_plain(*dops, w1=1)):.4f}"
-          f" bound_ms={d_bound:.5f}")
+          f" bound_ms={d_bound:.5f}; vs SDPA (gathered view) max_abs_err="
+          f"{e:.3g}")
     print(f"  paged_spec_attention: ms={rec['ms']:.4f} plain_ms="
           f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
           f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}) at B=8 "
@@ -328,6 +425,11 @@ def phase_k4(cont_cur: list) -> dict:
         ("branch-1 (16,5,1) ps=5", (16, 5, 1), 2, 8, 4, 64, 5, [70, 7]),
         ("depth-1 (6,1,2) hd=80", (6, 1, 2), 2, 4, 2, 80, 8, [33, 1]),
         ("empty cache", TREE_WDB, 2, 8, 4, 64, CONT_PAGE, [0, 0]),
+        # 265 inputs: ancestor rows reach back over several key tiles;
+        # 16-row fragments crossing heads
+        ("(8,5,2) 265 inputs", (8, 5, 2), 2, 16, 2, 64, 16, [90, 0]),
+        ("(8,5,2) hd=256", (8, 5, 2), 1, 8, 1, 256, CONT_PAGE, [130]),
+        ("frag x heads hd=96", TREE_WDB, 2, 16, 2, 96, 8, [40, 77]),
     ]
     err = {"tree_spec_attention": 0.0, "paged_tree_spec_attention": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -377,23 +479,23 @@ def phase_k4(cont_cur: list) -> dict:
     ok, e = close(spec_attention_cuda(q, k_lin, v_lin, kt, vt, cur, w1=W1,
                                       anc=tm.anc), lib_out, 2e-2)
     tail_keys = int(tm.mask.sum())
-    lib_ms = time_ms(lib_fn)
     b_lin, by_lin = k1_bound_ms(q, k_lin, kt, cur, W1, tail_keys)
     b_pag, by_pag = k3_bound_ms(q, kp, pt, kt, cur, W1, tail_keys)
-    rec = {"tree_spec_attention": dict(
-               max_abs_err=err["tree_spec_attention"],
-               ms=time_ms(lambda: spec_attention_cuda(
-                   q, k_lin, v_lin, kt, vt, cur, w1=W1, anc=tm.anc)),
-               plain_ms=time_ms(lambda: spec_attention_plain(
-                   q, k_lin, v_lin, kt, vt, cur, w1=W1, tail_mask=tm.mask)),
-               library_ms=lib_ms, bound_ms=b_lin, bound_by=by_lin),
-           "paged_tree_spec_attention": dict(
-               max_abs_err=err["paged_tree_spec_attention"],
-               ms=time_ms(lambda: paged_spec_attention_cuda(
-                   *ops, w1=W1, anc=tm.anc)),
-               plain_ms=time_ms(lambda: paged_spec_attention_plain(
-                   *ops, w1=W1, tail_mask=tm.mask)),
-               library_ms=lib_ms, bound_ms=b_pag, bound_by=by_pag)}
+    rec = {"tree_spec_attention": timed(
+               "tree_spec_attention", lambda: spec_attention_cuda(
+                   q, k_lin, v_lin, kt, vt, cur, w1=W1, anc=tm.anc), lib_fn,
+               dict(max_abs_err=err["tree_spec_attention"],
+                    plain_ms=time_ms(lambda: spec_attention_plain(
+                        q, k_lin, v_lin, kt, vt, cur, w1=W1,
+                        tail_mask=tm.mask)),
+                    bound_ms=b_lin, bound_by=by_lin)),
+           "paged_tree_spec_attention": timed(
+               "paged_tree_spec_attention", lambda: paged_spec_attention_cuda(
+                   *ops, w1=W1, anc=tm.anc), lib_fn,
+               dict(max_abs_err=err["paged_tree_spec_attention"],
+                    plain_ms=time_ms(lambda: paged_spec_attention_plain(
+                        *ops, w1=W1, tail_mask=tm.mask)),
+                    bound_ms=b_pag, bound_by=by_pag))}
     causal_ms = time_ms(lambda: spec_attention_cuda(q, k_lin, v_lin, kt, vt,
                                                     cur, w1=W1))
     print(f"  K4 vs SDPA yardstick (ancestor mask folded into the boolean "
@@ -491,6 +593,7 @@ def phase_k5(S_main: int, cur_main: list) -> dict:
         bound, by = k5_bound_ms(Bt, T, di, ds, Bt // rep, final, False)
         r = dict(max_abs_err=err,
                  ms=time_ms(lambda: mamba_scan_cuda(*ops, **kw)),
+                 device_ms=device_ms(lambda: mamba_scan_cuda(*ops, **kw)),
                  plain_ms=time_ms(lambda: mamba_scan_plain(*ops, **kw),
                                   iters=5, warmup=1),
                  library_ms=None, bound_ms=bound, bound_by=by)
@@ -517,10 +620,32 @@ def phase_k5(S_main: int, cur_main: list) -> dict:
                                  f"disagrees with its plain version ({e})")
     lib_fn, _ = sdpa_yardstick(*ops, W1)
     bound, by = k1_bound_ms(ops[0], ops[1], ops[3], ops[5], W1)
-    print(f"  spec_attention at H=64 KV=8 hd=128 (bf16): ms="
-          f"{time_ms(lambda: spec_attention_cuda(*ops, w1=W1)):.4f} "
+    h = timed("spec_attention hybrid",
+              lambda: spec_attention_cuda(*ops, w1=W1), lib_fn)
+    print(f"  spec_attention at H=64 KV=8 hd=128 (bf16): ms={h['ms']:.4f} "
+          f"device_ms={fmt_ms(h['device_ms'])} "
           f"plain_ms={time_ms(lambda: spec_attention_plain(*ops, w1=W1)):.4f}"
-          f" library_ms={time_ms(lib_fn):.4f} bound_ms={bound:.5f} ({by})")
+          f" library_ms={h['library_ms']:.4f} library_device_ms="
+          f"{fmt_ms(h['library_device_ms'])} bound_ms={bound:.5f} ({by})")
+    # K1 at the hybrid's decode shape: 8 rows of a (b, kv head), one
+    # fragment a warp (the <128, 1> instance)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        dops = k1_inputs(8, 1, 1, 64, 8, 128, S_main, cur_main, dtype,
+                         seed=12)
+        ok, e = close(spec_attention_cuda(*dops, w1=1),
+                      spec_attention_plain(*dops, w1=1), TOL[dname])
+        print(f"  K1 hybrid decode {dname:8s} B=8 KW1=1 H=64 KV=8 hd=128 "
+              f"S={S_main} max_abs_err={e:.3g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K1 hybrid decode {dname} disagrees with "
+                                 f"its plain version ({e})")
+    d_bound, d_by = k1_bound_ms(dops[0], dops[1], dops[3], dops[5], 1)
+    d_lib, _ = sdpa_yardstick(*dops, 1)
+    d = timed("spec_attention hybrid decode",
+              lambda: spec_attention_cuda(*dops, w1=1), d_lib)
+    print(f"  spec_attention hybrid decode (KW1=1): bound_ms={d_bound:.5f} "
+          f"({d_by}); 8 x 8 = 64 blocks, one per (batch row, KV head)")
     return rec
 
 
@@ -544,19 +669,35 @@ def phase_kernels(S_main: int, cur_main: list) -> dict:
         ("k=25 empty cache", 2, 25, 11, 8, 4, 64, 512, [0, 0], 0),
         ("k=25 multi-tile", 2, 25, 11, 8, 2, 96, 1024, [1024, 513], 0),
         ("w=40 hd=80 cur>S", 2, 2, 41, 4, 2, 80, 200, [205, 7], 0),
+        # the bf16 kernel's edges: 16-row fragments crossing a head and
+        # spanning 3 (W1 7) or 6 (W1 3) drafts, hd 80/96/256, cache rows
+        # not 16-byte aligned (hd 36, an offset view); one fragment a warp
+        # at hd 128 (the hybrid's decode, and 40 rows over 3 warps), the
+        # hybrid's replay of the winning row
+        ("hybrid decode KW1=1", 8, 1, 1, 64, 8, 128, S_main, cur_main, 0),
+        ("hybrid replay KW1=11", 8, 1, SERVE_W + 1, 64, 8, 128, S_main,
+         cur_main, 0),
+        ("1 frag hd=128 G=4", 2, 2, 5, 16, 4, 128, 300, [299, 64], 0),
+        ("frag x heads W1=7", 2, 3, 7, 16, 2, 64, 150, [100, 37], 0),
+        ("frag 6 drafts hd=96", 2, 5, 3, 16, 2, 96, 130, [129, 0], 0),
+        ("frag hd=80 edge 64", 2, 3, 7, 16, 2, 80, 90, [64, 65], 0),
+        ("frag hd=256", 2, 3, 7, 16, 2, 256, 100, [99, 33], 0),
+        ("rows unaligned hd=36", 2, 3, 7, 16, 2, 36, 90, [64, 65], 0),
+        ("rows unaligned view+1", 2, 3, 7, 16, 2, 64, 90, [64, 65], 0, 1),
     ]
     k1_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for name, B, K, W1, H, KV, hd, S, cl, pad in cases:
+        for name, B, K, W1, H, KV, hd, S, cl, pad, *off in cases:
             ops = k1_inputs(B, K, W1, H, KV, hd, S, cl, dtype,
-                            seed=B * 1000 + K * 10 + hd, s_pad=pad)
+                            seed=B * 1000 + K * 10 + hd, s_pad=pad,
+                            d_off=off[0] if off else 0)
             out = spec_attention_cuda(*ops, w1=W1)
             want = spec_attention_plain(*ops, w1=W1)
             sync()
             ok, err = close(out, want, TOL[dname])
             k1_err = max(k1_err, err)
-            print(f"  K1 {name:18s} {dname:8s} B={B} K={K} W1={W1} H={H} "
+            print(f"  K1 {name:20s} {dname:8s} B={B} K={K} W1={W1} H={H} "
                   f"KV={KV} hd={hd} S={S} cur_len={cl} max_abs_err={err:.3g}"
                   f" tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -570,18 +711,23 @@ def phase_kernels(S_main: int, cur_main: list) -> dict:
     ok, err = close(spec_attention_cuda(*ops, w1=W1), lib_out, 2e-2)
     print(f"  K1 vs SDPA yardstick: max_abs_err={err:.3g}")
     bound, bound_by = k1_bound_ms(ops[0], ops[1], ops[3], ops[5], W1)
-    rec["spec_attention"] = dict(
-        max_abs_err=k1_err,
-        ms=time_ms(lambda: spec_attention_cuda(*ops, w1=W1)),
-        plain_ms=time_ms(lambda: spec_attention_plain(*ops, w1=W1)),
-        library_ms=time_ms(lib_fn), bound_ms=bound, bound_by=bound_by)
+    rec["spec_attention"] = timed(
+        "spec_attention", lambda: spec_attention_cuda(*ops, w1=W1), lib_fn,
+        dict(max_abs_err=k1_err,
+             plain_ms=time_ms(lambda: spec_attention_plain(*ops, w1=W1)),
+             bound_ms=bound, bound_by=bound_by))
     dops = k1_inputs(8, 1, 1, 32, 32, 64, S_main, cur_main, torch.bfloat16,
                      seed=2)
     d_bound, _ = k1_bound_ms(dops[0], dops[1], dops[3], dops[5], 1)
-    print(f"  K1 decode shape (KW1=1): ms="
-          f"{time_ms(lambda: spec_attention_cuda(*dops, w1=1)):.4f} "
-          f"plain_ms={time_ms(lambda: spec_attention_plain(*dops, w1=1)):.4f}"
-          f" bound_ms={d_bound:.5f}")
+    d_lib, d_out = sdpa_yardstick(*dops, 1)
+    ok, err = close(spec_attention_cuda(*dops, w1=1), d_out, 2e-2)
+    d = timed("spec_attention decode",
+              lambda: spec_attention_cuda(*dops, w1=1), d_lib)
+    print(f"  K1 decode shape (KW1=1): ms={d['ms']:.4f} device_ms="
+          f"{fmt_ms(d['device_ms'])} library_ms={d['library_ms']:.4f} "
+          f"library_device_ms={fmt_ms(d['library_device_ms'])} plain_ms="
+          f"{time_ms(lambda: spec_attention_plain(*dops, w1=1)):.4f}"
+          f" bound_ms={d_bound:.5f}; vs SDPA max_abs_err={err:.3g}")
     # ---- K2 ----
     k2_cases = [(8, S_main, 1, SERVE_W), (3, 64, 2, 5), (2, 257, 3, 8),
                 (4, 1000, 1, 1), (2, 4097, 4, 16)]
@@ -615,6 +761,7 @@ def phase_kernels(S_main: int, cur_main: list) -> dict:
     rec["ngram_match"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: ngram_match_cuda(buf, query, cl, w=w)),
+        device_ms=device_ms(lambda: ngram_match_cuda(buf, query, cl, w=w)),
         plain_ms=time_ms(lambda: ngram_match_plain(buf, query, cl, w=w)),
         library_ms=None, bound_ms=max(t_b, t_o),
         bound_by="bytes" if t_b >= t_o else "operations")
@@ -1456,6 +1603,32 @@ def phase_hybrid() -> dict:
     return k5
 
 
+def ptxas_report(log: str) -> list:
+    """(kernel instance, its ``-Xptxas -v`` registers / shared memory and
+    spill report) for every entry function of an nvcc log; the bf16
+    verify kernel's instances read spec_attention_mma_kernel<head-dim
+    capacity, fragments a warp, paged>."""
+    import re
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled, kernel = m.group(1), m.group(1)
+            for d in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+                ident = mangled[d.end():d.end() + int(d.group(1))]
+                if ident.endswith("_kernel"):
+                    args = re.findall(r"L[ib](\d+)E", mangled)
+                    kernel = ident + (f"<{', '.join(args)}>" if args else "")
+                    break
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            out.append((kernel, line.split(":", 1)[-1].strip()
+                        + (f"; {spill}" if spill else "")))
+            kernel, spill = None, ""
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1469,9 +1642,9 @@ def main() -> int:
     print(f"  built {sorted(secs)} in {time.perf_counter() - t0:.2f} s")
     for name in build.sources():
         log = build.BUILD_DIR / f"{name}.log"
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "smem" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, report in ptxas_report(
+                log.read_text() if log.exists() else ""):
+            print(f"  {name}: {kernel}: {report}")
     card = card_line()
     print(f"  {card}")
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "

@@ -60,7 +60,7 @@ class PagedConfig:
     ``num_pages`` is the page-pool size shared by every slot; 0 sizes it to
     the per-slot worst case (num_slots * pages_per_slot, the linear
     footprint).  ``page_size`` is positions per page; 0 follows
-    ``cache.default_page_size`` (the verify kernel's 64-key cache tile).
+    ``cache.default_page_size`` (64, whole verify-kernel key tiles).
     """
     num_pages: int = 0
     page_size: int = 0

@@ -20,15 +20,20 @@ a linear row walks at most w+1, in the order a masked scan over all inputs
 would visit them.  Linear rows pass no table (a null pointer): the choice is
 made at run time, uniformly across a warp, and doubles no template instance.
 
-What bounds it on the H100: bytes.  Each call reads every committed cache
-row of a (batch, KV head) once and does ~4*hd flops per (query row, key),
-far below the card's ~295 bf16 flops per byte.  What the design does about
-it: it reads the engine layout (B, S, KV, hd) in place through strides (the
-reference wrapper's per-call transposed copy of the whole cache and its
-block padding, ``repro/kernels/ops.py:55-62``, are gone); one block per
-(batch, KV head, 32 query rows) stages each cache tile once in shared memory
-for all G query heads of that KV head; it stops at ``cur_len[b]``, which it
-reads from device memory itself, so no host sync and no padding.
+What bounds it on the H100: bytes at StableLM's main path (one query head
+per KV head, ~440 flops per 256-byte key), the tensor-core rate at the
+hybrid's GQA shape (8 heads per KV head, ~880 flops per byte).  What the
+design does about it: it reads the engine layout (B, S, KV, hd) in place
+through strides (the reference wrapper's per-call transposed copy of the
+whole cache and its block padding, ``repro/kernels/ops.py:55-62``, are
+gone) and stops at ``cur_len[b]``, which it reads from device memory
+itself, so no host sync and no padding.  bf16 runs on the tensor cores:
+one block per (batch, KV head, 64 packed (head, row) query rows), each
+warp's 16 rows one ``mma.sync`` fragment, K/V tiles double-buffered in
+shared memory by ``cp.async``, the tail as the last tiles of the same loop
+(staged once for all G heads).  f32 keeps exact f32 arithmetic on the CUDA
+cores, which the lossless checks need.  The source note in
+``csrc/spec_attention.cu`` gives the details.
 """
 from __future__ import annotations
 
@@ -111,16 +116,28 @@ def _lib() -> ctypes.CDLL:
     fn = lib.spec_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 9
+                       + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     fn = lib.paged_spec_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 9
+                       + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def copy_width(tensors, strides) -> int:
+    """Elements per shared-memory copy of the bf16 kernel: 8 (one 16-byte
+    ``cp.async``) where every row start is 16-byte aligned, i.e. 8 divides
+    every stride and every base address (in elements), else 1 (plain
+    loads)."""
+    elt = tensors[0].element_size()
+    if all(t.data_ptr() % (8 * elt) == 0 for t in tensors) \
+            and all(s % 8 == 0 for s in strides):
+        return 8
+    return 1
 
 
 def _check_common(name, q, k_cache, v_cache, k_tail, v_tail, cur_len, w1,
@@ -202,11 +219,12 @@ def spec_attention_cuda(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
     if out.numel() == 0:
         return out
     cs = k_cache.stride()
+    vec = copy_width((q, k_cache, v_cache, k_tail, v_tail), cs[:3] + (hd,))
     rc = _lib().spec_attention_launch(
         _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
         cur_len.data_ptr(), None if anc is None else anc.data_ptr(),
-        out.data_ptr(), B, K * W1, W1, H, KV, hd, S, anc_w,
+        out.data_ptr(), B, K * W1, W1, H, KV, hd, S, anc_w, vec,
         K * W1 * H * hd, H * hd, hd,
         cs[0], cs[1], cs[2],
         K * W1 * KV * hd, KV * hd, hd,
@@ -252,11 +270,12 @@ def paged_spec_attention_cuda(q, k_pool, v_pool, page_table, k_tail, v_tail,
     if out.numel() == 0:
         return out
     ps_ = k_pool.stride()
+    vec = copy_width((q, k_pool, v_pool, k_tail, v_tail), ps_[:3] + (hd,))
     rc = _lib().paged_spec_attention_launch(
         _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
         cur_len.data_ptr(), None if anc is None else anc.data_ptr(),
-        out.data_ptr(), B, K * W1, W1, H, KV, hd, ps, pps, anc_w,
+        out.data_ptr(), B, K * W1, W1, H, KV, hd, ps, pps, anc_w, vec,
         K * W1 * H * hd, H * hd, hd,
         ps_[0], ps_[1], ps_[2],
         K * W1 * KV * hd, KV * hd, hd,

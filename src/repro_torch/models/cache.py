@@ -150,10 +150,11 @@ def reset_slot(cfg: ModelConfig, state: Dict, slot: int) -> Dict:
 # paged KV cache
 # ----------------------------------------------------------------------------
 def default_page_size(cfg: ModelConfig) -> int:
-    """Pages match the verify kernel's cache tile: 64 keys (``kTile`` in
-    ``kernels/csrc/spec_attention.cu``), so one page fills one tile that
-    K3 stages in shared memory.  (The reference ties pages to its TPU
-    kernel's 512-slot VMEM block instead.)  Any page_size >= 1 is right."""
+    """Pages of 64 keys: a whole number of the verify kernel's key tiles
+    (64 or 32 keys, ``kernels/csrc/spec_attention.cu``), so no tile that
+    K3 stages in shared memory spans two pages.  (The reference ties
+    pages to its TPU kernel's 512-slot VMEM block instead.)  Any
+    page_size >= 1 is right."""
     del cfg
     return 64
 

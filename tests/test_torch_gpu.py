@@ -7,10 +7,13 @@ on a machine with only the port's dependencies:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
 Shapes are those of ``chip_smoke.py``'s main path (StableLM-2-1.6B, B=8,
-k=10, w=10, S=332) plus GQA, MQA, hd up to 256 and a 2048-slot cache; K4's
-are phase 2c's (tree (4, 5, 2), 69 inputs, and others); K5's are phase
-2d's (Jamba's d_inner 16384 at the prefill, verify and decode shapes, and
-odd ones).
+k=10, w=10, S=332) plus GQA, MQA, hd up to 256 and a 2048-slot cache, and
+the bf16 kernel's fragment edges (16-row fragments that cross a head or
+span several drafts, one fragment a warp at hd 128 as the hybrid's
+decode runs, hd 80/96/256, cache rows aligned below 16 bytes, trees of
+265 inputs); K4's are phase 2c's (tree (4, 5, 2), 69 inputs, and
+others); K5's are phase 2d's (Jamba's d_inner 16384 at the prefill,
+verify and decode shapes, and odd ones).
 Tolerances: K1, K3 and K4 f32 2e-5, bf16 2e-2 (the reference's kernel
 tolerance); K2 bit-exact; K3 over a shuffled pool equals K1 over the
 gathered linear view bit for bit, and K4 over the pool equals K4 over the
@@ -56,7 +59,20 @@ def cuda_device():
     (8, 1, 1, 32, 32, 64, 332, [256, 265, 274, 283, 292, 301, 310, 319]),
     (2, 25, 11, 32, 8, 128, 2048, [2000, 0]),
     (2, 3, 4, 32, 1, 256, 300, [299, 64]),
-    (2, 2, 41, 4, 2, 80, 200, [205, 7])])     # tail > 32 keys, cur_len > S
+    (2, 2, 41, 4, 2, 80, 200, [205, 7]),      # tail > 32 keys, cur_len > S
+    # bf16 fragments of 16 packed (head, row) rows: G*K*W1 = 168 crosses a
+    # head boundary inside a fragment, each fragment spans 3 drafts (W1 7)
+    # or 6 (W1 3); hd 80 / 96 pad to the 128 instance, 256 reads Q from
+    # shared memory over 32-key tiles
+    (2, 3, 7, 16, 2, 64, 150, [100, 37]),
+    (2, 5, 3, 16, 2, 96, 130, [129, 0]),
+    (2, 3, 7, 16, 2, 80, 90, [64, 65]),
+    (2, 3, 7, 16, 2, 256, 100, [99, 33]),
+    # one fragment a warp at hd 128: the hybrid's decode (8 rows of a
+    # (b, KV head)) and 40 rows over 3 warps; the hybrid's replay (KW1 11)
+    (8, 1, 1, 64, 8, 128, 332, [256, 265, 274, 283, 292, 301, 310, 319]),
+    (2, 2, 5, 16, 4, 128, 300, [299, 64]),
+    (8, 1, 11, 64, 8, 128, 332, [256, 265, 274, 283, 292, 301, 310, 319])])
 def test_spec_attention_cuda_matches_plain(cuda_device, B, K, W1, H, KV, hd,
                                            S, cur, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -112,7 +128,15 @@ def _paged_inputs(device, B, K, W1, H, KV, hd, ps, cur, dtype, seed=0):
     (3, 4, 5, 32, 8, 128, 16, [700, 0, 333]),
     (2, 3, 4, 32, 1, 256, 128, [299, 129]),
     (2, 2, 41, 4, 2, 80, 1, [70, 7]),
-    (2, 25, 11, 8, 4, 64, 5, [0, 0])])
+    (2, 25, 11, 8, 4, 64, 5, [0, 0]),
+    (2, 3, 7, 16, 2, 64, 5, [100, 37]),       # fragments cross heads
+    (2, 5, 3, 16, 2, 96, 16, [129, 0]),
+    (2, 3, 7, 16, 2, 80, 3, [64, 65]),
+    (2, 3, 7, 16, 2, 256, 64, [99, 33]),
+    # the hybrid's decode, verify and replay over the served page size
+    (8, 1, 1, 64, 8, 128, 64, [64, 104, 144, 184, 224, 264, 304, 344]),
+    (8, 10, 11, 64, 8, 128, 64, [64, 104, 144, 184, 224, 264, 304, 344]),
+    (8, 1, 11, 64, 8, 128, 64, [64, 104, 144, 184, 224, 264, 304, 344])])
 def test_paged_spec_attention_cuda_matches_plain_and_k1(cuda_device, B, K,
                                                         W1, H, KV, hd, ps,
                                                         cur, dtype):
@@ -135,7 +159,11 @@ def test_paged_spec_attention_cuda_matches_plain_and_k1(cuda_device, B, K,
     ((3, 3, 2), 2, 32, 1, 256, 128, [299, 129]),
     ((16, 5, 1), 2, 8, 4, 64, 5, [70, 7]),
     ((6, 1, 2), 2, 4, 2, 80, 8, [33, 1]),
-    ((4, 5, 2), 2, 8, 4, 64, 64, [0, 0])])
+    ((4, 5, 2), 2, 8, 4, 64, 64, [0, 0]),
+    # 265 inputs: ancestor rows reach back over several key tiles
+    ((8, 5, 2), 2, 16, 2, 64, 16, [90, 0]),
+    ((8, 5, 2), 1, 8, 1, 256, 64, [130]),
+    ((4, 5, 2), 2, 16, 2, 96, 8, [40, 77])])  # fragments cross heads
 def test_tree_kernels_match_plain(cuda_device, wdb, B, H, KV, hd, ps, cur,
                                   dtype):
     """K4 over the linear cache and over the pool against the plain version
@@ -159,6 +187,48 @@ def test_tree_kernels_match_plain(cuda_device, wdb, B, H, KV, hd, ps, cur,
     _close(got_lin, want, TOL[dtype])
     _close(got_pg, want_pg, TOL[dtype])
     assert torch.equal(got_pg, got_lin), "K4 paged differs from K4 linear"
+
+
+def _offset_view(t, off):
+    """``t``'s values in a buffer whose last dim is ``off`` longer, read at
+    ``off``: the rows of the view start ``off`` elements past alignment."""
+    buf = torch.zeros(t.shape[:-1] + (t.shape[-1] + off,), dtype=t.dtype,
+                      device=t.device)
+    buf[..., off:] = t
+    return buf[..., off:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,off", [(36, 0), (64, 1)])
+def test_spec_attention_cuda_unaligned_rows(cuda_device, hd, off, dtype):
+    """Cache rows that do not start 16-byte aligned (hd = 4 x odd, which
+    also leaves part of a 16-dim k step zero-padded, or a view offset by
+    one element): bf16 copies them by plain loads instead of cp.async.  K1
+    and K3 against the plain version, and K3 bit for bit against K1 on the
+    gathered view."""
+    from repro_torch.kernels.spec_attention import copy_width
+    B, K, W1, H, KV = 2, 3, 7, 16, 2
+    q, kp, vp, pt, kt, vt, cl = _paged_inputs(cuda_device, B, K, W1, H, KV,
+                                              hd, 16, [90, 41], dtype)
+    kp, vp = _offset_view(kp, off), _offset_view(vp, off)
+    k_lin, v_lin = gather_pages(kp, vp, pt)
+    k_off, v_off = _offset_view(k_lin, off), _offset_view(v_lin, off)
+    if dtype == "bfloat16":
+        assert copy_width((q, kp, vp, kt, vt), kp.stride()[:3] + (hd,)) \
+            == 1
+        assert copy_width((q, k_off, v_off, kt, vt),
+                          k_off.stride()[:3] + (hd,)) == 1
+    got_pg = paged_spec_attention_cuda(q, kp, vp, pt, kt, vt, cl, w1=W1)
+    got_off = spec_attention_cuda(q, k_off, v_off, kt, vt, cl, w1=W1)
+    got_lin = spec_attention_cuda(q, k_lin, v_lin, kt, vt, cl, w1=W1)
+    want = spec_attention_plain(q, k_lin, v_lin, kt, vt, cl, w1=W1)
+    torch.cuda.synchronize()
+    _close(got_off, want, TOL[dtype])
+    _close(got_pg, want, TOL[dtype])
+    assert torch.equal(got_off, got_lin), "K1's copy width changed a bit"
+    assert torch.equal(got_pg, got_lin), "K3 differs from K1 on the " \
+                                         "gathered view"
 
 
 @pytest.mark.gpu

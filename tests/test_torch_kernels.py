@@ -18,7 +18,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, dispatch, hashing, ref
 from repro_torch.kernels.ngram_match import ngram_match_cuda, ngram_match_plain
-from repro_torch.kernels.spec_attention import (spec_attention_cuda,
+from repro_torch.kernels.spec_attention import (copy_width,
+                                                spec_attention_cuda,
                                                 spec_attention_plain)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -117,6 +118,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         ngram_match_cuda(buf, buf[:, :1].contiguous(),
                          torch.tensor([8], dtype=torch.int32), w=2)
+
+
+@pytest.mark.parametrize("hd,off,vec", [(64, 0, 8), (36, 0, 1), (80, 4, 1),
+                                        (64, 2, 1), (64, 1, 1), (33, 0, 1)])
+def test_copy_width_follows_row_alignment(hd, off, vec):
+    """The bf16 kernel copies 16 bytes at a time (8 elements) where every
+    row start of the operands is 16-byte aligned, as a contiguous
+    hd % 8 == 0 cache is, else element by element (1): hd = 4 x odd, an
+    offset view by 4, 2 or 1 elements, an odd hd."""
+    buf = torch.zeros((2, 5, 3, hd + off), dtype=torch.bfloat16)
+    cache = buf[..., off:]
+    tail = torch.zeros((2, 4, 3, hd), dtype=torch.bfloat16)
+    assert copy_width((tail, cache, cache), cache.stride()[:3] + (hd,)) \
+        == vec
 
 
 def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
