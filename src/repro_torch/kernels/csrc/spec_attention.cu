@@ -53,7 +53,11 @@
 //   feeds two mma, and the cache is read by half as many blocks.  Q.K^T
 //   reads K tiles stored [key][dim] (the col B operand) with ldmatrix, P.V
 //   reads V tiles with ldmatrix.trans; P goes from the f32 accumulator to
-//   bf16 A fragments in registers.  The online-softmax state (m, l) and O
+//   two bf16 A fragments in registers, a head bf16(p) and the remainder
+//   bf16(p - head), each through its own mma into the same f32 sum, so P
+//   enters P.V with ~16 bits as the reference's f32 P does (one bf16
+//   fragment lost a bit of the output at |out| >= 2 and shifted which
+//   drafts bf16 accepts).  The online-softmax state (m, l) and O
 //   live in the accumulator layout: a row's max and sum reduce across the
 //   4 lanes of a quad; the running max moves only when a tile raises it
 //   by more than 2^8 in p, so O is rarely rescaled.  K/V tiles of kN keys
@@ -441,6 +445,14 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// (x0, x1) as a bf16 pair (hi) and the bf16 pair of what hi leaves out (lo)
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -733,16 +745,18 @@ __global__ void __launch_bounds__(kMmaThreads)
           }
       }
 
-      // ---- O += P V (P as bf16 A fragments, V through ldmatrix.trans) ----
+      // ---- O += P V (P as a bf16 head and remainder, each an A fragment
+      // through its own mma; V through ldmatrix.trans) ----
 #pragma unroll
       for (int k16 = 0; k16 < kN / 16; ++k16) {
-        unsigned pa[MF][4];
+        unsigned pa[MF][4], pr[MF][4];
 #pragma unroll
         for (int f = 0; f < MF; ++f) {
-          pa[f][0] = pack_bf16(s[f][2 * k16][0], s[f][2 * k16][1]);
-          pa[f][1] = pack_bf16(s[f][2 * k16][2], s[f][2 * k16][3]);
-          pa[f][2] = pack_bf16(s[f][2 * k16 + 1][0], s[f][2 * k16 + 1][1]);
-          pa[f][3] = pack_bf16(s[f][2 * k16 + 1][2], s[f][2 * k16 + 1][3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_bf16(s[f][2 * k16 + e / 2][2 * (e % 2)],
+                       s[f][2 * k16 + e / 2][2 * (e % 2) + 1], pa[f][e],
+                       pr[f][e]);
         }
 #pragma unroll
         for (int d16 = 0; d16 < HDC / 16; ++d16) {
@@ -751,7 +765,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
           for (int f = 0; f < MF; ++f) {
             mma16816(o[f][2 * d16], pa[f], bv[0], bv[1]);
+            mma16816(o[f][2 * d16], pr[f], bv[0], bv[1]);
             mma16816(o[f][2 * d16 + 1], pa[f], bv[2], bv[3]);
+            mma16816(o[f][2 * d16 + 1], pr[f], bv[2], bv[3]);
           }
         }
       }

@@ -93,15 +93,19 @@ def ngram_sweep(buf: torch.Tensor, query: torch.Tensor,
 
 
 def selective_scan(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
-                   final: bool = True, steps: bool = False):
+                   final: bool = True, steps: bool = False, n_commit=None):
     """The Mamba selective scan (K5 on the card, its plain version on the
     CPU).
 
-    u/dt: (Bt, T, di) f32; A: (di, ds); B/C: (Bt, T, ds); D: (di,); h0:
-    (Bt // h0_rep, di, ds) f32, row b starting from h0 row b // h0_rep.
-    Returns (y (Bt, T, di), the final state (Bt, di, ds) or None unless
-    ``final``, the state after every step (Bt, T, di, ds) or None unless
-    ``steps``), all f32.
+    u: (Bt, T, di) f32 or bf16 (upcast to f32); dt: (Bt, T, di) f32; A:
+    (di, ds); B/C: (Bt, T, ds); D: (di,); h0: (Bt // h0_rep, di, ds) f32,
+    row b starting from h0 row b // h0_rep.  Returns (y (Bt, T, di), the
+    final state (Bt, di, ds) or None unless ``final``, the state after
+    every step (Bt, T, di, ds) or None unless ``steps``), all f32.  Given
+    ``n_commit`` (Bt,) int32, the final state is the one after
+    ``n_commit[b]`` steps (row b's h0 where it is 0): the replay's commit.
+    ``steps`` is the plain version's alone: K5 raises on it.
     """
     fn = mamba_scan_cuda if on_card(u) else mamba_scan_plain
-    return fn(u, dt, A, B, C, D, h0, h0_rep=h0_rep, final=final, steps=steps)
+    return fn(u, dt, A, B, C, D, h0, h0_rep=h0_rep, final=final, steps=steps,
+              n_commit=n_commit)

@@ -101,3 +101,17 @@ def mamba_scan_ref(u, dt, A, B, C, D, h0, *, steps: bool = False):
             hs.append(h)
     y = torch.stack(ys, dim=1) + uf * D.float()
     return y, h, torch.stack(hs, dim=1) if steps else None
+
+
+def select_step_state(per_step: torch.Tensor, old: torch.Tensor,
+                      n_commit: torch.Tensor) -> torch.Tensor:
+    """The gated replay's commit of a recurrent state (twin of the
+    reference's ``models/cache.py:select_step_state``).  per_step: (B, T,
+    ...) states after each step; old: (B, ...) the state before them;
+    n_commit: (B,).  Returns the state after n_commit steps (clamped to T;
+    ``old`` where n_commit <= 0)."""
+    B, T = per_step.shape[:2]
+    idx = (n_commit.long() - 1).clamp(0, T - 1)
+    picked = per_step[torch.arange(B, device=per_step.device), idx]
+    keep = (n_commit > 0).reshape((B,) + (1,) * (old.dim() - 1))
+    return torch.where(keep, picked, old)

@@ -39,7 +39,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from ..kernels.ref import gather_pages
+# select_step_state (the gated replay's commit of a recurrent state) lives
+# beside K5's plain version, whose n_commit selection it defines
+from ..kernels.ref import gather_pages, select_step_state  # noqa: F401
 from .config import ATTN, MAMBA, BlockSpec, ModelConfig
 
 __all__ = ["gather_pages"]   # re-exported: the plain paged read path
@@ -453,18 +455,3 @@ def prefill_write(cfg: ModelConfig, k_cache, v_cache, k_new, v_new,
     cur0 = torch.zeros((B,), dtype=torch.int32, device=k_new.device)
     slots = write_slots(cfg, S, cur0, T)
     return kv_write(k_cache, v_cache, k_new, v_new, slots, gate=seq_mask)
-
-
-# ----------------------------------------------------------------------------
-# recurrent-state select (the gated replay commit)
-# ----------------------------------------------------------------------------
-def select_step_state(per_step: torch.Tensor, old: torch.Tensor,
-                      n_commit: torch.Tensor) -> torch.Tensor:
-    """per_step: (B, T, ...) states after each step; old: (B, ...) the state
-    before them; n_commit: (B,).  Returns the state after n_commit steps
-    (``old`` where n_commit == 0)."""
-    B, T = per_step.shape[:2]
-    idx = (n_commit.long() - 1).clamp(0, T - 1)
-    picked = per_step[torch.arange(B, device=per_step.device), idx]
-    keep = (n_commit > 0).reshape((B,) + (1,) * (old.dim() - 1))
-    return torch.where(keep, picked, old)

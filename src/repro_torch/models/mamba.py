@@ -5,10 +5,11 @@ The projections and the 4-tap causal depthwise convolution are plain
 PyTorch, as the reference leaves them to XLA; the selective scan is K5
 (``kernels/dispatch.selective_scan``), in every mode: prefill and full
 forward, decode, verify (B*k rows started from their slot's state) and the
-gated replay, which takes the state after every step from the same kernel.
-The reference's replay (``mamba_mix_steps``) runs its own associative
-scan; here one sequential kernel serves every mode, so a token's state has
-the same arithmetic whichever call brought it.
+gated replay (``mamba_mix_commit``), where the kernel keeps the state
+after each row's accepted tokens.  The reference's replay
+(``mamba_mix_steps``, kept here too) runs its own associative scan; here
+one sequential kernel serves every mode, so a token's state has the same
+arithmetic whichever call brought it.
 """
 from __future__ import annotations
 
@@ -74,10 +75,12 @@ def _conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
          conv_state: torch.Tensor, ssm_state: torch.Tensor, *, rep: int,
-         final: bool, steps: bool):
+         final: bool, steps: bool, n_commit=None):
     """The block on x (B*rep, T, d) from per-slot states (B, ...), slot b's
     state serving rows b*rep .. b*rep+rep-1.  Returns (y (B*rep, T, d),
-    conv ext, final ssm state or None, per-step states or None)."""
+    conv ext, final ssm state (after ``n_commit`` steps where given) or
+    None, per-step states or None).  u goes to the scan in the compute
+    dtype (K5 upcasts it, as the reference kernel does)."""
     cd = cfg.compute_dtype
     dtr, ds = cfg.resolved_dt_rank, cfg.mamba_d_state
     xz = x.to(cd) @ params["in_proj"].to(cd)
@@ -90,9 +93,9 @@ def _mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     dt_low, Bm, Cm = proj.split([dtr, ds, ds], dim=-1)
     dt = F.softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, hT, hs = selective_scan(u.float(), dt, A, Bm, Cm, params["D"],
-                               ssm_state, h0_rep=rep, final=final,
-                               steps=steps)
+    y, hT, hs = selective_scan(u, dt, A, Bm, Cm, params["D"], ssm_state,
+                               h0_rep=rep, final=final, steps=steps,
+                               n_commit=n_commit)
     y = (y.to(cd) * F.silu(z)) @ params["out_proj"].to(cd)
     return y, ext, hT, hs
 
@@ -119,10 +122,26 @@ def mamba_mix_steps(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     Returns (y, conv_ext (B, T+dc-1, di), ssm_steps (B, T, di, ds)): the
     state after t steps is conv = conv_ext[:, t:t+dc-1], ssm =
-    ssm_steps[:, t-1]."""
+    ssm_steps[:, t-1].  CPU tensors only: K5 writes no per-step states (the
+    replay is ``mamba_mix_commit``)."""
     y, ext, _, hs = _mix(params, x, cfg, conv_state, ssm_state, rep=1,
                          final=False, steps=True)
     return y, ext, hs
+
+
+def mamba_mix_commit(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                     conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                     n_commit: torch.Tensor):
+    """The gated replay's block: ``mamba_mix_steps`` then
+    ``cache.select_step_state`` on the ssm states, with the selection made
+    by the scan itself (only the kept state is written).
+
+    n_commit: (B,) int32, the steps each row keeps.  Returns (y, conv_ext
+    (B, T+dc-1, di), the ssm state after n_commit[b] steps (B, di, ds),
+    ``ssm_state[b]`` where that is 0)."""
+    y, ext, hT, _ = _mix(params, x, cfg, conv_state, ssm_state, rep=1,
+                         final=True, steps=False, n_commit=n_commit)
+    return y, ext, hT
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device

@@ -28,13 +28,12 @@ import torch
 
 from ..device import resolve_device
 from .attention import attn_full, attn_verify
-from .cache import (group_ids, kv_write, paged_kv_write, prefill_write,
-                    select_step_state)
+from .cache import group_ids, kv_write, paged_kv_write, prefill_write
 from .config import (ATTN, GEGLU, GELU, MAMBA, MOE, NO_MLP, RELU2, SWIGLU,
                      BlockSpec, ModelConfig)
 from .layers import apply_mlp, apply_norm, dense_init, embed_init
 from .mamba import (a_log_init, dt_bias_init, init_mamba_state, mamba_mix,
-                    mamba_mix_steps)
+                    mamba_mix_commit)
 from .mamba import param_shapes as mamba_param_shapes
 
 Params = Dict[str, Any]
@@ -183,14 +182,13 @@ def _mamba_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
         gst["ssm"].copy_(ssm)
         return y
     if mode == "replay":
-        y, ext, ssm_steps = mamba_mix_steps(bp, h, cfg, gst["conv"],
-                                            gst["ssm"])
+        y, ext, ssm = mamba_mix_commit(bp, h, cfg, gst["conv"], gst["ssm"],
+                                       ctx["n_commit"])
         n = ctx["n_commit"].long()
         # conv state after n steps = ext[:, n : n+dc-1]
         idx = n[:, None] + torch.arange(cfg.mamba_d_conv - 1,
                                         device=h.device)[None]
         conv = ext.gather(1, idx[..., None].expand(-1, -1, ext.shape[-1]))
-        ssm = select_step_state(ssm_steps, gst["ssm"], ctx["n_commit"])
         gst["conv"].copy_(conv)
         gst["ssm"].copy_(ssm)
         return y

@@ -13,14 +13,20 @@ span several drafts, one fragment a warp at hd 128 as the hybrid's
 decode runs, hd 80/96/256, cache rows aligned below 16 bytes, trees of
 265 inputs); K4's are phase 2c's (tree (4, 5, 2), 69 inputs, and
 others); K5's are phase 2d's (Jamba's d_inner 16384 at the prefill,
-verify and decode shapes, and odd ones).
+verify, decode and replay shapes, B and C as views of an x_proj output
+whose rows are 16-byte aligned as Jamba's are, and odd ones whose rows are
+not), with f32 and bf16 u.
 Tolerances: K1, K3 and K4 f32 2e-5, bf16 2e-2 (the reference's kernel
 tolerance); K2 bit-exact; K3 over a shuffled pool equals K1 over the
 gathered linear view bit for bit, and K4 over the pool equals K4 over the
 gathered view; paged continuous serving equals linear continuous serving
 token for token (tiny f32 model), with a tree too.  K5 f32 rtol = atol =
 2e-4 (the reference's kernel tolerance), and a tiny f32 hybrid served
-through K5 equals its greedy reference, paged and linear.
+through K5 equals its greedy reference, paged and linear.  K5 computes a
+token with the same bits whatever the chunking of its calls (torch.equal).
+The bf16 verify kernel keeps P to ~16 bits for P.V (a bf16 head and
+remainder): its max abs error at the main verify shape stays within
+P_SPLIT_ERR, half of what one bf16 P allowed.
 """
 import numpy as np
 import pytest
@@ -37,6 +43,8 @@ from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
                                                 tree_mask)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+P_SPLIT_ERR = 2.5e-3
+MAIN_CUR = [256, 265, 274, 283, 292, 301, 310, 319]
 
 
 def _close(got, want, tol):
@@ -85,6 +93,31 @@ def test_spec_attention_cuda_matches_plain(cuda_device, B, K, W1, H, KV, hd,
     want = spec_attention_plain(*ops, w1=W1)
     torch.cuda.synchronize()
     _close(got, want, TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_attention_bf16_p_split_error_bound(cuda_device, paged):
+    """bf16 K1 and K3 at StableLM's verify shape (B=8, k=10, w=10, H=KV=32,
+    hd 64, S=332, page 64) stay within P_SPLIT_ERR of the plain version (f32
+    P): P enters P.V as a bf16 head and remainder."""
+    W1 = 11
+    if paged:
+        ops = _paged_inputs(cuda_device, 8, 10, W1, 32, 32, 64, 64, MAIN_CUR,
+                            "bfloat16", seed=1)
+        got = paged_spec_attention_cuda(*ops, w1=W1)
+        want = paged_spec_attention_plain(*ops, w1=W1)
+    else:
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        rn = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+        ops = (rn(8, 10, W1, 32, 64), rn(8, 332, 32, 64), rn(8, 332, 32, 64),
+               rn(8, 10, W1, 32, 64), rn(8, 10, W1, 32, 64),
+               torch.tensor(MAIN_CUR, dtype=torch.int32, device=cuda_device))
+        got = spec_attention_cuda(*ops, w1=W1)
+        want = spec_attention_plain(*ops, w1=W1)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= P_SPLIT_ERR, err
 
 
 @pytest.mark.gpu
@@ -273,31 +306,87 @@ def test_paged_continuous_equals_linear_on_the_card(cuda_device):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("Bt,T,di,ds,rep,steps", [
-    (8, 256, 16384, 16, 1, False),     # prefill
-    (80, 11, 16384, 16, 10, False),    # verify: 8 slots x k=10 rows
-    (8, 1, 16384, 16, 1, False),       # decode
-    (8, 11, 16384, 16, 1, True),       # replay, per-step states
-    (3, 37, 200, 8, 1, True),          # odd T and di
-    (4, 1, 130, 2, 2, True)])
-def test_mamba_scan_cuda_matches_plain(cuda_device, Bt, T, di, ds, rep,
-                                       steps):
-    g = torch.Generator(device=cuda_device).manual_seed(T + di)
-    rn = lambda *s: torch.randn(s, generator=g, device=cuda_device)
+def _scan_inputs(device, Bt, T, di, ds, rep, dtr, u_dtype, seed):
+    """K5 operands; B and C are views of an x_proj output of dtr + 2 ds
+    columns (dtr 512, Jamba's: rows 16-byte aligned, cp.async staging; an
+    odd dtr: plain-load staging)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=device)
     u, dt = rn(Bt, T, di), torch.nn.functional.softplus(rn(Bt, T, di))
     A = -torch.exp(rn(di, ds) * 0.3)
-    proj = rn(Bt, T, 5 + 2 * ds)          # B, C as strided views
-    B, C = proj[..., 5:5 + ds], proj[..., 5 + ds:]
-    D, h0 = rn(di), rn(Bt // rep, di, ds)
-    got = mamba_scan_cuda(u, dt, A, B, C, D, h0, h0_rep=rep, steps=steps)
-    want = mamba_scan_plain(u, dt, A, B, C, D, h0, h0_rep=rep, steps=steps)
+    proj = rn(Bt, T, dtr + 2 * ds)
+    B, C = proj[..., dtr:dtr + ds], proj[..., dtr + ds:]
+    return (u.to(getattr(torch, u_dtype)), dt, A, B, C, rn(di),
+            rn(Bt // rep, di, ds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bt,T,di,ds,rep,commit,dtr", [
+    (8, 256, 16384, 16, 1, None, 512),           # prefill
+    (80, 11, 16384, 16, 10, None, 512),          # verify: 8 slots x k=10
+    (8, 1, 16384, 16, 1, None, 512),             # decode
+    (8, 11, 16384, 16, 1, [0, 1, 3, 5, 7, 9, 11, 11], 512),  # replay
+    (3, 37, 200, 8, 1, [37, 20, 0], 5),          # odd T and di
+    (4, 1, 130, 2, 2, [1, 0, 1, 1], 5),
+    (2, 20, 72, 12, 1, [3, 25], 4)])             # ds below the capacity
+def test_mamba_scan_cuda_matches_plain(cuda_device, Bt, T, di, ds, rep,
+                                       commit, dtr, u_dtype):
+    ops = _scan_inputs(cuda_device, Bt, T, di, ds, rep, dtr, u_dtype,
+                       seed=T + di)
+    n = None if commit is None else torch.tensor(
+        commit, dtype=torch.int32, device=cuda_device)
+    got = mamba_scan_cuda(*ops, h0_rep=rep, n_commit=n)
+    want = mamba_scan_plain(*ops, h0_rep=rep, n_commit=n)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         if b is None:
             assert a is None
         else:
             _close(a, b, 2e-4)
+
+
+@pytest.mark.gpu
+def test_mamba_scan_cuda_is_invariant_to_chunking(cuda_device):
+    """A 256-step scan in one call equals the same tokens fed as chained
+    calls of 11 (verify's length) and then single-step decodes through
+    hT -> h0; the replay's kept state with n_commit = t equals the final
+    state of a t-step call, and with mixed n_commit equals
+    select_step_state over those final states; bf16 u equals its f32 upcast; plain-load
+    staging equals cp.async staging.  torch.equal throughout."""
+    from repro_torch.models.cache import select_step_state
+    T, W1, ds = 256, 11, 16
+    u, dt, A, B, C, D, h0 = _scan_inputs(cuda_device, 8, T, 16384, ds, 1,
+                                         512, "bfloat16", seed=21)
+    cut = lambda t0, t1: (u[:, t0:t1].contiguous(),
+                          dt[:, t0:t1].contiguous(), A, B[:, t0:t1],
+                          C[:, t0:t1], D)
+    y, hT, _ = mamba_scan_cuda(u, dt, A, B, C, D, h0)
+    ys, h, t = [], h0, 0
+    for n in [W1] * (T // W1) + [1] * (T % W1):
+        y_i, h, _ = mamba_scan_cuda(*cut(t, t + n), h)
+        ys.append(y_i)
+        t += n
+    assert torch.equal(torch.cat(ys, 1), y) and torch.equal(h, hT)
+    hs = []  # the final state of a t-step call, t = 1 .. W1
+    for t in range(1, W1 + 1):
+        hs.append(mamba_scan_cuda(*cut(0, t), h0)[1])
+        n_t = torch.full((8,), t, dtype=torch.int32, device=cuda_device)
+        y_t, kept, _ = mamba_scan_cuda(*cut(0, W1), h0, n_commit=n_t)
+        assert torch.equal(kept, hs[-1]) and torch.equal(y_t, y[:, :W1])
+    n_commit = torch.tensor([0, 1, 3, 5, 7, 9, W1, W1 + 4],
+                            dtype=torch.int32, device=cuda_device)
+    y_c, kept, _ = mamba_scan_cuda(*cut(0, W1), h0, n_commit=n_commit)
+    assert torch.equal(y_c, y[:, :W1])
+    assert torch.equal(kept, select_step_state(torch.stack(hs, 1), h0,
+                                               n_commit))
+    y32, h32, _ = mamba_scan_cuda(u.float(), dt, A, B, C, D, h0)
+    assert torch.equal(y32, y) and torch.equal(h32, hT)
+    proj = torch.zeros(8, T, 7 + 2 * ds, device=cuda_device)
+    proj[..., 7:7 + ds], proj[..., 7 + ds:] = B, C
+    y_p, h_p, _ = mamba_scan_cuda(u, dt, A, proj[..., 7:7 + ds],
+                                  proj[..., 7 + ds:], D, h0)
+    assert torch.equal(y_p, y) and torch.equal(h_p, hT)
 
 
 @pytest.mark.gpu

@@ -1,7 +1,10 @@
 """The port's Mamba pieces against the JAX reference, on the CPU: K5's plain
 version (the selective scan), ``mamba_mix`` / ``mamba_mix_steps`` with the
 same weights, ``select_step_state``, and the Mamba parameters' layout and
-dtypes.
+dtypes.  Bit for bit within the port: the scan takes u in bf16 as its f32
+upcast (the layer hands it the compute dtype), and the replay's commit
+(the scan keeping the state after ``n_commit`` steps) equals
+``select_step_state`` over the per-step states.
 
 Tolerances.  The scan: f32 rtol = atol = 2e-4, the reference's own kernel
 tolerance (``tests/test_kernels.py``), against both its oracle
@@ -105,6 +108,52 @@ def test_selective_scan_follows_the_tensor():
     assert "mamba_scan" in build.sources()
 
 
+def test_kernel_writes_no_per_step_states():
+    """The per-step states are the plain version's alone: K5's wrapper
+    refuses ``steps=True`` before it looks at the device (the replay keeps
+    its state by ``n_commit``)."""
+    x = _scan_inputs(2, 2, 3, 8, 4)
+    args = [_t(x[n]) for n in ("u", "dt", "A", "B", "C", "D", "h0")]
+    with pytest.raises(ValueError, match="per-step"):
+        mamba_scan_cuda(*args, final=False, steps=True)
+    assert mamba_scan_plain(*args, steps=True)[2].shape == (2, 3, 8, 4)
+
+
+def test_scan_takes_bf16_u_as_its_f32_upcast():
+    """bf16 u through the plain version and ``dispatch.selective_scan`` gives
+    the bits of the same call on ``u.float()`` (K5 upcasts in registers)."""
+    x = _scan_inputs(7, 4, 9, 16, 8, h0_rows=2)
+    args = [_t(x[n]) for n in ("dt", "A", "B", "C", "D", "h0")]
+    u16 = _t(x["u"]).to(torch.bfloat16)
+    for fn in (mamba_scan_plain, dispatch.selective_scan):
+        got = fn(u16, *args, h0_rep=2, steps=True)
+        want = fn(u16.float(), *args, h0_rep=2, steps=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h0_rep", [1, 2])
+def test_scan_selection_equals_select_step_state(h0_rep):
+    """``n_commit`` keeps the state after n_commit[b] steps (clamped to T;
+    h0's row where it is 0), bit for bit ``select_step_state`` over the
+    per-step states; y is unchanged, and the per-step states come too when
+    asked."""
+    T = 5
+    x = _scan_inputs(8, 6, T, 16, 8, h0_rows=6 // h0_rep)
+    args = [_t(x[n]) for n in ("u", "dt", "A", "B", "C", "D", "h0")]
+    n = torch.tensor([0, 1, 3, T, T + 2, 2], dtype=torch.int32)
+    y, hs_sel, none = mamba_scan_plain(*args, h0_rep=h0_rep, n_commit=n)
+    y_s, _, hs = mamba_scan_plain(*args, h0_rep=h0_rep, steps=True)
+    old = args[-1].repeat_interleave(h0_rep, 0)
+    assert none is None and torch.equal(y, y_s)
+    assert torch.equal(hs_sel, C.select_step_state(hs, old, n))
+    _, sel2, hs2 = dispatch.selective_scan(*args, h0_rep=h0_rep, n_commit=n,
+                                           steps=True)
+    assert torch.equal(sel2, hs_sel) and torch.equal(hs2, hs)
+    with pytest.raises(ValueError, match="final"):
+        mamba_scan_plain(*args, h0_rep=h0_rep, n_commit=n, final=False)
+
+
 # ----------------------------------------------------------------------------
 # the block, with weights carried across
 # ----------------------------------------------------------------------------
@@ -182,6 +231,39 @@ def test_mamba_mix_steps_matches_reference(mixer):
     # the last step's state is mamba_mix's final state
     _, _, s = MB.mamba_mix(pm, x, cfg, conv, ssm)
     torch.testing.assert_close(hs[:, -1], s, rtol=0, atol=0)
+
+
+def test_mamba_mix_commit_equals_steps_then_select(mixer):
+    """The replay's block (the scan keeps the committed state) equals
+    ``mamba_mix_steps`` followed by ``select_step_state``, bit for bit."""
+    jcfg, jm, cfg, pm, dtype = mixer
+    (_, _, _), (x, conv, ssm) = _both(cfg, jcfg, *_mix_inputs(cfg, 13, 4, 5))
+    n = torch.tensor([0, 2, 5, 1], dtype=torch.int32)
+    y, ext, kept = MB.mamba_mix_commit(pm, x, cfg, conv, ssm, n)
+    y_s, ext_s, hs = MB.mamba_mix_steps(pm, x, cfg, conv, ssm)
+    assert torch.equal(y, y_s) and torch.equal(ext, ext_s)
+    assert torch.equal(kept, C.select_step_state(hs, ssm, n))
+
+
+def test_mix_hands_the_scan_u_in_the_compute_dtype(mixer, monkeypatch):
+    """``_mix`` gives K5 u in the compute dtype; its output equals the
+    block's with u cast to f32 first (the earlier path), bit for bit."""
+    jcfg, jm, cfg, pm, dtype = mixer
+    (_, _, _), (x, conv, ssm) = _both(cfg, jcfg, *_mix_inputs(cfg, 14, 2, 6))
+    seen = []
+    scan = MB.selective_scan
+
+    def spy(u, *args, **kw):
+        seen.append(u.dtype)
+        return scan(u, *args, **kw)
+    monkeypatch.setattr(MB, "selective_scan", spy)
+    got = MB.mamba_mix(pm, x, cfg, conv, ssm)
+    monkeypatch.setattr(MB, "selective_scan",
+                        lambda u, *args, **kw: scan(u.float(), *args, **kw))
+    want = MB.mamba_mix(pm, x, cfg, conv, ssm)
+    assert seen == [cfg.compute_dtype]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_mamba_mix_verify_rows_share_their_slots_state(mixer):
