@@ -12,19 +12,28 @@ Phases (any failure raises and the script exits non-zero):
                card (K1 spec_attention and K3 paged_spec_attention: f32 2e-5,
                bf16 2e-2, including the bf16 tensor-core kernel's edges:
                fragments across heads and drafts, hd 36/80/96/256, cache
-               rows aligned below 16 bytes; K2 ngram_match: bit-exact; K3
-               over a shuffled pool == K1 over the gathered view, bit for
-               bit) and time kernel, plain version and library call (SDPA,
+               rows aligned below 16 bytes; K3 over a shuffled pool == K1
+               over the gathered view, bit for bit) and time kernel, plain
+               version and library call (SDPA,
                also at the decode shape) by CUDA events over 20 calls and,
                for kernel and library call, by device time (the same
                calls enqueued while the card spins, so that they run back
                to back); the bf16 verify
                kernel's error at the main verify shape stays within
                K1_SPLIT_ERR (P enters P.V as a bf16 head and remainder);
+               K2 (a step's context and mixed drafts in one launch) bit for
+               bit against its plain version on the main path's real bytes
+               (B=8, L=332), real text at L 4096 and 32768, q 2 and 4, w 16,
+               k = the tables' k_max, StableLM's and Jamba's vocabularies
+               and adversarial rows (matches everywhere at L 32768, the
+               SENTINEL-hashed continuation, buf_len < q+1, fewer than k
+               representatives, a bigram fill past the non-duplicates),
+               timed at the three real-text shapes beside its bound;
   3. serve   — StableLM-2-1.6B at full width, bf16, seeded random weights:
                a mixed-strategy ServingEngine builds its n-gram tables and
                serves 8 requests statically (serve_all); the kernels' launch
-               counts show the path went through them; a greedy engine
+               counts show the path went through them, K2 once a step;
+               a greedy engine
                serves the same requests; a few steps of each run under
                torch.profiler (device-busy share, top kernels);
   4. lossless— the same model in f32 (no TF32): the static mixed engine's
@@ -77,6 +86,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -745,8 +755,6 @@ def phase_k5(S_main: int, cur_main: list) -> dict:
 
 def phase_kernels(S_main: int, cur_main: list) -> dict:
     import torch
-    from repro_torch.kernels.ngram_match import (ngram_match_cuda,
-                                                 ngram_match_plain)
     from repro_torch.kernels.spec_attention import (spec_attention_cuda,
                                                     spec_attention_plain)
     rec = {}
@@ -830,47 +838,187 @@ def phase_kernels(S_main: int, cur_main: list) -> dict:
           f"library_device_ms={fmt_ms(d['library_device_ms'])} plain_ms="
           f"{time_ms(lambda: spec_attention_plain(*dops, w1=1)):.4f}"
           f" bound_ms={d_bound:.5f}; vs SDPA max_abs_err={err:.3g}")
-    # ---- K2 ----
-    k2_cases = [(8, S_main, 1, SERVE_W), (3, 64, 2, 5), (2, 257, 3, 8),
-                (4, 1000, 1, 1), (2, 4097, 4, 16)]
-    g = torch.Generator(device="cuda").manual_seed(7)
-    for B, L, q, w in k2_cases:
-        buf = torch.randint(0, 6, (B, L), generator=g, device="cuda",
-                            dtype=torch.int32)
-        buf[:, L - L // 5:] = -1                     # -1 pads at the tail
-        query = buf[:, 3:3 + q].contiguous()
-        cl = torch.randint(0, L + 1, (B,), generator=g, device="cuda",
-                           dtype=torch.int32)
-        cl[0] = min(q - 1, L)                        # cur_len < q
-        m, h = ngram_match_cuda(buf, query, cl, w=w)
-        m_p, h_p = ngram_match_plain(buf, query, cl, w=w)
-        sync()
-        exact = torch.equal(m, m_p) and torch.equal(h, h_p)
-        print(f"  K2 B={B} L={L} q={q} w={w} cur_len={cl.tolist()} "
-              f"matches={int(m.sum())} bit-exact={'ok' if exact else 'FAIL'}")
-        if not exact:
-            raise AssertionError(f"K2 (L={L}, q={q}, w={w}) differs from "
-                                 f"its plain version")
-    B, L, q, w = k2_cases[0]
-    buf = torch.randint(0, 6, (B, L), generator=g, device="cuda",
-                        dtype=torch.int32)
-    query = buf[:, :q].contiguous()
-    cl = torch.full((B,), L, dtype=torch.int32, device="cuda")
-    k2_bytes = 4 * B * L + 4 * B * q + 4 * B + 4 * B * L + 8 * B * L
-    k2_ops = B * L * (q + 4 * w)       # compares + hash steps, 32-bit lanes
-    t_b = k2_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = k2_ops / PEAK_FLOPS["float32"] * 1e3
-    rec["ngram_match"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: ngram_match_cuda(buf, query, cl, w=w)),
-        device_ms=device_ms(lambda: ngram_match_cuda(buf, query, cl, w=w)),
-        plain_ms=time_ms(lambda: ngram_match_plain(buf, query, cl, w=w)),
-        library_ms=None, bound_ms=max(t_b, t_o),
-        bound_by="bytes" if t_b >= t_o else "operations")
+    rec["ngram_match"] = phase_k2(S_main, cur_main)
     for name, r in rec.items():
         print(f"  {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']})")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 2: K2, a step's context-strategy drafts in one launch
+# ---------------------------------------------------------------------------
+SENTINEL_TOKEN = 1097884494     # 0x4170634E: its w=1 hash is 0xFFFFFFFF
+K2_VOCABS = {"stablelm": 100352, "jamba": 65536}
+K2_TABLES = (25, 16)            # the engine's (k_max, w_max) at k=w=10
+
+
+def k2_tables(V: int, seed: int):
+    """Seeded bigram tables of the engine's shape for a vocabulary of V."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k_max, w_max = K2_TABLES
+    topk = torch.randint(0, V, (V, k_max), generator=g, device="cuda",
+                         dtype=torch.int32)
+    chain = torch.randint(0, V, (V, w_max), generator=g, device="cuda",
+                          dtype=torch.int32)
+    return topk, chain
+
+
+def k2_text_rows(B: int, L: int, cur: list):
+    """(buf (B, L), buf_len) of real bytes: row b holds the smoke prompt b's
+    bucketed tokens (phase 3's prefill) followed by its text repeated, up to
+    cur[b]; zeros after it, as the engine's unwritten tail."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving.scheduler import Scheduler
+    tok = ByteTokenizer()
+    sched = Scheduler(buckets=(SERVE_BUCKET,))
+    prompts = smoke_prompts()
+    buf = np.zeros((B, L), np.int32)
+    for b in range(B):
+        p = prompts[b % len(prompts)]
+        head = sched.pad_to_bucket(tok.encode(p))
+        body = tok.encode(p, bos=False)
+        n = max(0, L - len(head))
+        row = np.concatenate([head, np.resize(np.asarray(body, np.int32), n)])
+        buf[b, :cur[b]] = row[:cur[b]]
+    return (torch.as_tensor(buf, device="cuda"),
+            torch.as_tensor(cur, dtype=torch.int32, device="cuda"))
+
+
+def k2_adversarial(tables):
+    """(name, buf, buf_len, q, k, w, tables) rows that stress the contract:
+    matches everywhere (M = L - q - w + 1) at L = 32768, the continuation
+    whose hash is the no-match SENTINEL, rows too short to query, fewer
+    representatives than rows (all over ``tables``), and a bigram fill that
+    runs past the non-duplicates (over tables whose candidates repeat)."""
+    import torch
+    dev = "cuda"
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = []
+    L = 32768
+    buf = torch.full((2, L), 5, **i32)
+    buf[1, 1::2] = 6
+    out.append(("M=L one token L=32768", buf,
+                torch.tensor([L, L - 3], **i32), 1, 10, 10, tables))
+    g = torch.Generator(device=dev).manual_seed(17)
+    L = 4099
+    buf = torch.randint(0, 4, (3, L), generator=g, **i32)
+    buf[:, 100:4000:6] = 7
+    buf[:, 101:4000:12] = SENTINEL_TOKEN
+    buf[:, 4000] = 7
+    out.append(("SENTINEL hash w=1", buf, torch.tensor([4001, 4001, 333],
+                                                       **i32), 1, 10, 1,
+                tables))
+    buf = torch.randint(0, 3, (4, 300), generator=g, **i32)
+    out.append(("buf_len < q+1", buf, torch.tensor([0, 1, 2, 3], **i32), 2,
+                10, 10, tables))
+    buf = torch.tensor([1, 2, 3, 1, 4, 4] * 60, **i32)[None].repeat(2, 1)
+    out.append(("fewer than k reps", buf, torch.tensor([360, 97], **i32), 1,
+                25, 2, tables))
+    topk = torch.tensor([[2, 2, 2, 3, 4, 5]] * 12, **i32)
+    chain = torch.arange(6, **i32)[None].repeat(12, 1) + 4
+    chain[2] = torch.tensor([4, 5, 6, 7, 8, 9], **i32)
+    buf = torch.zeros((2, 30), **i32)
+    buf[:, 5:9] = torch.tensor([1, 2, 4, 5], **i32)
+    buf[:, 20] = 1
+    buf[1, 12:16] = torch.tensor([1, 3, 8, 9], **i32)
+    out.append(("dup tail", buf, torch.tensor([21, 21], **i32), 1, 4, 3,
+                (topk, chain)))
+    return out
+
+
+def k2_bound_ms(buf, buf_len, q, k, w, mixed: bool) -> tuple:
+    """Least time for K2's work on these inputs: each row read up to its
+    buf_len, the lengths (and last tokens, the bigram rows the fill reads)
+    once, the outputs written once; operations: q compares a candidate
+    position, 4 integer ops a hash step of each match, k*k*w compares of the
+    mixed dedup, at the float32 lane rate (a 32-bit integer op takes a lane
+    as a float op does)."""
+    from repro_torch.kernels.ngram_match import (_extract_queries,
+                                                 ngram_match_plain)
+    B, L = buf.shape
+    cur = buf_len.clamp(0, L).long()
+    query = _extract_queries(buf, buf_len, q).contiguous()
+    M = int(ngram_match_plain(buf, query, buf_len, w=w)[0].sum())
+    n_pos = int((buf_len.long() - q - w + 1).clamp(0, L).sum())
+    bytes_ = 4 * int(cur.sum()) + 4 * B + 4 * B * k * w + B * k + 4 * B
+    ops = n_pos * q + 4 * w * M
+    if mixed:
+        bytes_ += 4 * B + 4 * B * k * w
+        ops += B * k * k * w
+    t_b = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_o = ops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), M
+
+
+def phase_k2(S_main: int, cur_main: list) -> dict:
+    """K2 against its plain version, bit for bit, in both strategies over
+    the main path's rows, long rows, q, w, k and vocabulary variants and the
+    adversarial rows; then its times at the three real-text shapes beside
+    its bound, its plain version and one launch's floor."""
+    import torch
+    from repro_torch.kernels.ngram_match import (ngram_draft_cuda,
+                                                 ngram_draft_plain)
+    tables = {n: k2_tables(V, seed=i) for i, (n, V) in
+              enumerate(K2_VOCABS.items())}
+    st = tables["stablelm"]
+    cases = [  # name, buf, buf_len, q, k, w, tables or None
+        ("main B=8 L=332", *k2_text_rows(8, S_main, cur_main), 1, SERVE_K,
+         SERVE_W, st),
+        ("B=4 L=4096", *k2_text_rows(4, 4096, [4096, 4000, 2500, 300]), 1,
+         SERVE_K, SERVE_W, st),
+        ("B=2 L=32768", *k2_text_rows(2, 32768, [32768, 20001]), 1, SERVE_K,
+         SERVE_W, st),
+        ("q=2 w=5 L=4097", *k2_text_rows(3, 4097, [4097, 1000, 3]), 2, 8, 5,
+         st),
+        ("q=4 w=16 L=1000", *k2_text_rows(3, 1000, [1000, 999, 517]), 4,
+         SERVE_K, 16, tables["jamba"]),
+        ("k=k_max L=332", *k2_text_rows(8, S_main, cur_main), 1,
+         K2_TABLES[0], SERVE_W, st),
+        ("jamba vocab L=332", *k2_text_rows(8, S_main, cur_main), 1, SERVE_K,
+         SERVE_W, tables["jamba"]),
+    ] + k2_adversarial(st)
+    for name, buf, cl, q, k, w, tab in cases:
+        last = buf.gather(1, torch.remainder(cl.long() - 1, buf.shape[1])
+                          [:, None])[:, 0].contiguous()
+        big = dict(last=last, bigram_topk=tab[0], bigram_chain=tab[1])
+        for strategy, kw in (("context", {}), ("mixed", big)):
+            got = ngram_draft_cuda(buf, cl, q=q, k=k, w=w, **kw)
+            want = ngram_draft_plain(buf, cl, q=q, k=k, w=w, **kw)
+            sync()
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"  K2 {name:22s} {strategy:7s} B={buf.shape[0]} "
+                  f"L={buf.shape[1]} q={q} k={k} w={w} n_ctx="
+                  f"{got[2].tolist()} bit-exact={'ok' if exact else 'FAIL'}")
+            if not exact:
+                raise AssertionError(f"K2 {name} {strategy} differs from "
+                                     f"its plain version")
+    one = torch.zeros(1, device="cuda")
+    floor = device_ms(lambda: one.zero_())
+    print(f"  one launch's floor (a 1-element fill, device ms): "
+          f"{fmt_ms(floor)}")
+    rec = None
+    for name, buf, cl, q, k, w, tab in cases[:3]:
+        last = buf.gather(1, torch.remainder(cl.long() - 1, buf.shape[1])
+                          [:, None])[:, 0].contiguous()
+        kw = dict(q=q, k=k, w=w, last=last, bigram_topk=tab[0],
+                  bigram_chain=tab[1])
+        bound, bound_by, M = k2_bound_ms(buf, cl, q, k, w, mixed=True)
+        r = dict(max_abs_err=0.0,
+                 ms=time_ms(lambda: ngram_draft_cuda(buf, cl, **kw)),
+                 device_ms=device_ms(lambda: ngram_draft_cuda(buf, cl, **kw)),
+                 plain_ms=time_ms(lambda: ngram_draft_plain(buf, cl, **kw)),
+                 library_ms=None, bound_ms=bound, bound_by=bound_by)
+        print(f"  K2 mixed {name}: ms={r['ms']:.4f} device_ms="
+              f"{fmt_ms(r['device_ms'])} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={bound:.7f} ({bound_by}; {M} matched positions, "
+              f"{'below' if floor and bound < floor else 'above'} one "
+              f"launch's floor)")
+        rec = rec or r
     return rec
 
 
@@ -956,6 +1104,15 @@ def profile_window(label: str, one_step, steps: int = 4, focus: str = ""):
           f"({busy_ms / max(wall_ms, 1e-9):.1%}), {n_launch:.0f} device ops "
           f"per step" + (f", {focus} {focus_ms:.3f} ms per step"
                          if focus else ""))
+    # the kinds of kernel the eager drafter launched before K2 took it in;
+    # torch.gather runs the scatter-gather kernel too, and any left come
+    # from elsewhere in the step (acceptance's cumprod, the commit, the
+    # stats histograms, whose index_put with accumulate sorts)
+    eager = [e for e in kernels if re.search(
+        "sort|topk|scatter|cumsum|tensor_kernel_scan", e.key, re.I)]
+    print(f"    sort/topk/scatter-gather/scan kernels per step: "
+          f"{sum(e.count for e in eager) / steps:.0f}"
+          + "".join(f"; x{e.count / steps:.0f} {e.key[:60]}" for e in eager))
     for e in sorted(kernels, key=dev, reverse=True)[:6]:
         print(f"    {dev(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:4d}"
               f"  {e.key[:90]}")
@@ -968,7 +1125,7 @@ def phase_serve() -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.spec_engine import SpecConfig, greedy_reference
-    from repro_torch.kernels.ngram_match import ngram_match_cuda
+    from repro_torch.kernels.ngram_match import ngram_draft_cuda
     from repro_torch.kernels.spec_attention import spec_attention_cuda
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
@@ -990,11 +1147,11 @@ def phase_serve() -> dict:
     prompts = smoke_prompts()
     # the main path: counts from zero just before it, read just after
     spec_attention_cuda.launches = 0
-    ngram_match_cuda.launches = 0
+    ngram_draft_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats()
     done, wall = serve(eng, prompts, SERVE_NEW)
     launches = {"spec_attention": spec_attention_cuda.launches,
-                "ngram_match": ngram_match_cuda.launches}
+                "ngram_match": ngram_draft_cuda.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_new = sum(r.stats["new_tokens"] for r in done)
     calls = sum(r.stats["model_calls"] for r in done)
@@ -1009,6 +1166,12 @@ def phase_serve() -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
+    steps = launches["spec_attention"] // cfg.num_layers
+    print(f"  K2 launches per mixed step: {launches['ngram_match']} in "
+          f"{steps} steps")
+    if launches["ngram_match"] != steps:
+        raise AssertionError("a mixed step did not draft in exactly one K2 "
+                             "launch")
     if any(r.stats["new_tokens"] != SERVE_NEW for r in done):
         raise AssertionError("a request did not reach its token budget")
     g_eng = ServingEngine(params, cfg, SpecConfig(strategy="greedy"),
@@ -1110,10 +1273,10 @@ def serve_continuous(engine, work):
 
 def reset_launches():
     from repro_torch.kernels.mamba_scan import mamba_scan_cuda
-    from repro_torch.kernels.ngram_match import ngram_match_cuda
+    from repro_torch.kernels.ngram_match import ngram_draft_cuda
     from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
                                                     spec_attention_cuda)
-    for fn in (spec_attention_cuda, ngram_match_cuda,
+    for fn in (spec_attention_cuda, ngram_draft_cuda,
                paged_spec_attention_cuda, mamba_scan_cuda):
         fn.launches = 0
     spec_attention_cuda.tree_launches = 0
@@ -1122,12 +1285,12 @@ def reset_launches():
 
 def read_launches() -> dict:
     from repro_torch.kernels.mamba_scan import mamba_scan_cuda
-    from repro_torch.kernels.ngram_match import ngram_match_cuda
+    from repro_torch.kernels.ngram_match import ngram_draft_cuda
     from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
                                                     spec_attention_cuda)
     return {"mamba_scan": mamba_scan_cuda.launches,
             "spec_attention": spec_attention_cuda.launches,
-            "ngram_match": ngram_match_cuda.launches,
+            "ngram_match": ngram_draft_cuda.launches,
             "paged_spec_attention": paged_spec_attention_cuda.launches,
             "tree_spec_attention": spec_attention_cuda.tree_launches,
             "paged_tree_spec_attention":
@@ -1708,7 +1871,6 @@ def phase_hybrid() -> dict:
 def template_args(mangled: str) -> list:
     """The template arguments of a mangled name's ``I...E`` list: integers
     and bools as numbers, builtin types by name, named types as named."""
-    import re
     builtin = {"f": "float", "d": "double", "i": "int", "b": "bool"}
     args, i = [], 0
     while i < len(mangled) and mangled[i] != "E":
@@ -1733,7 +1895,6 @@ def ptxas_report(log: str) -> list:
     verify kernel's instances read spec_attention_mma_kernel<head-dim
     capacity, fragments a warp, paged>, K5's mamba_scan_kernel<state
     capacity, u's type, keeps the state after n_commit>."""
-    import re
     out, kernel, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)

@@ -41,12 +41,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import dispatch
 from ..models import cache as C
 from ..models import model as M
 from ..models.config import ModelConfig
 from . import tree as T
-from .drafters import (bigram_draft, context_ngram_draft, mixed_draft,
-                       unigram_draft)
+from .drafters import bigram_draft, mixed_draft, unigram_draft
 from .ngram_tables import NGramTables
 from .verify import accept
 
@@ -129,21 +129,21 @@ class DecodeState:
 
 
 def _draft(spec: SpecConfig, tables: NGramTables, buf, buf_len, last):
+    """(drafts (B,k,w), valid (B,k), n_ctx (B,) int32) of the strategy;
+    mixed and context are one K2 launch on the card."""
     if spec.strategy == "mixed":
         return mixed_draft(tables, buf, buf_len, last, spec.q, spec.k, spec.w)
+    if spec.strategy == "context":
+        return dispatch.ngram_draft(buf, buf_len, q=spec.q, k=spec.k,
+                                    w=spec.w)
     if spec.strategy == "bigram":
         d, v = bigram_draft(tables, last, spec.k, spec.w)
     elif spec.strategy == "unigram":
         d, v = unigram_draft(tables, buf.shape[0], spec.k, spec.w)
-    elif spec.strategy == "context":
-        d, v = context_ngram_draft(buf, buf_len, spec.q, spec.k, spec.w)
-        d = torch.where(v[..., None], d, 0)
     else:
         raise ValueError(spec.strategy)
-    n_ctx = (v.sum(dim=1) if spec.strategy == "context"
-             else torch.zeros((buf.shape[0],), dtype=torch.int32,
-                              device=buf.device))
-    return d, v, n_ctx.to(torch.int32)
+    return d, v, torch.zeros((buf.shape[0],), dtype=torch.int32,
+                             device=buf.device)
 
 
 def _init_stats(spec: SpecConfig, B: int, device) -> Dict[str, torch.Tensor]:

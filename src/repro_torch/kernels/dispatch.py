@@ -12,7 +12,8 @@ from typing import Optional, Tuple
 import torch
 
 from .mamba_scan import mamba_scan_cuda, mamba_scan_plain
-from .ngram_match import ngram_match_cuda, ngram_match_plain
+from .ngram_match import (ngram_draft_cuda, ngram_draft_plain,
+                          ngram_match_plain)
 from .spec_attention import (TreeMask, paged_spec_attention_cuda,
                              paged_spec_attention_plain, spec_attention_cuda,
                              spec_attention_plain)
@@ -79,17 +80,35 @@ def verify_attention_paged(q, k_pool, v_pool, page_table, k_tail, v_tail,
 def ngram_sweep(buf: torch.Tensor, query: torch.Tensor,
                 cur_len: torch.Tensor, *, w: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Match/hash sweep over every context position.
+    """Match/hash sweep over every context position, on the CPU.
 
     buf: (B, L) int32; query: (B, q) int32; cur_len: (B,) int32.
     Returns (match (B, L) int32, hash (B, L) int64 in [0, 2**32)) where
       match[b, i] = all(buf[b, i:i+q] == query[b]) and i + q + w <= cur_len
       hash[b, i]  = hashing.hash_rows(buf[b, i+q : i+q+w])  (-1 past L).
-    Kernel and plain version give bit-identical integers.
+    The card has no kernel for the sweep alone: K2 drafts in one launch
+    (``ngram_draft``), so a CUDA tensor raises.
     """
     if on_card(buf):
-        return ngram_match_cuda(buf, query, cur_len, w=w)
+        raise ValueError("the sweep alone has no CUDA kernel; the card "
+                         "drafts through ngram_draft (K2)")
     return ngram_match_plain(buf, query, cur_len, w=w)
+
+
+def ngram_draft(buf: torch.Tensor, buf_len: torch.Tensor, *, q: int, k: int,
+                w: int, last: Optional[torch.Tensor] = None,
+                bigram_topk: Optional[torch.Tensor] = None,
+                bigram_chain: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A step's context-strategy drafts (K2 on the card, its plain version
+    on the CPU): buf (B, L) int32, buf_len (B,) int32 -> (drafts (B, k, w)
+    int32, valid (B, k) bool, n_ctx (B,) int32), the context strategy's
+    rows; given ``last`` (B,) and the bigram tables, the mixed strategy's
+    (``kernels/ngram_match.py`` states the contract).  Bit-identical
+    either way."""
+    fn = ngram_draft_cuda if on_card(buf) else ngram_draft_plain
+    return fn(buf, buf_len, q=q, k=k, w=w, last=last,
+              bigram_topk=bigram_topk, bigram_chain=bigram_chain)
 
 
 def selective_scan(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,

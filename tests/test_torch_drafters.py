@@ -1,17 +1,26 @@
 """The port's drafters and n-gram tables (repro_torch.core) against the JAX
 reference: drafts and valid masks are integers and must be bit-identical
 on the same buffers and tables, ties included (small vocabularies make
-count ties and recency ties the common case)."""
+count ties and recency ties the common case).  The context and mixed
+strategies are K2's contract (invalid context rows zeroed, as the
+engine's ``_draft`` returns them); on the CPU its plain version runs.
+The adversarial rows hold the drafting step (``_draft``) against JAX's:
+a row that matches everywhere, the token whose continuation hash equals
+the no-match SENTINEL, rows too short to query, fewer representatives
+than rows, and a bigram fill that runs past the non-duplicates."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import drafters as JD
+from repro.core import spec_engine as JE
 from repro.core.ngram_tables import build_bigram as j_build_bigram
 from repro.core.ngram_tables import build_unigram as j_build_unigram
+from repro.core.ngram_tables import NGramTables as JNGramTables
 from repro.core.ngram_tables import tables_from_counts
 from repro_torch.core import drafters as D
+from repro_torch.core import spec_engine as E
 from repro_torch.core.ngram_tables import (NGramTables, build_bigram,
                                            build_unigram)
 
@@ -46,7 +55,7 @@ def test_context_drafts_bit_identical(q, k, w, vocab):
                                     w, backend="xla")
     d, v = D.context_ngram_draft(torch.from_numpy(buf),
                                  torch.from_numpy(cur), q, k, w)
-    _eq(d, jd)
+    _eq(d, jnp.where(jv[..., None], jd, 0))
     _eq(v, jv)
     assert bool(jv.any()) and not bool(jv.all())
 
@@ -81,6 +90,99 @@ def test_mixed_bigram_unigram_drafts_bit_identical(k, w):
     _eq(D.bigram_draft(tt, torch.from_numpy(last), k, w)[0], jd)
     jd, _ = JD.unigram_draft(jt, buf.shape[0], k, w)
     _eq(D.unigram_draft(tt, buf.shape[0], k, w)[0], jd)
+
+
+SENTINEL_TOKEN = 1097884494     # 0x4170634E: its w=1 hash is 0xFFFFFFFF
+
+
+def _adversarial(case):
+    """(buf (B, L), cur (B,), q, k, w, tables (JAX, port)) of one row set
+    that stresses the drafting contract."""
+    rng = np.random.default_rng(5)
+    jt, tt = _tables(12, seed=7, k_max=8, w_max=6)
+    if case == "match_everywhere":
+        # one repeated token: M = L - q - w + 1 matches, all one bucket;
+        # a period-2 row; a row of one token up to a ragged cur_len
+        L, q, k, w = 64, 1, 4, 3
+        buf = np.full((3, L), 5, np.int32)
+        buf[1, 1::2] = 6
+        cur = np.array([L, L, 40], np.int32)
+    elif case == "sentinel_hash":
+        # w = 1: the continuation SENTINEL_TOKEN hashes as the no-match
+        # SENTINEL, so its count also holds every unmatched position
+        L, q, k, w = 48, 1, 4, 1
+        buf = rng.integers(0, 4, (3, L)).astype(np.int32)
+        buf[:, 10:40:6] = 7
+        buf[:, 11:40:12] = SENTINEL_TOKEN
+        buf[:, 17:40:12] = 3
+        buf[:, 40] = 7
+        buf[2, [20, 24]] = 7
+        buf[2, 21] = SENTINEL_TOKEN
+        cur = np.array([41, 41, 25], np.int32)
+    elif case == "too_short":
+        # buf_len < q + 1: no context row anywhere; the clamped query
+        L, q, k, w = 32, 2, 4, 3
+        buf = rng.integers(0, 3, (4, L)).astype(np.int32)
+        cur = np.array([0, 1, 2, 3], np.int32)
+    elif case == "few_representatives":
+        # two distinct continuations for k = 8 rows
+        L, q, k, w = 40, 1, 8, 2
+        buf = np.tile(np.array([1, 2, 3, 1, 4, 4], np.int32), 7)[None, :L]
+        buf = np.repeat(buf, 2, axis=0)
+        cur = np.array([L, 19], np.int32)
+    else:
+        # "dup_tail": bigram candidates that repeat each other and the one
+        # context row, so the fill runs past the non-duplicates
+        L, q, k, w = 30, 1, 4, 3
+        topk = np.tile(np.array([2, 2, 2, 3, 4, 5], np.int32), (12, 1))
+        chain = np.tile(np.arange(6, dtype=np.int32)[None, :] + 4, (12, 1))
+        chain[2] = [4, 5, 6, 7, 8, 9]
+        jt = JNGramTables(jnp.arange(6, dtype=jnp.int32), jnp.asarray(topk),
+                          jnp.asarray(chain))
+        tt = NGramTables(torch.arange(6, dtype=torch.int32),
+                         torch.from_numpy(topk), torch.from_numpy(chain))
+        buf = np.zeros((2, L), np.int32)
+        buf[:, 5:9] = [1, 2, 4, 5]
+        buf[:, 20] = 1
+        buf[1, 12:16] = [1, 3, 8, 9]
+        cur = np.array([21, 21], np.int32)
+    return buf, cur, q, k, w, (jt, tt)
+
+
+@pytest.mark.parametrize("strategy", ["context", "mixed"])
+@pytest.mark.parametrize("case", ["match_everywhere", "sentinel_hash",
+                                  "too_short", "few_representatives",
+                                  "dup_tail"])
+def test_draft_step_matches_jax_on_adversarial_rows(case, strategy):
+    buf, cur, q, k, w, (jt, tt) = _adversarial(case)
+    L = buf.shape[1]
+    last = buf[np.arange(buf.shape[0]), (cur - 1) % L]
+    jspec = JE.SpecConfig(k=k, w=w, q=q, strategy=strategy, backend="xla")
+    jd, jv, jn = JE._draft(jspec, jt, jnp.asarray(buf), jnp.asarray(cur),
+                           jnp.asarray(last))
+    spec = E.SpecConfig(k=k, w=w, q=q, strategy=strategy)
+    d, v, n = E._draft(spec, tt, torch.from_numpy(buf),
+                       torch.from_numpy(cur), torch.from_numpy(last))
+    _eq(d, jd)
+    _eq(v, jv)
+    _eq(n, jn)
+    assert d.dtype == n.dtype == torch.int32 and v.dtype == torch.bool
+    # the contract's invariants, beside the reference's bits
+    ctx_v = D.context_ngram_draft(torch.from_numpy(buf),
+                                  torch.from_numpy(cur), q, k, w)[1]
+    assert torch.equal(n, ctx_v.sum(dim=1).to(torch.int32))
+    if case == "too_short":
+        assert not n.any()
+    if case == "match_everywhere":
+        assert n.tolist() == [1, 1, 1]
+    if case == "few_representatives":
+        assert n.tolist() == [2, 2]
+    if case == "sentinel_hash" and strategy == "context":
+        # the SENTINEL-hashed continuation outcounts every real one
+        assert (d[:, 0, 0] == SENTINEL_TOKEN).all()
+    if case == "dup_tail" and strategy == "mixed":
+        # row 0: the context row, then candidate 3, then duplicates 0, 1
+        assert d[0, :, 0].tolist() == [2, 3, 2, 2]
 
 
 def test_build_bigram_breaks_exact_ties_like_jax():

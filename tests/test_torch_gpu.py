@@ -17,9 +17,11 @@ verify, decode and replay shapes, B and C as views of an x_proj output
 whose rows are 16-byte aligned as Jamba's are, and odd ones whose rows are
 not), with f32 and bf16 u.
 Tolerances: K1, K3 and K4 f32 2e-5, bf16 2e-2 (the reference's kernel
-tolerance); K2 bit-exact; K3 over a shuffled pool equals K1 over the
-gathered linear view bit for bit, and K4 over the pool equals K4 over the
-gathered view; paged continuous serving equals linear continuous serving
+tolerance); K2 bit-exact in both strategies (drafts, valid, n_ctx) at
+phase 2's shapes and adversarial rows, and a mixed spec_step drafts in
+exactly one K2 launch, serving the CPU's tokens; K3 over a shuffled pool
+equals K1 over the gathered linear view bit for bit, and K4 over the pool
+equals K4 over the gathered view; paged continuous serving equals linear continuous serving
 token for token (tiny f32 model), with a tree too.  K5 f32 rtol = atol =
 2e-4 (the reference's kernel tolerance), and a tiny f32 hybrid served
 through K5 equals its greedy reference, paged and linear.  K5 computes a
@@ -33,7 +35,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
-from repro_torch.kernels.ngram_match import ngram_match_cuda, ngram_match_plain
+from repro_torch.kernels.ngram_match import ngram_draft_cuda, ngram_draft_plain
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.core.tree import topology
 from repro_torch.kernels.spec_attention import (paged_spec_attention_cuda,
@@ -120,19 +122,146 @@ def test_spec_attention_bf16_p_split_error_bound(cuda_device, paged):
     assert err <= P_SPLIT_ERR, err
 
 
+SENTINEL_TOKEN = 1097884494     # 0x4170634E: its w=1 hash is 0xFFFFFFFF
+
+
+def _k2_case(device, name):
+    """(buf, buf_len, q, k, w, vocab or the hand tables) of one K2 case:
+    phase 2's shapes (the main path's B=8, L=332 and long rows of repeated
+    text, q, w, k and vocabulary variants) and its adversarial rows."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    text = rng.integers(32, 127, 211).astype(np.int32)       # byte "text"
+    V = 100352
+
+    def rows(B, L, cur):
+        buf = np.zeros((B, L), np.int32)
+        for b, c in enumerate(cur):
+            buf[b, :c] = np.roll(np.resize(text, L), 17 * b)[:c]
+        return buf, np.array(cur, np.int32)
+    q, k, w = 1, 10, 10
+    if name == "main":
+        buf, cur = rows(8, 332, MAIN_CUR)
+    elif name == "L4096":
+        buf, cur = rows(4, 4096, [4096, 4000, 2500, 300])
+    elif name == "L32768":
+        buf, cur = rows(2, 32768, [32768, 20001])
+    elif name == "q2w5":
+        (buf, cur), q, k, w = rows(3, 4097, [4097, 1000, 3]), 2, 8, 5
+    elif name == "q4w16_jamba":
+        (buf, cur), q, w, V = rows(3, 1000, [1000, 999, 517]), 4, 16, 65536
+    elif name == "k_max":
+        (buf, cur), k = rows(8, 332, MAIN_CUR), 25
+    elif name == "match_everywhere":
+        buf = np.full((2, 32768), 5, np.int32)
+        buf[1, 1::2] = 6
+        cur = np.array([32768, 32765], np.int32)
+    elif name == "sentinel":
+        buf = rng.integers(0, 4, (3, 4099)).astype(np.int32)
+        buf[:, 100:4000:6] = 7
+        buf[:, 101:4000:12] = SENTINEL_TOKEN
+        buf[:, 4000] = 7
+        cur, w = np.array([4001, 4001, 333], np.int32), 1
+    elif name == "too_short":
+        buf = rng.integers(0, 3, (4, 300)).astype(np.int32)
+        cur, q = np.array([0, 1, 2, 3], np.int32), 2
+    elif name == "few_reps":
+        buf = np.tile(np.array([1, 2, 3, 1, 4, 4], np.int32), (2, 60))
+        cur, k, w = np.array([360, 97], np.int32), 25, 2
+    else:                                                    # dup_tail
+        buf = np.zeros((2, 30), np.int32)
+        buf[:, 5:9] = [1, 2, 4, 5]
+        buf[:, 20] = 1
+        buf[1, 12:16] = [1, 3, 8, 9]
+        cur, k, w = np.array([21, 21], np.int32), 4, 3
+        chain = np.tile(np.arange(6, dtype=np.int32) + 4, (12, 1))
+        chain[2] = [4, 5, 6, 7, 8, 9]
+        V = (np.tile(np.array([2, 2, 2, 3, 4, 5], np.int32), (12, 1)), chain)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(buf), t(cur), q, k, w, V
+
+
+def _k2_tables(device, V):
+    """Seeded tables of the engine's shape (k_max 25, w_max 16), or the
+    hand tables of a case."""
+    if isinstance(V, tuple):
+        return tuple(torch.as_tensor(a, device=device) for a in V)
+    g = torch.Generator(device=device).manual_seed(V)
+    return tuple(torch.randint(0, V, (V, n), generator=g, device=device,
+                               dtype=torch.int32) for n in (25, 16))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,q,w", [(8, 332, 1, 10), (3, 4097, 4, 16)])
-def test_ngram_match_cuda_matches_plain(cuda_device, B, L, q, w):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    buf = torch.randint(0, 5, (B, L), generator=g, device=cuda_device,
-                        dtype=torch.int32)
-    buf[:, -7:] = -1
-    query = buf[:, 2:2 + q].contiguous()
-    cl = torch.randint(0, L + 1, (B,), generator=g, device=cuda_device,
-                       dtype=torch.int32)
-    m, h = ngram_match_cuda(buf, query, cl, w=w)
-    m_p, h_p = ngram_match_plain(buf, query, cl, w=w)
-    assert torch.equal(m, m_p) and torch.equal(h, h_p)
+@pytest.mark.parametrize("strategy", ["context", "mixed"])
+@pytest.mark.parametrize("case", ["main", "L4096", "L32768", "q2w5",
+                                  "q4w16_jamba", "k_max", "match_everywhere",
+                                  "sentinel", "too_short", "few_reps",
+                                  "dup_tail"])
+def test_ngram_match_cuda_matches_plain(cuda_device, case, strategy):
+    """K2 equals its plain version bit for bit: drafts, valid, n_ctx."""
+    buf, cl, q, k, w, V = _k2_case(cuda_device, case)
+    kw = {}
+    if strategy == "mixed":
+        topk, chain = _k2_tables(cuda_device, V)
+        last = buf.gather(1, torch.remainder(cl.long() - 1, buf.shape[1])
+                          [:, None])[:, 0].contiguous()
+        kw = dict(last=last, bigram_topk=topk, bigram_chain=chain)
+    got = ngram_draft_cuda(buf, cl, q=q, k=k, w=w, **kw)
+    want = ngram_draft_plain(buf, cl, q=q, k=k, w=w, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {key: _to(v, device) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+@pytest.mark.gpu
+def test_mixed_step_drafts_in_one_launch(cuda_device):
+    """One mixed spec_step on the card launches K2 exactly once, and the
+    steps serve the tokens the CPU's plain path serves (tiny f32 model, the
+    same weights and tables on both)."""
+    from repro_torch.core import spec_engine as E
+    from repro_torch.core.ngram_tables import NGramTables
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ModelConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(name="tiny", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=128, vocab_size=259,
+                      param_dtype=torch.float32,
+                      compute_dtype=torch.float32).validate()
+    spec = E.SpecConfig(k=4, w=3, strategy="mixed", max_new_tokens=12)
+    rng = np.random.default_rng(3)
+    tab = NGramTables(torch.arange(8, dtype=torch.int32),
+                      torch.as_tensor(rng.integers(0, 259, (259, 8)),
+                                      dtype=torch.int32),
+                      torch.as_tensor(rng.integers(0, 259, (259, 6)),
+                                      dtype=torch.int32))
+    text = np.frombuffer(b"def f(x): return x + 1; def g(x): return f(x)",
+                         np.uint8).astype(np.int32)
+    prompt = torch.as_tensor(np.stack([text[:32], text[8:40]]))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    states = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _to(params, dev)
+        t = tab if dev == "cpu" else NGramTables(*(_to(a, dev) for a in (
+            tab.unigram_topk, tab.bigram_topk, tab.bigram_chain)))
+        s = E.init_decode_state(p, cfg, spec, prompt.to(dev))
+        for i in range(4):
+            before = ngram_draft_cuda.launches
+            s = E.spec_step(p, cfg, spec, s, t)
+            if dev == "cuda":
+                assert ngram_draft_cuda.launches == before + 1
+        states[dev] = s
+    assert torch.equal(states["cuda"].buf.cpu(), states["cpu"].buf)
+    assert torch.equal(states["cuda"].buf_len.cpu(), states["cpu"].buf_len)
+    assert int(states["cpu"].buf_len.min()) >= 32 + 4
 
 
 def _paged_inputs(device, B, K, W1, H, KV, hd, ps, cur, dtype, seed=0):

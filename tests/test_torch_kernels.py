@@ -17,7 +17,8 @@ from repro.kernels import hashing as jhashing
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, dispatch, hashing, ref
-from repro_torch.kernels.ngram_match import ngram_match_cuda, ngram_match_plain
+from repro_torch.kernels.ngram_match import (ngram_draft_cuda,
+                                             ngram_match_plain)
 from repro_torch.kernels.spec_attention import (copy_width,
                                                 spec_attention_cuda,
                                                 spec_attention_plain)
@@ -116,8 +117,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         spec_attention_cuda(*t, w1=3)
     buf = torch.zeros((1, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
-        ngram_match_cuda(buf, buf[:, :1].contiguous(),
-                         torch.tensor([8], dtype=torch.int32), w=2)
+        ngram_draft_cuda(buf, torch.tensor([8], dtype=torch.int32), q=1, k=2,
+                         w=2)
 
 
 @pytest.mark.parametrize("hd,off,vec", [(64, 0, 8), (36, 0, 1), (80, 4, 1),

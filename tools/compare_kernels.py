@@ -9,7 +9,13 @@ Both trees build their kernels with nvcc at once, each into its own
 ``kernels/_build/``, and print the ``-Xptxas -v`` report of every instance.
 Each shape is timed by ``chip_smoke.device_ms`` (the calls enqueued while
 the card spins, so the kernel's own time) in the order other, this, this,
-other, on the same inputs, bf16 as served.  Each tree's kernel is called as
+other, on the same inputs, bf16 as served.  Drafting (K2) is timed as
+each tree's model path drafts a mixed step, ``core.drafters.mixed_draft``
+on the same buffers and tables, whatever kernels and torch ops that
+takes; for it the script also gives CUDA-event times (``chip_smoke.
+time_ms``, the host's launches included) and, last, after every timing,
+the device ops one call runs and their summed device time
+(torch.profiler).  Each tree's kernel is called as
 that tree's model path calls it: a tree whose K5 wrapper takes no
 ``n_commit`` got u cast to f32 and replayed by writing every step's state
 (its path then selected one), so that kernel is what is timed there (the
@@ -33,7 +39,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-NAMES = ("spec_attention", "mamba_scan")
+NAMES = ("spec_attention", "mamba_scan", "ngram_match")
 
 
 def load_other(root: str) -> dict:
@@ -46,8 +52,11 @@ def load_other(root: str) -> dict:
     mod = importlib.util.module_from_spec(spec)
     sys.modules["other_repro_torch"] = mod
     spec.loader.exec_module(mod)
-    return {n: importlib.import_module(f"other_repro_torch.kernels.{n}")
+    mods = {n: importlib.import_module(f"other_repro_torch.kernels.{n}")
             for n in ("build",) + NAMES}
+    mods["drafters"] = importlib.import_module(
+        "other_repro_torch.core.drafters")
+    return mods
 
 
 def cases():
@@ -102,7 +111,45 @@ def cases():
         ops32 = (ops5[0].float(),) + ops5[1:]
         out.append((name, lambda m, o=ops5, o32=ops32, r=rep, f=final, n=nc:
                     scan(m["mamba_scan"].mamba_scan_cuda, o, o32, r, f, n)))
+    return out + drafting_cases(S, cur)
+
+
+def drafting_cases(S, cur):
+    """A mixed step's drafting at chip_smoke's three real-text shapes (B=8
+    L=332, B=4 L=4096, B=2 L=32768; StableLM's vocabulary, q=1, k=w=10)."""
+    import torch
+    from repro_torch.core.ngram_tables import NGramTables
+    topk, chain = cs.k2_tables(cs.K2_VOCABS["stablelm"], seed=0)
+    tables = NGramTables(torch.arange(topk.shape[1], dtype=torch.int32,
+                                      device="cuda"), topk, chain)
+    out = []
+    for B, L, c in ((8, S, cur), (4, 4096, [4096, 4000, 2500, 300]),
+                    (2, 32768, [32768, 20001])):
+        buf, cl = cs.k2_text_rows(B, L, c)
+        last = buf.gather(1, torch.remainder(cl.long() - 1, L)[:, None])[:, 0]
+        out.append((f"K2 drafting B={B} L={L}",
+                    lambda m, b=buf, c=cl, t=last: m["drafters"].mixed_draft(
+                        tables, b, c, t, 1, cs.SERVE_K, cs.SERVE_W)))
     return out
+
+
+def device_ops(fn, calls: int = 5) -> tuple:
+    """(device ops, their summed device ms) of one ``fn()``, by
+    torch.profiler over ``calls`` calls after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    cs.sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        cs.sync()
+    ops = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")]
+    return (sum(e.count for e in ops) / calls,
+            sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in ops) / 1e3 / calls)
 
 
 def scan(fn, ops, ops32, rep, final, n_commit):
@@ -125,9 +172,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build, mamba_scan, spec_attention
+    from repro_torch.core import drafters
+    from repro_torch.kernels import (build, mamba_scan, ngram_match,
+                                     spec_attention)
     this = {"build": build, "spec_attention": spec_attention,
-            "mamba_scan": mamba_scan}
+            "mamba_scan": mamba_scan, "ngram_match": ngram_match,
+            "drafters": drafters}
     other = load_other(args.other)
     built = []
     th = threading.Thread(target=lambda: built.append(
@@ -145,19 +195,40 @@ def main() -> int:
     card = cs.card_line()
     print(f"  {card}; other tree: {args.other}")
     rows = []
-    for name, call in cases():
-        o1 = cs.device_ms(lambda: call(other))
-        t1 = cs.device_ms(lambda: call(this))
-        t2 = cs.device_ms(lambda: call(this))
-        o2 = cs.device_ms(lambda: call(other))
+    all_cases = cases()
+    for name, call in all_cases:
+        # a drafting call of the other tree may launch ~150 kernels: 5 calls
+        # keep them inside CUDA's queue of pending launches while the card
+        # spins (a full queue blocks the host, and the spin then ends first)
+        n = 5 if name.startswith("K2") else 20
+        o1 = cs.device_ms(lambda: call(other), iters=n)
+        t1 = cs.device_ms(lambda: call(this), iters=n)
+        t2 = cs.device_ms(lambda: call(this), iters=n)
+        o2 = cs.device_ms(lambda: call(other), iters=n)
         ok = None not in (o1, t1, t2, o2)
         t, o = ((t1 + t2) / 2, (o1 + o2) / 2) if ok else (None, None)
         rows.append(dict(name=name, device_ms=t, other_device_ms=o,
                          runs=[o1, t1, t2, o2]))
-        print(f"  {name:18s} device ms: this {cs.fmt_ms(t)} other "
+        print(f"  {name:24s} device ms: this {cs.fmt_ms(t)} other "
               f"{cs.fmt_ms(o)}" + (f" ({t / o:.2f}x)" if ok else "")
               + f"  [other, this, this, other: "
               f"{', '.join(cs.fmt_ms(x) for x in (o1, t1, t2, o2))}]")
+        if name.startswith("K2"):
+            ev = [cs.time_ms(lambda: call(m))
+                  for m in (other, this, this, other)]
+            rows[-1].update(ms=(ev[1] + ev[2]) / 2,
+                            other_ms=(ev[0] + ev[3]) / 2)
+            print(f"  {name:24s} CUDA-event ms: this {rows[-1]['ms']:.4f} "
+                  f"other {rows[-1]['other_ms']:.4f}  [other, this, this, "
+                  f"other: {', '.join(f'{x:.4f}' for x in ev)}]")
+    for (name, call), row in zip(all_cases, rows):
+        if name.startswith("K2"):
+            (row["ops"], row["profiled_ms"]), (row["other_ops"],
+                                               row["other_profiled_ms"]) = (
+                device_ops(lambda: call(m)) for m in (this, other))
+            print(f"  {name:24s} device ops a call: this {row['ops']:.0f} "
+                  f"({row['profiled_ms']:.4f} device ms, profiler) other "
+                  f"{row['other_ops']:.0f} ({row['other_profiled_ms']:.4f})")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "other": args.other, "kernels": rows},
