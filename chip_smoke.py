@@ -58,7 +58,9 @@ Phases (any failure raises and the script exits non-zero):
                (``no_experts``: 7 Mamba + 1 attention layer at full width,
                dense SwiGLU FFNs, 9.0 B parameters), bf16, seeded weights,
                after StableLM is freed: 7a serves phase 3's 8 requests
-               statically, mixed and greedy (K5, K1 and K2 launch); 7b
+               statically, mixed and greedy (K5, K1 and K2 launch), then
+               with requests 0-3 sampled, twice: the replay is bit-equal
+               and the greedy rows equal the mixed run's; 7b
                profiles a mixed and a greedy step (K5's share); 7c serves
                phase 5's 24-request mix continuously (paged mixed, linear
                mixed, paged greedy; K3 on the paged runs; bf16 paged ==
@@ -67,6 +69,23 @@ Phases (any failure raises and the script exits non-zero):
                greedy_reference, or, at a tie closer than f32 evaluation
                can separate (measured in the run), the oracle's argmax on
                their own prefix (``check_lossless``).
+  8. sampled — runs after phase 6, while StableLM is loaded (before 7):
+               temperature 0.8, top_p 0.95 requests with pinned seeds
+               beside greedy ones.  8a: phase 3's 8 requests, 0-3 sampled,
+               twice (every row replays bit for bit, rows 4-7 equal phase
+               3's, K2 once a step; tokens/call and tokens/s of each
+               half); 8b: phase 5's mix continuously over the 16-page
+               pool, every other request sampled, twice (no leaked page,
+               no rejection, every budget, bit-equal replay, latency
+               p50/p99; K3); 8c: the (4, 5, 2) tree on phase 6's mix,
+               every other sampled, twice (replay; the greedy rows equal
+               phase 6's; K4); 8d: the reference's distribution test
+               (V=17, B=512, f32) through K1 and K2 on the card: TV,
+               chi-square, a power control and a speculation share
+               (``check_distribution``, also the CPU test's); 8e: a
+               sampled static step profiled beside the greedy-only mixed
+               step, and the sampler's own device ms (noise, shaping and
+               sort).
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
 for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
@@ -120,6 +139,11 @@ TREE_LINEAR = (12, 5)            # the linear arm of matched cost: 72 inputs
 TREE_N, TREE_BUCKET, TREE_NEW, TREE_SLOTS = 12, 128, 48, 4
 # phase 7: the hybrid (Jamba, one period, no experts)
 HYB_PERIODS = 1
+# phase 8: sampled serving; the distribution check's setup and limits are
+# the reference's test_spec_sampling_matches_plain_distribution
+SAMPLE_T, SAMPLE_P, SAMPLE_SEED = 0.8, 0.95, 1000
+DIST_V, DIST_B, DIST_N = 17, 512, 4
+DIST_CASES = ((0.9, 1.0), (1.2, 0.8))
 
 
 def card_line() -> str:
@@ -1056,9 +1080,10 @@ def top2_margin(params, cfg, ids, pos) -> float:
 
 def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
                   bucket: int = SERVE_BUCKET, label: str = "",
-                  focus: str = ""):
+                  focus: str = "", **state_kw):
     """Where a static step's time goes: spec_steps of a fresh batch of the
-    served prompts under torch.profiler (``profile_window``)."""
+    served prompts under torch.profiler (``profile_window``).
+    ``state_kw``: the sampling controls of ``init_decode_state``."""
     import numpy as np
     import torch
     from repro_torch.core.spec_engine import init_decode_state, spec_step
@@ -1067,7 +1092,7 @@ def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
     sched = Scheduler(buckets=(bucket,))
     toks = torch.as_tensor(np.stack([sched.pad_to_bucket(
         ByteTokenizer().encode(p)) for p in prompts]), device="cuda")
-    box = [init_decode_state(params, cfg, spec, toks)]
+    box = [init_decode_state(params, cfg, spec, toks, **state_kw)]
 
     def one_step():
         box[0] = spec_step(params, cfg, spec, box[0], tables)
@@ -1227,7 +1252,7 @@ def phase_serve() -> dict:
     lossless_continuous(params32, cfg32, spec, tables)
     del params32, eng32
     torch.cuda.empty_cache()
-    return launches, tables
+    return launches, tables, [r.output_ids for r in done]
 
 
 # ---------------------------------------------------------------------------
@@ -1532,9 +1557,9 @@ def profile_fill_tree(tables, prompts):
 def phase_tree(tables) -> dict:
     """Phase 6: the tree mix served statically and continuously (bf16),
     6b: a tree step and a linear (12, 5) step profiled, then the f32
-    lossless check.  Returns K4's launches on the tree path: the linear
+    lossless check.  Returns K4's launches on the tree path (the linear
     instantiation's in the static tree run, the paged one's in the
-    continuous paged tree run."""
+    continuous paged tree run) and the static tree run's outputs."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1619,6 +1644,7 @@ def phase_tree(tables) -> dict:
           f"{len(same)} requests")
     if not all(same):
         raise AssertionError("bf16 tree paged differs from tree linear")
+    tree_out = [r.output_ids for r in runs["static", tree_name]]
     print("phase 6b: where a tree step's time goes (torch.profiler, "
           f"{TREE_SLOTS} prompts of the mix, static)")
     for name in (tree_name, f"linear {TREE_LINEAR}"):
@@ -1660,7 +1686,301 @@ def phase_tree(tables) -> dict:
               f"requests x {TREE_NEW} tokens ({calls} verify calls)")
     del params32, eng
     torch.cuda.empty_cache()
-    return k4
+    return k4, tree_out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: sampled serving (run after phase 6, while StableLM is loaded)
+# ---------------------------------------------------------------------------
+def tv_distance(a, b) -> float:
+    """Total variation distance between two count vectors."""
+    return float(0.5 * abs(a / a.sum() - b / b.sum()).sum())
+
+
+def chi2_two_sample(a_counts, b_counts, min_expected: float = 5.0):
+    """Two-sample chi-square with the sparse tail merged into one cell;
+    returns (statistic, degrees of freedom)."""
+    import numpy as np
+    order = np.argsort(a_counts + b_counts)[::-1]
+    a, b = a_counts[order].astype(float), b_counts[order].astype(float)
+    k = max(int((np.cumsum((a + b) < 2 * min_expected) == 0).sum()), 1)
+    a = np.concatenate([a[:k], [a[k:].sum()]])
+    b = np.concatenate([b[:k], [b[k:].sum()]])
+    p = (a + b) / (a.sum() + b.sum())
+    ea, eb = a.sum() * p, b.sum() * p
+    m = (ea > 0) & (eb > 0)
+    stat = ((a - ea) ** 2 / np.where(m, ea, 1))[m].sum() + (
+        (b - eb) ** 2 / np.where(m, eb, 1))[m].sum()
+    return float(stat), int(m.sum()) - 1
+
+
+def check_distribution(device: str, temp: float, topp: float) -> dict:
+    """The spec walk samples the plain sampler's distribution: a V=17
+    f32 model (seeded), B=512 rows of one prompt, 4 new tokens by a mixed
+    (4, 3) walk against ``sampling_reference``.  Each position's marginal
+    has TV < 0.18 and a two-sample chi-square below df + 6 sqrt(2 df); a
+    0.3-temperature control is told apart at position 0 (TV > 0.25: the
+    check has power); more than 10% of verify calls commit more than one
+    token (the walk speculates).  Raises on a miss; returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.ngram_tables import (NGramTables, build_bigram,
+                                               build_unigram)
+    from repro_torch.core.spec_engine import (SpecConfig, generate,
+                                              sampling_reference)
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="tv", num_layers=2, d_model=32, num_heads=2,
+                      num_kv_heads=2, d_ff=64, vocab_size=DIST_V,
+                      param_dtype=torch.float32,
+                      compute_dtype=torch.float32).validate()
+    params = M.init_params(cfg, seed=0, device=device)
+    topk, chain = build_bigram(
+        lambda t: M.forward(params, cfg, tokens=t)[0][:, -1], DIST_V,
+        k_max=4, w_max=4, batch=DIST_V, device=device)
+    emb = params["embed"]["embedding"]
+    tables = NGramTables(build_unigram(emb, params["embed"].get(
+        "lm_head", emb.T), k_max=4), topk, chain)
+    prompt = torch.tensor([3, 1, 4, 1, 5, 9], dtype=torch.int32,
+                          device=device).expand(DIST_B, 6).contiguous()
+    P, N = prompt.shape[1], DIST_N
+    spec = SpecConfig(k=4, w=3, strategy="mixed", max_new_tokens=N,
+                      sampling=True)
+    buf, _, stats = generate(params, cfg, spec, prompt, tables,
+                             device=device, temperature=temp, top_p=topp,
+                             rng=prng.prng_key(17))
+    got = buf[:, P:P + N].cpu().numpy()
+    plain = lambda seed, t, p: sampling_reference(
+        params, cfg, prompt, N, prng.prng_key(seed), t, p,
+        device=device)[:, P:P + N].cpu().numpy()
+    ref, ctl = plain(170, temp, topp), plain(171, 0.3, 1.0)
+    count = lambda toks: np.bincount(toks, minlength=DIST_V)
+    out = dict(tv=0.0, chi2_excess=-np.inf)
+    for pos in range(N):
+        cs, cr = count(got[:, pos]), count(ref[:, pos])
+        tv = tv_distance(cs, cr)
+        stat, df = chi2_two_sample(cs, cr)
+        limit = df + 6 * np.sqrt(2 * max(df, 1))
+        if tv >= 0.18 or stat >= limit:
+            raise AssertionError(f"t={temp} p={topp} position {pos}: TV "
+                                 f"{tv:.4f}, chi-square {stat:.2f} (limit "
+                                 f"{limit:.2f}, df {df})")
+        out["tv"] = max(out["tv"], tv)
+        out["chi2_excess"] = max(out["chi2_excess"], stat - limit)
+    out["power_tv"] = tv_distance(count(got[:, 0]), count(ctl[:, 0]))
+    hist = stats["accept_hist"].sum(dim=0).cpu().numpy()
+    calls = int(stats["calls"].sum())
+    out["multi_share"] = float(hist[2:].sum() / calls)
+    if out["power_tv"] <= 0.25 or out["multi_share"] <= 0.10 \
+            or hist[0] != 0 or hist.sum() != calls:
+        raise AssertionError(f"t={temp} p={topp}: no power or no "
+                             f"speculation: {out}, hist {hist.tolist()}")
+    return out
+
+
+def sample_kw(i: int) -> dict:
+    """Request i's sampling controls (pinned seed)."""
+    return dict(temperature=SAMPLE_T, top_p=SAMPLE_P, seed=SAMPLE_SEED + i)
+
+
+def serve_sampled(engine, prompts, max_new, sampled, continuous=False):
+    """``serve``/``serve_continuous`` with request i sampled where
+    ``sampled[i]`` (``sample_kw``); returns (done, wall s)."""
+    for i, (p, mnt) in enumerate(zip(prompts, max_new)):
+        engine.submit(p, max_new_tokens=mnt,
+                      **(sample_kw(i) if sampled[i] else {}))
+    sync()
+    t0 = time.perf_counter()
+    done = (engine.serve_continuous() if continuous
+            else engine.serve_all())
+    sync()
+    done.sort(key=lambda r: r.request_id)
+    return done, time.perf_counter() - t0
+
+
+def check_replay(label, runs, greedy_ref=None, sampled=None):
+    """The second run replays the first bit for bit; with ``greedy_ref``,
+    the unsampled rows equal it."""
+    import numpy as np
+    a, b = runs
+    if not all(np.array_equal(x.output_ids, y.output_ids)
+               for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: the replay differs")
+    if greedy_ref is not None:
+        same = [bool(np.array_equal(r.output_ids, g))
+                for r, g, s in zip(a, greedy_ref, sampled) if not s]
+        print(f"  {label}: replay bit-equal; greedy rows == the greedy-only "
+              f"run's for {sum(same)} of {len(same)}")
+        if not all(same):
+            raise AssertionError(f"{label}: a greedy row was perturbed")
+    else:
+        print(f"  {label}: replay bit-equal for {len(a)} requests")
+
+
+def rate_line(done, wall, sampled) -> str:
+    """tokens/call and tokens/s of the sampled and of the greedy rows."""
+    parts = []
+    for name, flag in (("sampled", True), ("greedy", False)):
+        rs = [r for r, s in zip(done, sampled) if s == flag]
+        n = sum(r.stats["new_tokens"] for r in rs)
+        calls = sum(r.stats["model_calls"] for r in rs)
+        parts.append(f"{name} rows {n} tokens, tokens/call "
+                     f"{n / max(calls, 1):.3f}, {n / wall:.1f} tokens/s")
+    return "; ".join(parts)
+
+
+def sampler_device_ms(B, K, W1, V):
+    """The sampler's own device ms at a verify step's shape: the noise
+    (one split per slot, a key per level, gumbel over V) and the shaping
+    (temperature, softmax, the top-p sort and cumsum); also the whole
+    ``sample_predictions``.  One call at a time behind the spin: a call
+    is ~450 launches, and more than CUDA's queue of pending launches would
+    stall the enqueue."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.verify import sample_predictions, shape_logits
+    g = torch.Generator(device="cuda").manual_seed(8)
+    logits = torch.randn((B, K, W1, V), generator=g, device="cuda").to(
+        torch.bfloat16) * 4
+    keys = prng.split(prng.fold_in(prng.prng_key(3, "cuda"),
+                                   torch.arange(B, device="cuda")))[:, 0]
+    temp = torch.full((B,), SAMPLE_T, device="cuda")
+    topp = torch.full((B,), SAMPLE_P, device="cuda")
+    lv = torch.arange(W1, device="cuda")
+
+    def noise():
+        use = prng.split(keys)[:, 0]
+        prng.gumbel(prng.fold_in(use[:, None], lv[None]), (V,))
+    return dict(
+        noise=device_ms(noise, iters=1, warmup=1),
+        shaping=device_ms(lambda: shape_logits(logits, temp, topp), iters=1,
+                          warmup=1),
+        sample_predictions=device_ms(lambda: sample_predictions(
+            logits, keys, temp, topp), iters=1, warmup=1))
+
+
+def phase_sampling(tables, serve_out, tree_out) -> None:
+    """Phase 8 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("stablelm-1.6b")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+    prompts = smoke_prompts()
+    n = len(prompts)
+    half = [i < n // 2 for i in range(n)]
+
+    # ---- 8a: static, phase 3's requests, the first half sampled ----
+    print(f"phase 8a: static ({n} requests, requests 0-{n // 2 - 1} "
+          f"sampled)")
+    runs = []
+    for _ in range(2):
+        eng = ServingEngine(params, cfg, spec, tables=tables,
+                            buckets=(SERVE_BUCKET,))
+        reset_launches()            # counts from zero just before the run
+        done, wall = serve_sampled(eng, prompts, [SERVE_NEW] * n, half)
+        launches = read_launches()
+        runs.append(done)
+        steps = launches["spec_attention"] // cfg.num_layers
+        print(f"  {rate_line(done, wall, half)}; {wall:.3f} s, launches "
+              f"{launches}")
+        if launches["ngram_match"] != steps or steps <= 0:
+            raise AssertionError(f"sampled static run not drafted by K2 "
+                                 f"once a step through K1: {launches}")
+        if any(r.stats["new_tokens"] != SERVE_NEW for r in done):
+            raise AssertionError("a sampled request missed its budget")
+    check_replay("8a static", runs, serve_out, half)
+
+    # ---- 8b: continuous paged, phase 5's mix, every other sampled ----
+    work = cont_workload()
+    alt = [i % 2 == 1 for i in range(len(work))]
+    print(f"phase 8b: continuous paged ({len(work)} requests, every other "
+          f"sampled, {CONT_PAGES}-page pool)")
+    runs = []
+    for _ in range(2):
+        eng = cont_engine(params, cfg, spec, tables, True)
+        reset_launches()
+        done, wall = serve_sampled(eng, [t for t, _ in work],
+                                   [m for _, m in work], alt,
+                                   continuous=True)
+        launches = read_launches()
+        lat = np.array([r.stats["latency_s"] for r in done])
+        print(f"  {rate_line(done, wall, alt)}; latency p50 "
+              f"{np.percentile(lat, 50):.3f} s p99 "
+              f"{np.percentile(lat, 99):.3f} s, {wall:.3f} s, launches "
+              f"{launches}")
+        check_paged_run(eng, done, work)
+        if launches["paged_spec_attention"] <= 0 \
+                or launches["ngram_match"] <= 0:
+            raise AssertionError(f"sampled paged run not carried by K3 and "
+                                 f"K2: {launches}")
+        runs.append(done)
+    check_replay("8b continuous paged", runs)
+
+    # ---- 8c: the (4, 5, 2) tree, half the mix sampled ----
+    tprompts = tree_workload()
+    tspec = tree_specs()[f"tree {TREE_WDB}"][0]
+    odd = [i % 2 == 1 for i in range(len(tprompts))]
+    print(f"phase 8c: static tree {TREE_WDB} ({len(tprompts)} requests of "
+          f"the tree mix, every other sampled)")
+    runs = []
+    for _ in range(2):
+        eng = tree_engine(params, cfg, tspec, tables)
+        reset_launches()
+        done, wall = serve_sampled(eng, tprompts, [TREE_NEW] * len(tprompts),
+                                   odd)
+        launches = read_launches()
+        print(f"  {rate_line(done, wall, odd)}; launches {launches}")
+        if launches["tree_spec_attention"] <= 0 \
+                or launches["spec_attention"] != 0:
+            raise AssertionError(f"sampled tree run not carried by K4: "
+                                 f"{launches}")
+        runs.append(done)
+    check_replay("8c tree", runs, tree_out, odd)
+
+    # ---- 8d: the distribution through K1 and K2 ----
+    print(f"phase 8d: distribution (V={DIST_V}, B={DIST_B}, {DIST_N} "
+          f"tokens, f32, TF32 off)")
+    torch.backends.cuda.matmul.allow_tf32 = False     # phase 4 set it too
+    for temp, topp in DIST_CASES:
+        reset_launches()
+        out = check_distribution("cuda", temp, topp)
+        launches = read_launches()
+        print(f"  t={temp} p={topp}: max TV {out['tv']:.4f} (< 0.18), "
+              f"chi-square margin {out['chi2_excess']:.2f} (< 0), control "
+              f"TV {out['power_tv']:.4f} (> 0.25), calls committing > 1 "
+              f"token {out['multi_share']:.3f} (> 0.10); launches "
+              f"{launches}")
+        if launches["spec_attention"] <= 0 or launches["ngram_match"] <= 0:
+            raise AssertionError(f"distribution run missed K1/K2: "
+                                 f"{launches}")
+
+    # ---- 8e: profile ----
+    print("phase 8e: a sampled static step beside the greedy-only mixed "
+          "step (torch.profiler, phase 3's 8 prompts, 4 sampled)")
+    sspec = dataclasses.replace(spec, sampling=True)
+    profile_steps(params, cfg, spec, tables, prompts,
+                  label="greedy-only mixed step")
+    profile_steps(params, cfg, sspec, tables, prompts,
+                  label="sampled mixed step",
+                  temperature=torch.tensor([SAMPLE_T if h else 0.0
+                                            for h in half], device="cuda"),
+                  top_p=SAMPLE_P)
+    ms = sampler_device_ms(n, SERVE_K, SERVE_W + 1, cfg.vocab_size)
+    print(f"  sampler device ms at (B, k, w+1, V) = ({n}, {SERVE_K}, "
+          f"{SERVE_W + 1}, {cfg.vocab_size}): noise {fmt_ms(ms['noise'])}, "
+          f"shaping/sort {fmt_ms(ms['shaping'])}, sample_predictions "
+          f"{fmt_ms(ms['sample_predictions'])}")
+    del params, eng
+    torch.cuda.empty_cache()
+    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+
 
 
 # ---------------------------------------------------------------------------
@@ -1785,6 +2105,26 @@ def phase_hybrid() -> dict:
             for a, b in zip(runs["mixed"][0], runs["greedy"][0])]
     print(f"  bf16 mixed == bf16 greedy for {sum(same)} of {len(same)} "
           f"requests")
+    n = len(prompts)
+    half = [i < n // 2 for i in range(n)]
+    print(f"phase 7a, sampled: requests 0-{n // 2 - 1} sampled (temperature "
+          f"{SAMPLE_T}, top_p {SAMPLE_P}), twice")
+    sruns = []
+    for _ in range(2):
+        e = ServingEngine(params, cfg, spec, tables=tables,
+                          buckets=(SERVE_BUCKET,))
+        reset_launches()
+        done, wall = serve_sampled(e, prompts, [SERVE_NEW] * n, half)
+        launches = read_launches()
+        print(f"  {rate_line(done, wall, half)}; {wall:.3f} s, launches "
+              f"{launches}")
+        if min(launches["mamba_scan"], launches["spec_attention"],
+               launches["ngram_match"]) <= 0:
+            raise AssertionError(f"sampled hybrid run missed a kernel: "
+                                 f"{launches}")
+        sruns.append(done)
+    check_replay("7a sampled", sruns,
+                 [r.output_ids for r in runs["mixed"][0]], half)
 
     # ---- 7b: profile ----
     print("phase 7b: where a hybrid step's time goes (torch.profiler, 8 "
@@ -1959,7 +2299,7 @@ def main() -> int:
     rec["mamba_scan"] = k5["prefill"]
 
     print("phase 3: serve")
-    launches, tables = phase_serve()
+    launches, tables, serve_out = phase_serve()
 
     print(f"phase 5: continuous batching over a {CONT_PAGES}-page pool "
           f"(bf16, {CONT_N} requests, {CONT_SLOTS} slots)")
@@ -1968,7 +2308,12 @@ def main() -> int:
     print(f"phase 6: tree speculation (bf16, {TREE_N} requests of the tree "
           f"mix, {TREE_SLOTS} slots, bucket {TREE_BUCKET}, {TREE_NEW} new "
           f"tokens)")
-    launches.update(phase_tree(tables))
+    k4, tree_out = phase_tree(tables)
+    launches.update(k4)
+
+    print(f"phase 8: sampled serving (bf16, temperature {SAMPLE_T}, top_p "
+          f"{SAMPLE_P}, beside greedy rows)")
+    phase_sampling(tables, serve_out, tree_out)
 
     print(f"phase 7: the hybrid (Jamba-1.5-Large, {HYB_PERIODS} period, no "
           f"experts, full width)")

@@ -1,6 +1,6 @@
 """The speculative generation engine: draft -> verify -> accept -> commit
-(port of the greedy path of ``repro/core/spec_engine.py``, over a linear or
-a paged KV cache, with the slot admission and release of continuous
+(port of ``repro/core/spec_engine.py``, greedy and sampled, over a linear
+or a paged KV cache, with the slot admission and release of continuous
 batching).
 
 The unit of work is ONE iteration, ``spec_step``: it drafts, runs the
@@ -10,7 +10,7 @@ nothing back to the host, so that a CUDA graph can capture it; ``generate``
 loops over it and reads one boolean per step to stop.
 
 Invariants (as in the reference):
-  - output is bit-identical to greedy decoding;
+  - output is bit-identical to greedy decoding (temperature-0 rows);
   - per row: model cur_len == #cached positions == buf_len - 1 (the last
     committed token's KV is written by the next call).
 
@@ -18,10 +18,19 @@ The commit writes the winner's verified KV tail into the shared cache in
 place for attention-only stacks; a stack with Mamba layers instead replays
 the winning row through ``decode(n_commit=)``, which writes only the first
 n_commit positions of the KV cache and keeps the recurrent state after
-n_commit tokens (the reference's gated replay).  The adaptive branch and
-sampling are not ported yet.  Over a paged cache the step first grows every
-running row's pages to cover what it may commit (``cache.grow_pages``,
-device-side, no host read).
+n_commit tokens (the reference's gated replay).  The adaptive branch (arms)
+is not ported yet.  Over a paged cache the step first grows every running
+row's pages to cover what it may commit (``cache.grow_pages``, device-side,
+no host read).
+
+Lossless speculative sampling (``SpecConfig.sampling``, the reference's
+DESIGN.md §12): per-slot ``temperature``, ``top_p`` and ``rng_key`` leaves
+of the DecodeState steer each row; a sampling step splits every slot's
+key once (half drives this step's per-level gumbel noise, half is carried),
+verifies with ``verify.sample_predictions`` instead of the argmax, and
+keeps temperature-0 rows bit-exact greedy, so one step serves mixed
+greedy and sampled batches.  The keys are ``core/prng.py``'s threefry, the
+reference's schedule: the same seed gives the reference's tokens.
 
 Tree mode (``SpecConfig.tree``): the k independent rows become ONE token
 tree per slot (``core/tree.py``), (k, w) read as (tree width, depth).  The
@@ -47,8 +56,9 @@ from ..models import model as M
 from ..models.config import ModelConfig
 from . import tree as T
 from .drafters import bigram_draft, mixed_draft, unigram_draft
+from . import prng
 from .ngram_tables import NGramTables
-from .verify import accept
+from .verify import accept, per_row_keys, sample_predictions, sample_token
 
 STRATEGIES = ("mixed", "bigram", "unigram", "context", "greedy")
 
@@ -83,6 +93,12 @@ class SpecConfig:
     # (deeper levels chain).  Attention-only archs, tables required.
     tree: bool = False
     tree_branch: int = 2
+    # Lossless speculative sampling: verify with the sampled walk
+    # (verify.sample_predictions); per-slot temperature/top_p/rng_key
+    # leaves steer each row, temperature-0 rows stay bit-exact greedy.  Off
+    # by default: the noise and the top-p sort are per-step work that
+    # greedy-only serving should not pay.
+    sampling: bool = False
 
     def validate_tree(self) -> "SpecConfig":
         """Raise unless the tree knobs are a buildable topology."""
@@ -112,7 +128,14 @@ class SpecConfig:
 class DecodeState:
     """Persistent decoding state: one row ("slot") per in-flight sequence.
     ``done`` marks rows that must not commit further tokens; ``eos_id == -1``
-    means the row never stops on eos.  Every leaf is fixed-shape."""
+    means the row never stops on eos.  Every leaf is fixed-shape.
+
+    Sampling leaves: ``rng_key`` is the slot's CARRY key (``core/prng.py``
+    int64 words); a sampling step splits it once, uses one half for its
+    noise and stores the other, so the same admitted key replays the same
+    output.  ``temperature``/``top_p`` are per-slot data: temperature-0
+    rows take the argmax inside the same step.  Admission and release
+    reset all three."""
     buf: torch.Tensor         # (B, L) int32 token buffer (prompt + output)
     buf_len: torch.Tensor     # (B,) int32 committed length per row
     prompt_len: torch.Tensor  # (B,) int32
@@ -122,6 +145,9 @@ class DecodeState:
     active: torch.Tensor      # (B,) bool — slot currently occupied
     model: Dict               # models/cache.py state (linear or paged)
     stats: Dict[str, torch.Tensor]
+    rng_key: torch.Tensor     # (B, 2) int64 per-slot carry key (uint32 words)
+    temperature: torch.Tensor  # (B,) f32, <= 0 -> greedy row
+    top_p: torch.Tensor       # (B,) f32 nucleus mass, 1 -> off
 
     @property
     def buf_size(self) -> int:
@@ -167,6 +193,14 @@ def _init_stats(spec: SpecConfig, B: int, device) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # state construction
 # ---------------------------------------------------------------------------
+def _sampling_leaves(B: int, device) -> Dict[str, torch.Tensor]:
+    """Greedy-default per-slot sampling leaves (the admit/release reset)."""
+    return dict(rng_key=torch.zeros((B, 2), dtype=torch.int64, device=device),
+                temperature=torch.zeros((B,), dtype=torch.float32,
+                                        device=device),
+                top_p=torch.ones((B,), dtype=torch.float32, device=device))
+
+
 def _paged_model(cfg: ModelConfig, paged: PagedConfig, B: int,
                  buf_size: int, device) -> Tuple[Dict, int]:
     """An empty paged model state whose slots hold ``buf_size`` positions
@@ -204,13 +238,16 @@ def empty_decode_state(cfg: ModelConfig, spec: SpecConfig, num_slots: int,
         done=torch.ones((B,), dtype=torch.bool, device=dev),
         active=torch.zeros((B,), dtype=torch.bool, device=dev),
         model=model,
-        stats=_init_stats(spec, B, dev))
+        stats=_init_stats(spec, B, dev),
+        **_sampling_leaves(B, dev))
 
 
 def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
                       prompt: torch.Tensor,
                       eos_id: Optional[torch.Tensor] = None,
-                      paged: Optional[PagedConfig] = None) -> DecodeState:
+                      paged: Optional[PagedConfig] = None,
+                      temperature=None, top_p=None, rng=None
+                      ) -> DecodeState:
     """Prefill every row of ``prompt`` (B, P) into a fresh DecodeState on
     the prompt's device.  The buffer holds P + max_new_tokens + w + 2
     tokens; K1 masks the cache's ragged edge itself, so no kernel alignment
@@ -219,8 +256,21 @@ def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
     ``paged`` switches the KV layout to the shared page pool: the buffer is
     rounded up to whole pages, each row gets ceil(P / page_size) pages up
     front and grows inside spec_step.  The default pool covers the worst
-    case, so one-shot ``generate`` can never exhaust it."""
+    case, so one-shot ``generate`` can never exhaust it.
+
+    Sampling (needs ``spec.sampling``: a silent greedy fallback would be a
+    correctness trap): ``temperature``/``top_p`` are scalars or per-row;
+    ``rng`` is one key (2,), expanded per row by ``fold_in(row)``, or
+    per-row keys (B, 2) (``prng.as_key`` reads either).  The first token is
+    already a sampling event: it draws from the row key's first split, and
+    the other half is carried into the step loop."""
     spec.validate()
+    if not spec.sampling and (temperature is not None or top_p is not None
+                              or rng is not None):
+        raise ValueError(
+            "temperature/top_p/rng need SpecConfig(sampling=True): without "
+            "the sampled verification walk these knobs would silently "
+            "degrade to greedy")
     dev = prompt.device
     B, P = prompt.shape
     L = P + spec.max_new_tokens + spec.w + 2
@@ -239,7 +289,20 @@ def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
     buf[:, :P] = prompt.to(torch.int32)
     logits_p, model = M.prefill(params, cfg, model, tokens=prompt,
                                 last_only=True)
-    first = torch.argmax(logits_p[:, -1], dim=-1).to(torch.int32)
+    leaves = _sampling_leaves(B, dev)
+    if spec.sampling:
+        for name, v in (("temperature", temperature), ("top_p", top_p)):
+            if v is not None:
+                leaves[name] = torch.as_tensor(
+                    v, dtype=torch.float32, device=dev).expand(B).clone()
+        keys = (leaves["rng_key"] if rng is None
+                else per_row_keys(rng, B).to(dev))
+        nk = prng.split(keys)                                  # (B, 2, 2)
+        first = sample_token(logits_p[:, -1], nk[:, 0],
+                             leaves["temperature"], leaves["top_p"])
+        leaves["rng_key"] = nk[:, 1]
+    else:
+        first = torch.argmax(logits_p[:, -1], dim=-1).to(torch.int32)
     buf[:, P] = first
     stats = _init_stats(spec, B, dev)
     stats["tokens"] += 1
@@ -253,15 +316,17 @@ def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
         done=(first == eos) & (eos >= 0),
         active=torch.ones((B,), dtype=torch.bool, device=dev),
         model=model,
-        stats=stats)
+        stats=stats,
+        **leaves)
 
 
 # ---------------------------------------------------------------------------
 # slot admission and release (continuous batching)
 # ---------------------------------------------------------------------------
 def admit_slot(params, cfg: ModelConfig, state: DecodeState, slot: int,
-               prompt: torch.Tensor, max_new_tokens: int,
-               eos_id: int) -> DecodeState:
+               prompt: torch.Tensor, max_new_tokens: int, eos_id: int,
+               temperature: float = 0.0, top_p: float = 1.0,
+               rng_key=None) -> DecodeState:
     """Prefill ``prompt`` (P,) into slot ``slot`` of a shared DecodeState,
     IN PLACE (the reference donates the state), on the state's device.
 
@@ -271,9 +336,14 @@ def admit_slot(params, cfg: ModelConfig, state: DecodeState, slot: int,
     occupant.  A paged state prefills a P-long scratch linear row, frees the
     slot's pages (idempotent: safe if release was skipped), allocates
     ceil(P / page_size) fresh ones and scatters the prefix KV through them;
-    spec_step grows further pages as the row commits.  The greedy subset of
-    the reference: the first token is the prompt's argmax.  Reads nothing
-    back to the host.
+    spec_step grows further pages as the row commits.
+
+    ``temperature``/``top_p``/``rng_key`` are the request's sampling
+    controls (the defaults admit a greedy request).  The first token is
+    the request's first sampling event: it draws from the key's first
+    split, and the second half is carried into the slot; a temperature-0
+    request takes the prompt's argmax, which is what the draw gives it bit
+    for bit, without drawing noise.  Reads nothing back to the host.
     """
     dev = state.buf.device
     prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int32)
@@ -282,7 +352,14 @@ def admit_slot(params, cfg: ModelConfig, state: DecodeState, slot: int,
     row_model = M.init_state(cfg, 1, P if paged else L, device=dev)
     logits, row_model = M.prefill(params, cfg, row_model, tokens=prompt[None],
                                   last_only=True)
-    first = torch.argmax(logits[0, -1], dim=-1).to(torch.int32)
+    key = (torch.zeros((2,), dtype=torch.int64) if rng_key is None
+           else prng.as_key(rng_key))
+    k_use, k_carry = prng.split(key)
+    if temperature > 0:
+        first = sample_token(logits[:, -1], k_use[None], [temperature],
+                             [top_p])[0]
+    else:
+        first = torch.argmax(logits[0, -1], dim=-1).to(torch.int32)
     C.zero_slot_stats(state.stats, slot)
     state.stats["tokens"][slot] = 1
     if paged:
@@ -301,6 +378,9 @@ def admit_slot(params, cfg: ModelConfig, state: DecodeState, slot: int,
     state.eos_id[slot] = eos_id
     state.done[slot] = (first == eos_id) & (eos_id >= 0)
     state.active[slot] = True
+    state.rng_key[slot] = k_carry
+    state.temperature[slot] = temperature
+    state.top_p[slot] = top_p
     return state
 
 
@@ -314,6 +394,9 @@ def release_slot(state: DecodeState, slot: int) -> DecodeState:
     C.zero_slot_stats(state.stats, slot)
     state.active[slot] = False
     state.done[slot] = True
+    state.rng_key[slot] = 0
+    state.temperature[slot] = 0.0
+    state.top_p[slot] = 1.0
     return state
 
 
@@ -335,6 +418,13 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
         # and commit touch the pool
         C.grow_pages(s.model, s.model["cur_len"] + spec.w + 1, _running(s))
     buf_c, len_c, done_c, state_c = s.buf, s.buf_len, s.done, s.model
+    if spec.sampling:
+        # one split per slot per step: half drives this step's per-level
+        # noise, half is carried
+        nk = prng.split(s.rng_key)                             # (B, 2, 2)
+        use_keys, carry_keys = nk[:, 0], nk[:, 1]
+    else:
+        carry_keys = s.rng_key
     # a free slot (buf_len 0) reads its last buffer entry, as the
     # reference's wrapping index does; it commits nothing
     last_i = torch.remainder(len_c - 1, L)[:, None].long()
@@ -357,14 +447,30 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
         logits, tails = M.verify(params, cfg, state_c, rows,
                                  pos_off=tc.pos_off,
                                  tail_mask=tc.tail_mask)
-        preds = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        if spec.sampling:
+            # noise keyed per tree LEVEL (pos_off): same-level nodes share
+            # it, duplicate-token siblings included, so the slot has one
+            # sampled trajectory across the whole tree
+            preds = sample_predictions(logits, use_keys, s.temperature,
+                                       s.top_p, levels=tc.pos_off,
+                                       n_levels=spec.w + 1)[:, 0]
+        else:
+            preds = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
         # path views: (B, P, w) draft tokens, (B, P, w+1) predictions
         acc = accept(nodes[:, tc.path_nodes], preds[:, tc.path_inputs])
     else:
         rows = torch.cat([last[:, None, None].expand(B, spec.k, 1), drafts],
                          dim=-1)                                 # (B,k,w+1)
         logits, tails = M.verify(params, cfg, state_c, rows)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        if spec.sampling:
+            # noise keyed per position level and SHARED across the k rows:
+            # rows alive at level j share their prefix, logits and sample,
+            # so acceptance walks one sampled trajectory and the bonus is
+            # its first divergent (residual) token
+            greedy = sample_predictions(logits, use_keys, s.temperature,
+                                        s.top_p)
+        else:
+            greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         acc = accept(drafts, greedy)
     active = _running(s)
     budget = (s.prompt_len + s.budget - len_c).clamp(min=0)
@@ -426,7 +532,7 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
     st["accepted_bigram"] = st["accepted_bigram"] + torch.where(
         active & ~from_ctx, acc_drafted, 0)
     return dataclasses.replace(s, buf=buf_c, buf_len=len_n, done=done_n,
-                               model=state_n, stats=st)
+                               model=state_n, stats=st, rng_key=carry_keys)
 
 
 def _greedy_body(params, cfg: ModelConfig, spec: SpecConfig,
@@ -444,7 +550,13 @@ def _greedy_body(params, cfg: ModelConfig, spec: SpecConfig,
     # the cur_len == buf_len - 1 invariant holds for done rows too (their
     # cache writes are row-local and never read: only p < cur_len is)
     state_n["cur_len"] = cur_c + active.to(torch.int32)
-    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    if spec.sampling:
+        nk = prng.split(s.rng_key)                             # (B, 2, 2)
+        nxt = sample_token(logits[:, -1], nk[:, 0], s.temperature, s.top_p)
+        carry_keys = nk[:, 1]
+    else:
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        carry_keys = s.rng_key
     slots = len_c.long().clamp(0, L - 1)[:, None]
     b_idx = torch.arange(B, device=dev)
     buf_c.scatter_(1, slots, torch.where(active, nxt,
@@ -460,7 +572,7 @@ def _greedy_body(params, cfg: ModelConfig, spec: SpecConfig,
     st["accept_hist"] = st["accept_hist"].index_put(
         (b_idx, torch.ones_like(b_idx)), act, accumulate=True)
     return dataclasses.replace(s, buf=buf_c, buf_len=len_n, done=done_n,
-                               model=state_n, stats=st)
+                               model=state_n, stats=st, rng_key=carry_keys)
 
 
 def spec_step(params, cfg: ModelConfig, spec: SpecConfig, state: DecodeState,
@@ -481,18 +593,22 @@ def spec_step(params, cfg: ModelConfig, spec: SpecConfig, state: DecodeState,
 def generate(params, cfg: ModelConfig, spec: SpecConfig, prompt,
              tables: Optional[NGramTables] = None,
              eos_id: Optional[torch.Tensor] = None,
-             paged: Optional[PagedConfig] = None, device="cuda"
+             paged: Optional[PagedConfig] = None, device="cuda",
+             temperature=None, top_p=None, rng=None
              ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Generate up to max_new_tokens for every row of ``prompt`` (B, P) on
     ``device`` (where ``params`` and ``tables`` live).  ``eos_id``: optional
     per-row override of spec.eos_id.  ``paged`` runs the same loop over the
-    paged KV layout (the same outputs).  Returns (buf (B, L), buf_len (B,),
+    paged KV layout (the same outputs).  ``temperature``/``top_p``/``rng``
+    (scalar or per-row; need ``spec.sampling``) run the lossless sampled
+    walk, see ``init_decode_state``.  Returns (buf (B, L), buf_len (B,),
     stats)."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
                              else prompt).to(device=dev, dtype=torch.int32)
     state = init_decode_state(params, cfg, spec, prompt, eos_id=eos_id,
-                              paged=paged)
+                              paged=paged, temperature=temperature,
+                              top_p=top_p, rng=rng)
     # the loop's one host read per step: is any row still running?
     while bool(((~state.done)
                 & (state.buf_len - state.prompt_len < state.budget)).any()):
@@ -515,4 +631,33 @@ def greedy_reference(params, cfg: ModelConfig, prompt, max_new_tokens: int,
         logits, _ = M.forward(params, cfg, tokens=buf)
         buf[:, P + i] = torch.argmax(logits[:, P + i - 1], dim=-1).to(
             torch.int32)
+    return buf
+
+
+def sampling_reference(params, cfg: ModelConfig, prompt, max_new_tokens: int,
+                       rng, temperature, top_p=1.0, device="cuda"
+                       ) -> torch.Tensor:
+    """Plain temperature/top-p decoding via full forward() only: the
+    sampled sibling of ``greedy_reference`` and the oracle of the
+    distribution tests.  Per-row key chains are the engine's
+    (``per_row_keys``, then one split per sampled token, first token
+    included), and every draw is ``verify.sample_token``, so spec against
+    plain isolates the acceptance walk.  No eos or budget: every row
+    samples ``max_new_tokens``."""
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
+                             else prompt).to(device=dev, dtype=torch.int32)
+    B, P = prompt.shape
+    buf = torch.zeros((B, P + max_new_tokens), dtype=torch.int32, device=dev)
+    buf[:, :P] = prompt
+    f32 = dict(dtype=torch.float32, device=dev)
+    temp = torch.as_tensor(temperature, **f32).expand(B)
+    topp = torch.as_tensor(top_p, **f32).expand(B)
+    keys = per_row_keys(rng, B).to(dev)
+    for i in range(max_new_tokens):
+        logits, _ = M.forward(params, cfg, tokens=buf)
+        nk = prng.split(keys)
+        buf[:, P + i] = sample_token(logits[:, P + i - 1], nk[:, 0], temp,
+                                     topp)
+        keys = nk[:, 1]
     return buf

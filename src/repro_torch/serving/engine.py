@@ -1,6 +1,5 @@
 """Serving engine: ties the scheduler to the speculative generator (port of
-``repro/serving/engine.py``, less its mesh, adaptive-arm and sampling
-branches).
+``repro/serving/engine.py``, less its mesh and adaptive-arm branches).
 
 One ``ServingEngine`` owns (params, cfg, tables) and serves batched requests
 with either plain greedy decoding or the paper's batched speculation —
@@ -19,6 +18,13 @@ slots share a page pool with per-slot page tables, and admission reserves
 each request's worst-case pages up front (deferring the queue head while
 the pool is short), so one long prompt no longer sizes every slot's
 buffer.  The outputs are the same as the linear layout's.
+
+Both modes serve temperature and top-p requests (``submit(...,
+temperature=, top_p=, seed=)``) losslessly through the same speculative
+step, beside greedy ones (``SpecConfig.sampling``, ``core/verify.py``).
+A request's key is ``prng_key(seed)`` when it pins a seed, else
+``fold_in(prng_key(engine seed), request_id)``: the reference's keys, so
+the reference's engine serves the same tokens for the same request.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import prng
 from ..core.ngram_tables import NGramTables, build_bigram, build_unigram
 from ..core.spec_engine import (DecodeState, PagedConfig, SpecConfig,
                                 admit_slot, empty_decode_state, generate,
@@ -52,6 +59,8 @@ class ServingEngine:
                  paged: bool = False,
                  num_pages: Optional[int] = None,
                  page_size: int = 0,
+                 sampling: Optional[bool] = None,
+                 seed: int = 0,
                  device="cuda"):
         """``params`` live on ``device`` (default the CUDA card; pass
         ``device="cpu"`` for the plain path).  A drafting ``spec`` without
@@ -63,7 +72,18 @@ class ServingEngine:
         ``paged``: continuous batching over the paged KV layout: slots
         share a ``num_pages``-page pool (default: the linear worst case;
         pass less to cap memory) and admission reserves pages.
-        ``page_size`` 0 follows ``cache.default_page_size``."""
+        ``page_size`` 0 follows ``cache.default_page_size``.
+
+        ``sampling``: run the lossless sampled walk in the continuous step
+        so that temperature > 0 requests are served.  None (default)
+        resolves when the continuous state is built: on iff a sampled
+        request is queued (or ``spec.sampling`` is set).  True commits to
+        it up front (for sampled traffic that arrives after the first
+        step); False pins the greedy-only step, and sampled requests are
+        then rejected at admission rather than served greedy.  Static
+        batches resolve it per batch.  ``seed`` is the engine's base key:
+        a request's key is fold_in(seed key, request_id) unless the request
+        pins its own ``seed``; both replay."""
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -74,6 +94,9 @@ class ServingEngine:
                 f"arch — recurrent mixers verify rows as causal "
                 f"sequences, which has no valid tree layout")
         self.tok = ByteTokenizer()
+        # None resolves in _init_continuous; spec.sampling pre-commits
+        self.sampling = True if self.spec.sampling else sampling
+        self._seed_key = prng.prng_key(seed)
         self.max_batch = max_batch
         self.max_new_cap = max_new_cap
         self._explicit_buckets = buckets is not None
@@ -91,6 +114,8 @@ class ServingEngine:
             tables = self.build_tables(k_max=max(self.spec.k, 25),
                                        w_max=max(self.spec.w, 16))
         self.tables = tables
+        # the spec the continuous path runs (sampling resolved at build)
+        self._cont_spec: SpecConfig = self.spec
         self._cont_state: Optional[DecodeState] = None
         self._slots: Optional[SlotMap] = None
 
@@ -113,28 +138,63 @@ class ServingEngine:
                            bigram_chain=chain)
 
     def submit(self, prompt: str, max_new_tokens: int = 64,
-               eos_id: int = -1) -> Request:
-        """Queue a greedy request."""
+               eos_id: int = -1, temperature: float = 0.0,
+               top_p: float = 1.0, seed: Optional[int] = None) -> Request:
+        """Queue a request.  ``temperature`` 0 decodes greedy (bit-exact);
+        > 0 samples losslessly through the same step with nucleus mass
+        ``top_p``.  ``seed`` pins the request's key (None: derived from the
+        engine seed and request_id; deterministic either way)."""
+        if temperature < 0:
+            raise ValueError(
+                f"temperature must be >= 0, got {temperature} (pass 0 for "
+                f"greedy decoding; negative values are always a bug)")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
-                      eos_id=eos_id)
+                      eos_id=eos_id, temperature=temperature, top_p=top_p,
+                      seed=seed)
         self.scheduler.submit(req)
         return req
+
+    def _req_key(self, req: Request) -> torch.Tensor:
+        """The request's (2,) key on the host: its own seed's when pinned,
+        else fold_in(engine seed key, request_id).  A pure function of
+        (engine seed, request), so the same request replays the same
+        sampled output in any batch (slots are independent)."""
+        if req.seed is not None:
+            return prng.prng_key(req.seed)
+        return prng.fold_in(self._seed_key, req.request_id)
 
     def _effective_eos(self, req: Request) -> int:
         """Per-request eos wins; fall back to the engine-wide spec.eos_id."""
         return req.eos_id if req.eos_id >= 0 else self.spec.eos_id
 
     def run_batch(self, batch: Batch) -> List[Request]:
+        # a batch with any sampled request runs the sampled walk (its
+        # greedy rows stay bit-exact); an all-greedy batch the greedy step
+        reqs = batch.requests
+        sampled = (self.sampling is True
+                   or any(r.temperature > 0 for r in reqs))
         spec = dataclasses.replace(self.spec,
-                                   max_new_tokens=batch.max_new_tokens)
-        eos = torch.tensor([self._effective_eos(r) for r in batch.requests],
+                                   max_new_tokens=batch.max_new_tokens,
+                                   sampling=sampled)
+        eos = torch.tensor([self._effective_eos(r) for r in reqs],
                            dtype=torch.int32, device=self.device)
         tokens = torch.as_tensor(batch.tokens).to(self.device)
+        sample_kw = {}
+        if sampled:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            sample_kw = dict(
+                temperature=torch.tensor([r.temperature for r in reqs],
+                                         **f32),
+                top_p=torch.tensor([r.top_p for r in reqs], **f32),
+                rng=torch.stack([self._req_key(r) for r in reqs]).to(
+                    self.device))
         self._sync()
         t0 = time.perf_counter()
         buf, blen, stats = generate(self.params, self.cfg, spec, tokens,
                                     self.tables, eos_id=eos,
-                                    device=self.device)
+                                    device=self.device, **sample_kw)
         self._sync()
         dt = time.perf_counter() - t0
         P = batch.tokens.shape[1]
@@ -166,9 +226,15 @@ class ServingEngine:
     # continuous batching (slot-level admission and retirement)
     # ------------------------------------------------------------------
     def _init_continuous(self) -> None:
-        if any(r.temperature > 0 for r in self.scheduler.queued_requests()):
-            raise NotImplementedError(
-                "sampled requests (temperature > 0) are not ported yet")
+        # resolve the sampling flag ONCE, when the state is built: None
+        # turns it on iff a sampled request is queued.  A sampled request
+        # that later reaches a greedy-only step is rejected at admission
+        # (_admit_queued) rather than served greedy.
+        if self.sampling is None:
+            self.sampling = any(r.temperature > 0
+                                for r in self.scheduler.queued_requests())
+        self._cont_spec = dataclasses.replace(
+            self.spec, sampling=bool(self.sampling))
         # size the DecodeState to the queued workload, not the worst case:
         # a later prompt beyond the sized capacity is REJECTED at admission
         # (truncating it would corrupt its output).  Paged mode reserves the
@@ -179,7 +245,7 @@ class ServingEngine:
         self._cont_prompt_cap = prompt_cap
         buf_size = prompt_cap + self.max_new_cap + self.spec.w + 2
         self._cont_state = empty_decode_state(
-            self.cfg, self.spec, self.max_batch, buf_size,
+            self.cfg, self._cont_spec, self.max_batch, buf_size,
             paged=self._paged_cfg, device=self.device)
         self._slots = SlotMap(self.max_batch)
         # page accounting (paged mode): admission reserves each request's
@@ -200,12 +266,15 @@ class ServingEngine:
         return len(self._slots) if self._slots is not None else 0
 
     def _run_step(self, state: DecodeState) -> DecodeState:
-        return spec_step(self.params, self.cfg, self.spec, state, self.tables)
+        return spec_step(self.params, self.cfg, self._cont_spec, state,
+                         self.tables)
 
     def _run_admit(self, state: DecodeState, slot: int, toks, mnt: int,
-                   eos: int) -> DecodeState:
+                   eos: int, req: Request) -> DecodeState:
         return admit_slot(self.params, self.cfg, state, slot,
-                          torch.from_numpy(np.asarray(toks)), mnt, eos)
+                          torch.from_numpy(np.asarray(toks)), mnt, eos,
+                          temperature=req.temperature, top_p=req.top_p,
+                          rng_key=self._req_key(req))
 
     def _run_release(self, state: DecodeState, slot: int) -> DecodeState:
         return release_slot(state, slot)
@@ -300,10 +369,20 @@ class ServingEngine:
                     f"{self._cont_prompt_cap} (pass buckets= / use paged "
                     f"mode to admit longer prompts)"))
                 continue
-            if req.temperature > 0:
-                raise NotImplementedError(
-                    f"request {req.request_id}: sampled requests "
-                    f"(temperature > 0) are not ported yet")
+            if req.temperature > 0 and not self._cont_spec.sampling:
+                # the step runs greedy-only (sampling=False was pinned, or
+                # the state was built before sampled traffic arrived):
+                # serving this request greedy would break its output
+                # distribution, so reject it loudly
+                self.scheduler.pop_next()
+                rejected.append(self._reject(
+                    req,
+                    f"temperature={req.temperature} needs a "
+                    f"sampling-enabled step, but the continuous spec_step "
+                    f"runs greedy-only (construct the engine with "
+                    f"sampling=True, or queue sampled requests before the "
+                    f"first step)"))
+                continue
             mnt = min(req.max_new_tokens, self.max_new_cap)
             if self.paged:
                 pages = self._slot_pages(toks.shape[0], mnt)
@@ -330,7 +409,7 @@ class ServingEngine:
                     f"max_new_cap={self.max_new_cap}; clamping (raise "
                     f"max_new_cap to honour larger budgets)")
             state = self._run_admit(state, slot, toks, mnt,
-                                    self._effective_eos(req))
+                                    self._effective_eos(req), req)
             self._slots.assign(slot, req)
             req.stats = {"admit_t": time.perf_counter()}
             i += 1

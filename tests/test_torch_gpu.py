@@ -28,7 +28,11 @@ through K5 equals its greedy reference, paged and linear.  K5 computes a
 token with the same bits whatever the chunking of its calls (torch.equal).
 The bf16 verify kernel keeps P to ~16 bits for P.V (a bf16 head and
 remainder): its max abs error at the main verify shape stays within
-P_SPLIT_ERR, half of what one bf16 P allowed.
+P_SPLIT_ERR, half of what one bf16 P allowed.  Sampling: the threefry
+keys, bits and uniforms of ``core/prng.py`` on the card equal the CPU's
+bit for bit (gumbel noise to 1e-6), and sampled spec_steps (linear,
+paged, tree) draw the CPU's tokens with the same keys, the
+temperature-0 row equal to the greedy-only step's.
 """
 import numpy as np
 import pytest
@@ -554,3 +558,124 @@ def test_hybrid_serving_is_lossless_on_the_card(cuda_device):
                                    r.stats["new_tokens"])
             np.testing.assert_array_equal(r.output_ids,
                                           ref[0, len(toks):].cpu().numpy())
+
+
+# ----------------------------------------------------------------------------
+# lossless sampling: the threefry keys and the sampled step on the card
+# ----------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_prng_on_the_card_equals_the_cpu(cuda_device):
+    """Keys, bits and uniforms are integer work: bit for bit the CPU's.
+    Gumbel noise differs at most by ``log``'s last bit."""
+    from repro_torch.core import prng
+    key = prng.prng_key(2**31 + 11)
+    keys = prng.split(key, 3)
+    on = lambda t: t.to(cuda_device)
+    assert torch.equal(prng.split(on(keys)).cpu(), prng.split(keys))
+    lv = torch.arange(11)
+    assert torch.equal(prng.fold_in(on(keys)[:, None], on(lv)[None]).cpu(),
+                       prng.fold_in(keys[:, None], lv[None]))
+    assert torch.equal(prng.random_bits32(on(keys), (100352,)).cpu(),
+                       prng.random_bits32(keys, (100352,)))
+    assert torch.equal(prng.uniform(on(keys), (100352,)).cpu(),
+                       prng.uniform(keys, (100352,)))
+    _close(prng.gumbel(on(keys), (100352,)), prng.gumbel(keys, (100352,)),
+           1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["linear", "paged", "tree"])
+def test_sampled_spec_step_equals_the_cpu(cuda_device, layout):
+    """Sampled spec_steps of a tiny f32 model (a sampled row beside a
+    temperature-0 one) draw the CPU's tokens and carry the CPU's keys on
+    the card, through K1, K3 or K4; the temperature-0 row equals the
+    greedy-only step's."""
+    import dataclasses
+    from repro_torch.core import prng
+    from repro_torch.core import spec_engine as E
+    from repro_torch.core.ngram_tables import NGramTables
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ModelConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(name="tiny", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=128, vocab_size=259,
+                      param_dtype=torch.float32,
+                      compute_dtype=torch.float32).validate()
+    spec = E.SpecConfig(k=4, w=3, strategy="mixed", max_new_tokens=16,
+                        sampling=True)
+    if layout == "tree":
+        spec = dataclasses.replace(spec, w=5, tree=True, tree_branch=2)
+    paged = E.PagedConfig(page_size=8) if layout == "paged" else None
+    rng = np.random.default_rng(3)
+    tab = NGramTables(torch.arange(8, dtype=torch.int32),
+                      torch.as_tensor(rng.integers(0, 259, (259, 8)),
+                                      dtype=torch.int32),
+                      torch.as_tensor(rng.integers(0, 259, (259, 6)),
+                                      dtype=torch.int32))
+    text = np.frombuffer(b"def f(x): return x + 1; def g(x): return f(x)",
+                         np.uint8).astype(np.int32)
+    prompt = torch.as_tensor(np.stack([text[:32], text[8:40]]))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    samp = dict(temperature=torch.tensor([0.0, 0.9]),
+                top_p=torch.tensor([1.0, 0.9]), rng=prng.prng_key(5))
+    fn = paged_spec_attention_cuda if paged else spec_attention_cuda
+    states = {}
+    for dev, sp, kw in (("cpu", spec, samp), ("cuda", spec, samp),
+                        ("greedy", dataclasses.replace(spec, sampling=False),
+                         {})):
+        on = "cpu" if dev == "cpu" else "cuda"
+        p, t = _to(params, on), NGramTables(*(_to(a, on) for a in (
+            tab.unigram_topk, tab.bigram_topk, tab.bigram_chain)))
+        s = E.init_decode_state(p, cfg, sp, prompt.to(on), paged=paged,
+                                **_to(kw, on))
+        fn.launches = fn.tree_launches = 0
+        for _ in range(4):
+            s = E.spec_step(p, cfg, sp, s, t)
+        if on == "cuda":
+            assert (fn.tree_launches if spec.tree else fn.launches) > 0
+        states[dev] = s
+    for leaf in ("buf", "buf_len", "rng_key"):
+        assert torch.equal(getattr(states["cuda"], leaf).cpu(),
+                           getattr(states["cpu"], leaf)), leaf
+    assert torch.equal(states["cuda"].buf[0].cpu(),
+                       states["greedy"].buf[0].cpu())
+    assert int(states["cpu"].buf_len.min()) >= 32 + 5
+
+
+@pytest.mark.gpu
+def test_sampled_step_does_not_synchronise(cuda_device):
+    """A sampled mixed spec_step on the card makes no call that waits for
+    the device (torch's sync debug mode raises on one): its keys split
+    and its noise is drawn on the card, as a captured step needs."""
+    from repro_torch.core import prng
+    from repro_torch.core import spec_engine as E
+    from repro_torch.core.ngram_tables import NGramTables
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="tiny", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=128, vocab_size=259,
+                      param_dtype=torch.float32,
+                      compute_dtype=torch.float32).validate()
+    spec = E.SpecConfig(k=4, w=3, strategy="mixed", max_new_tokens=16,
+                        sampling=True)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    tab = NGramTables(*(torch.as_tensor(a, dtype=torch.int32,
+                                        device=cuda_device) for a in (
+        np.arange(8), rng.integers(0, 259, (259, 8)),
+        rng.integers(0, 259, (259, 6)))))
+    prompt = torch.as_tensor(rng.integers(0, 259, (2, 24)),
+                             dtype=torch.int32, device=cuda_device)
+    s = E.init_decode_state(params, cfg, spec, prompt,
+                            temperature=torch.tensor([0.0, 0.9]),
+                            top_p=0.9, rng=prng.prng_key(5))
+    s = E.spec_step(params, cfg, spec, s, tab)        # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            s = E.spec_step(params, cfg, spec, s, tab)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(s.buf_len.min()) >= 24 + 4
