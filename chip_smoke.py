@@ -64,11 +64,15 @@ Phases (any failure raises and the script exits non-zero):
                profiles a mixed and a greedy step (K5's share); 7c serves
                phase 5's 24-request mix continuously (paged mixed, linear
                mixed, paged greedy; K3 on the paged runs; bf16 paged ==
-               linear); 7d, in f32 (TF32 off), 4 requests x 32 tokens
-               static and continuous paged are greedy decoding: equal to
-               greedy_reference, or, at a tie closer than f32 evaluation
-               can separate (measured in the run), the oracle's argmax on
-               their own prefix (``check_lossless``).
+               linear); 7e serves them under DEFAULT_ARMS (static:
+               phase 3's 8 requests as 4 batches of 2, one arm a batch;
+               continuous paged: phase 5's mix, one arm a slot a step),
+               per-arm pulls and tokens/s beside 7a's and 7c's runs, K5
+               and K1/K3 launching; 7d, in f32 (TF32 off), 4 requests x
+               32 tokens static and continuous paged are greedy decoding:
+               equal to greedy_reference, or, at a tie closer than f32
+               evaluation can separate (measured in the run), the
+               oracle's argmax on their own prefix (``check_lossless``).
   8. sampled — runs after phase 6, while StableLM is loaded (before 7):
                temperature 0.8, top_p 0.95 requests with pinned seeds
                beside greedy ones.  8a: phase 3's 8 requests, 0-3 sampled,
@@ -86,6 +90,23 @@ Phases (any failure raises and the script exits non-zero):
                sampled static step profiled beside the greedy-only mixed
                step, and the sampler's own device ms (noise, shaping and
                sort).
+  9. adaptive — in-flight adaptive (k, w) over ``DEFAULT_ARMS``, after
+               phase 8 (StableLM loaded, bf16): 9a static serve_all of
+               phase 5's mix at max_batch 4 (one arm a batch by the host
+               controller; each batch's arm and tokens/call) beside mixed
+               (10, 10) and greedy on the same batches; 9b continuous paged
+               over the 16-page pool (one arm a slot a step: no leaked
+               page, no rejection, every budget; tokens/s, latency,
+               ``adaptive_stats()`` beside phase 5's runs; K2 launches
+               exactly once per arm depth a step); 9d every other request
+               sampled, twice (bit-equal replay); 9e an adaptive step
+               profiled beside a mixed one; 9c in f32 (TF32 off): adaptive
+               static and continuous paged and linear on the mix's first 8
+               requests, and tree arms ((1, 0), (2, 2), (4, 5)) on phase
+               6's mix, static and continuous paged (K4), equal
+               greedy_reference.  Phase 2e holds each kernel at the
+               adaptive step's shapes (K1 and K3 at 25 x 11 inputs, K2 at
+               k 25 and w 2, 4, 10, K5 at 200 verify rows from 8 states).
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
 for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
@@ -98,12 +119,15 @@ attention shape (H=64, KV=8, hd=128).  ``tools/compare_kernels.py`` times
 these kernels beside another checkout's.
 The last two lines of stdout are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
-JSON record.
+JSON record: each kernel's ``launches`` on its main path's run (phases 3, 5,
+6 and 7a), and under ``launches_adaptive`` its launches on each adaptive
+run (9a, 9b, 9c's f32 tree runs, 7e), each counted from zero.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -126,6 +150,13 @@ K5_TOL = 2e-4                        # f32, the reference's kernel tolerance
 # main verify shape (phase 2's inputs), with P split into a bf16 head and
 # remainder for P.V (with P rounded to one bf16 it read 0.0039 on an H100)
 K1_SPLIT_ERR = 2.5e-3
+# phase 2e, at the adaptive verify shapes: how much farther from the exact
+# f32 result bf16 K1 may lie than its plain version does (the measure of
+# k1_rounding_split).  On an H100 the kernel read 3.34e-6 (StableLM's
+# heads) and 2.17e-6 (the hybrid's); the control (the plain version with P
+# rounded to one bf16 before P.V) must read above the limit, or the check
+# could not tell that fault from a sound kernel and the phase fails.
+K1_EXCESS_ERR = 3e-5
 
 SERVE_K, SERVE_W, SERVE_NEW, SERVE_BUCKET = 10, 10, 64, 256
 LOSSLESS_REQUESTS, LOSSLESS_NEW = 4, 32
@@ -777,6 +808,207 @@ def phase_k5(S_main: int, cur_main: list) -> dict:
     return rec
 
 
+def k1_plain_p_bf16(ops, W1):
+    """The control of ``k1_rounding_split``: the plain version with the
+    unnormalised softmax weights P rounded to one bf16 before P.V (the
+    precision fault that the kernel's head-and-remainder split repairs),
+    its output rounded to bf16 as the kernel's is."""
+    import torch
+    q, kc, vc, kt, vt, cur = (t.float() if t.is_floating_point() else t
+                              for t in ops)
+    B, K, _, H, hd = q.shape
+    S, KV = kc.shape[1], kc.shape[2]
+    KW1 = K * W1
+    qf = q.reshape(B, KW1, KV, H // KV, hd)
+    tail_k, tail_v = (t.reshape(B, KW1, KV, hd) for t in (kt, vt))
+    keys = torch.cat([kc, tail_k], 1)                  # (B, S + KW1, KV, hd)
+    vals = torch.cat([vc, tail_v], 1)
+    logits = torch.einsum("bqngh,bsnh->bngqs", qf, keys) / hd ** 0.5
+    i = torch.arange(KW1, device=q.device)
+    tail_vis = ((i[:, None] // W1 == i[None, :] // W1)
+                & (i[None, :] % W1 <= i[:, None] % W1))
+    vis = torch.cat([torch.arange(S, device=q.device)[None, None, :]
+                     < cur[:, None, None].expand(B, KW1, S),
+                     tail_vis[None].expand(B, KW1, KW1)], 2)
+    logits = logits.masked_fill(~vis[:, None, None], float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = torch.einsum("bngqs,bsnh->bqngh", p.bfloat16().float(), vals)
+    out = out / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, K, W1, H, hd).to(ops[0].dtype)
+
+
+def k1_rounding_split(out, want, ops, W1) -> tuple:
+    """Split bf16 K1's error against its plain version into the output's
+    bf16 rounding and the rest.  Both round an f32 result to bf16, so where
+    the exact result (the plain version on the same inputs in f32) lies
+    within the kernel's f32 error of a rounding midpoint the two differ by
+    one output ulp, whatever the kernel's precision.  Prints the error
+    against the plain version, both errors against the exact result and
+    the one-ulp flips.  Returns the largest amount by which the kernel lies
+    farther from the exact result than the plain version does, for the
+    kernel and for the control ``k1_plain_p_bf16`` (P kept to 8 bits)."""
+    from repro_torch.kernels.spec_attention import spec_attention_plain
+    exact = spec_attention_plain(*(t.float() if t.is_floating_point()
+                                   else t for t in ops), w1=W1)
+    diff = (out.float() - want.float()).abs()
+    d_want = (want.float() - exact).abs()
+    beyond = lambda o: float(((o.float() - exact).abs() - d_want).max())
+    i = int(diff.argmax())
+    at = abs(float(want.reshape(-1)[i]))
+    ulp = 2.0 ** (math.floor(math.log2(at)) - 7) if at else 0.0
+    excess, control = beyond(out), beyond(k1_plain_p_bf16(ops, W1))
+    print(f"    bf16 vs its plain version {float(diff.max()):.4g} "
+          f"(K1_SPLIT_ERR {K1_SPLIT_ERR}) at |value| {at:.4g}, where one "
+          f"bf16 ulp is {ulp:.4g}; {int((diff > 0).sum())} of {out.numel()}"
+          f" outputs differ; vs the exact f32 result: kernel "
+          f"{float((out.float() - exact).abs().max()):.4g}, plain version "
+          f"{float(d_want.max()):.4g}; beyond the plain version's own "
+          f"rounding: kernel {excess:.3g}, control with P in one bf16 "
+          f"{control:.3g} (limit K1_EXCESS_ERR {K1_EXCESS_ERR})")
+    return excess, control
+
+
+def phase_adaptive_kernels(S_main: int, cur_main: list,
+                           cont_cur: list) -> dict:
+    """Phase 2e: each kernel at the shapes the adaptive step gives it.
+    Under ``DEFAULT_ARMS`` the masked step verifies every slot at the arm
+    table's maxima (k 25, w + 1 = 11: 275 inputs a slot), drafts once per
+    distinct arm depth (w 2, 4 and 10 at k 25) and, on the hybrid, scans
+    200 verify rows from 8 slot states.  K1 (StableLM's and the hybrid's
+    heads) and K3 against their plain versions (f32 2e-5, bf16 2e-2; K3
+    bit for bit K1 on the gathered view; bf16 K1 no farther from the exact
+    f32 result than its plain version, beyond that version's own output
+    rounding, than K1_EXCESS_ERR, which the control with P in one bf16
+    must exceed: ``k1_rounding_split`` shows why the error against the
+    plain version reaches one output ulp at this shape), K2 bit for bit in both strategies on the main path's
+    bytes, K5 at f32 2e-4 with f32 and bf16 u; each timed by events and
+    device ms beside its bound and SDPA where there is one."""
+    import torch
+    from repro_torch.core.controller import DEFAULT_ARMS
+    from repro_torch.kernels.dispatch import unique_sweep_widths
+    from repro_torch.kernels.mamba_scan import (mamba_scan_cuda,
+                                                mamba_scan_plain)
+    from repro_torch.kernels.ngram_match import (ngram_draft_cuda,
+                                                 ngram_draft_plain)
+    from repro_torch.kernels.ref import gather_pages
+    from repro_torch.kernels.spec_attention import (
+        paged_spec_attention_cuda, paged_spec_attention_plain,
+        spec_attention_cuda, spec_attention_plain)
+    K = max(a[0] for a in DEFAULT_ARMS)
+    W1 = max(a[1] for a in DEFAULT_ARMS) + 1
+    rec = {}
+    for label, H, KV, hd in (("StableLM", 32, 32, 64),
+                             ("hybrid", 64, 8, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            ops = k1_inputs(8, K, W1, H, KV, hd, S_main, cur_main, dtype,
+                            seed=31 + hd)
+            out = spec_attention_cuda(*ops, w1=W1)
+            want = spec_attention_plain(*ops, w1=W1)
+            ok, e = close(out, want, TOL[dname])
+            print(f"  K1 adaptive {label:8s} {dname:8s} B=8 K={K} W1={W1} "
+                  f"H={H} KV={KV} hd={hd} S={S_main} max_abs_err={e:.4g} "
+                  f"tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K1 at the adaptive {label} verify "
+                                     f"shape ({dname}): max abs err {e}")
+        excess, control = k1_rounding_split(out, want, ops, W1)
+        if not excess <= K1_EXCESS_ERR < control:
+            raise AssertionError(
+                f"bf16 K1 at the adaptive {label} verify shape: {excess} "
+                f"beyond the plain version's rounding, control {control}; "
+                f"the limit {K1_EXCESS_ERR} must lie between them")
+        lib_fn, _ = sdpa_yardstick(*ops, W1)
+        bound, by = k1_bound_ms(ops[0], ops[1], ops[3], ops[5], W1)
+        r = timed(f"K1 adaptive {label} (bf16)",
+                  lambda: spec_attention_cuda(*ops, w1=W1), lib_fn,
+                  dict(max_abs_err=e, bound_ms=bound, bound_by=by,
+                       plain_ms=time_ms(lambda: spec_attention_plain(
+                           *ops, w1=W1))))
+        print(f"    plain_ms={r['plain_ms']:.4f} bound_ms={bound:.5f} ({by})")
+        rec[f"K1 {label}"] = r
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        ops = k3_inputs(8, K, W1, 32, 32, 64, CONT_PAGE, cont_cur, dtype,
+                        seed=33, n_pages=CONT_PAGES + 1)
+        q, kp, vp, pt, kt, vt, cur = ops
+        out = paged_spec_attention_cuda(*ops, w1=W1)
+        ok, e = close(out, paged_spec_attention_plain(*ops, w1=W1),
+                      TOL[dname])
+        k_lin, v_lin = gather_pages(kp, vp, pt)
+        same = torch.equal(out, spec_attention_cuda(q, k_lin, v_lin, kt, vt,
+                                                    cur, w1=W1))
+        print(f"  K3 adaptive StableLM {dname:8s} B=8 K={K} W1={W1} "
+              f"ps={CONT_PAGE} cur_len={cont_cur} max_abs_err={e:.4g} "
+              f"{'ok' if ok else 'FAIL'} == K1 on gathered view: "
+              f"{'ok' if same else 'FAIL'}")
+        if not (ok and same):
+            raise AssertionError(f"K3 at the adaptive verify shape "
+                                 f"({dname}) disagrees")
+    bound, by = k3_bound_ms(q, kp, pt, kt, cur, W1)
+    lib_fn, _ = sdpa_yardstick(q, k_lin, v_lin, kt, vt, cur, W1)
+    r = timed("K3 adaptive StableLM (bf16)",
+              lambda: paged_spec_attention_cuda(*ops, w1=W1), lib_fn,
+              dict(max_abs_err=e, bound_ms=bound, bound_by=by))
+    print(f"    bound_ms={bound:.5f} ({by}); SDPA on the gathered view")
+    rec["K3 StableLM"] = r
+    # K2: one launch per distinct arm depth, at k = 25
+    topk, chain = k2_tables(K2_VOCABS["stablelm"], seed=0)
+    buf, cl = k2_text_rows(8, S_main, cur_main)
+    last = buf.gather(1, torch.remainder(cl.long() - 1, buf.shape[1])
+                      [:, None])[:, 0].contiguous()
+    big = dict(last=last, bigram_topk=topk, bigram_chain=chain)
+    for w in unique_sweep_widths(DEFAULT_ARMS):
+        for strategy, kw in (("context", {}), ("mixed", big)):
+            got = ngram_draft_cuda(buf, cl, q=1, k=K, w=w, **kw)
+            want = ngram_draft_plain(buf, cl, q=1, k=K, w=w, **kw)
+            sync()
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"  K2 adaptive k={K} w={w:2d} {strategy:7s} B=8 "
+                  f"L={S_main} n_ctx={got[2].tolist()} bit-exact="
+                  f"{'ok' if exact else 'FAIL'}")
+            if not exact:
+                raise AssertionError(f"K2 at k={K} w={w} {strategy} "
+                                     f"differs from its plain version")
+        run = lambda: ngram_draft_cuda(buf, cl, q=1, k=K, w=w, **big)
+        bound, by, M = k2_bound_ms(buf, cl, 1, K, w, mixed=True)
+        r = dict(max_abs_err=0.0, ms=time_ms(run), device_ms=device_ms(run),
+                 plain_ms=time_ms(lambda: ngram_draft_plain(
+                     buf, cl, q=1, k=K, w=w, **big)),
+                 library_ms=None, bound_ms=bound, bound_by=by)
+        print(f"  K2 adaptive mixed k={K} w={w}: ms={r['ms']:.4f} device_ms="
+              f"{fmt_ms(r['device_ms'])} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={bound:.7f} ({by}; {M} matched positions)")
+        rec[f"K2 w={w}"] = r
+    # K5: the hybrid's adaptive verify, 8 slots x 25 rows from 8 states
+    di, ds, Bt = 16384, 16, 8 * K
+    for u_dtype in (torch.float32, torch.bfloat16):
+        ops = k5_inputs(Bt, W1, di, ds, seed=35, h0_rep=K, u_dtype=u_dtype)
+        kw = dict(h0_rep=K, final=False)
+        errs = [close(a, b, K5_TOL) for a, b in zip(
+            mamba_scan_cuda(*ops, **kw)[:1], mamba_scan_plain(*ops, **kw)[:1])]
+        ok, e = errs[0]
+        print(f"  K5 adaptive verify u {str(u_dtype)[6:]:8s} Bt={Bt} T={W1} "
+              f"di={di} ds={ds} h0_rep={K} max_abs_err={e:.3g} tol={K5_TOL}"
+              f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K5 at the adaptive verify shape "
+                                 f"disagrees with its plain version ({e})")
+    run = lambda: mamba_scan_cuda(*ops, **kw)
+    bound, by = k5_bound_ms(Bt, W1, di, ds, Bt // K, False, u_bytes=2)
+    r = dict(max_abs_err=e, ms=time_ms(run), device_ms=device_ms(run),
+             plain_ms=time_ms(lambda: mamba_scan_plain(*ops, **kw), iters=5,
+                              warmup=1),
+             library_ms=None, bound_ms=bound, bound_by=by)
+    print(f"  mamba_scan adaptive verify (u bf16): ms={r['ms']:.4f} (device "
+          f"{fmt_ms(r['device_ms'])}) plain_ms={r['plain_ms']:.3f} "
+          f"bound_ms={bound:.4f} ({by})"
+          + (f", {bound / r['device_ms']:.1%} of the bound"
+             if r["device_ms"] else ""))
+    rec["K5 verify"] = r
+    return rec
+
+
 def phase_kernels(S_main: int, cur_main: list) -> dict:
     import torch
     from repro_torch.kernels.spec_attention import (spec_attention_cuda,
@@ -1276,13 +1508,15 @@ def cont_workload():
     return out
 
 
-def cont_engine(params, cfg, spec, tables, paged: bool):
+def cont_engine(params, cfg, spec, tables, paged: bool, **kw):
+    """Phase 5's continuous engine; ``kw``: more engine arguments
+    (``adaptive=True``)."""
     from repro_torch.serving.engine import ServingEngine
     return ServingEngine(params, cfg, spec, tables=tables,
                          max_batch=CONT_SLOTS, buckets=CONT_BUCKETS,
                          max_new_cap=max(CONT_NEW), paged=paged,
                          num_pages=CONT_PAGES if paged else None,
-                         page_size=CONT_PAGE)
+                         page_size=CONT_PAGE, **kw)
 
 
 def serve_continuous(engine, work):
@@ -1386,18 +1620,18 @@ def lossless_continuous(params32, cfg32, spec, tables):
           f"{len(work)} requests ({sum(m for _, m in work)} tokens)")
 
 
-def cont_engine_tokens(prompt: str):
+def cont_engine_tokens(prompt: str, buckets=CONT_BUCKETS):
     """The bucketed prompt tokens continuous serving prefills."""
     from repro_torch.data.tokenizer import ByteTokenizer
     from repro_torch.serving.scheduler import Scheduler
-    return Scheduler(buckets=CONT_BUCKETS).pad_to_bucket(
+    return Scheduler(buckets=buckets).pad_to_bucket(
         ByteTokenizer().encode(prompt))
 
 
-def phase_continuous(tables) -> int:
+def phase_continuous(tables) -> tuple:
     """Phase 5: the bf16 model serves the mix four times (paged mixed, the
     slice's main path, then linear mixed, paged greedy, linear greedy).
-    Returns K3's launches on the main path."""
+    Returns K3's launches on the main path and each run's rate line."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1406,7 +1640,7 @@ def phase_continuous(tables) -> int:
     cfg = get_config("stablelm-1.6b")
     params = M.init_params(cfg, seed=0, device="cuda")
     work = cont_workload()
-    runs = {}
+    runs, rates = {}, {}
     for strategy in ("mixed", "greedy"):
         spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy=strategy)
         for paged in (True, False):
@@ -1419,14 +1653,8 @@ def phase_continuous(tables) -> int:
             launches = read_launches()
             peak = torch.cuda.max_memory_allocated() / 2**30
             name = f"{'paged' if paged else 'linear'} {strategy}"
-            n_new = sum(r.stats["new_tokens"] for r in done)
-            calls = sum(r.stats["model_calls"] for r in done)
-            lat = np.array([r.stats["latency_s"] for r in done])
-            print(f"  {name}: {n_new} new tokens in {wall:.3f} s = "
-                  f"{n_new / wall:.1f} tokens/s, tokens/call "
-                  f"{n_new / max(calls, 1):.3f}, admit->retire latency p50 "
-                  f"{np.percentile(lat, 50):.3f} s p99 "
-                  f"{np.percentile(lat, 99):.3f} s, peak memory {peak:.2f} "
+            rates[name] = cont_rate(done, wall)
+            print(f"  {name}: {rates[name]}, peak memory {peak:.2f} "
                   f"GiB, launches {launches}")
             if paged:
                 check_paged_run(eng, done, work)
@@ -1471,7 +1699,20 @@ def phase_continuous(tables) -> int:
                       f"{top2_margin(params, cfg, ids, len(toks) + j - 1):.4g}")
     del params
     torch.cuda.empty_cache()
-    return runs[("mixed", True)][1]["paged_spec_attention"]
+    return runs[("mixed", True)][1]["paged_spec_attention"], rates
+
+
+def cont_rate(done, wall) -> str:
+    """A continuous run's rate line: tokens, tokens/s, tokens/call and
+    admit->retire latency p50/p99."""
+    import numpy as np
+    n_new = sum(r.stats["new_tokens"] for r in done)
+    calls = sum(r.stats["model_calls"] for r in done)
+    lat = np.array([r.stats["latency_s"] for r in done])
+    return (f"{n_new} new tokens in {wall:.3f} s = {n_new / wall:.1f} "
+            f"tokens/s, tokens/call {n_new / max(calls, 1):.3f}, "
+            f"admit->retire latency p50 {np.percentile(lat, 50):.3f} s p99 "
+            f"{np.percentile(lat, 99):.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1511,12 +1752,13 @@ def tree_specs() -> dict:
             "greedy": (SpecConfig(strategy="greedy"), 1)}
 
 
-def tree_engine(params, cfg, spec, tables, paged=None):
+def tree_engine(params, cfg, spec, tables, paged=None, **kw):
     """A 4-slot engine over the 128 bucket; ``paged`` None: static (the
-    linear cache), else continuous over the 16-page pool or linear."""
+    linear cache), else continuous over the 16-page pool or linear.
+    ``kw``: more engine arguments (``adaptive=True, arms=...``)."""
     from repro_torch.serving.engine import ServingEngine
-    kw = {} if not paged else dict(paged=True, num_pages=CONT_PAGES,
-                                   page_size=CONT_PAGE)
+    if paged:
+        kw.update(paged=True, num_pages=CONT_PAGES, page_size=CONT_PAGE)
     return ServingEngine(params, cfg, spec,
                          tables=None if spec.strategy == "greedy" else tables,
                          max_batch=TREE_SLOTS, buckets=(TREE_BUCKET,),
@@ -1984,6 +2226,229 @@ def phase_sampling(tables, serve_out, tree_out) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: in-flight adaptive (k, w) arms (run after phase 8, before 7)
+# ---------------------------------------------------------------------------
+def recorded_arms(engine) -> list:
+    """(arm, tokens/call) of every static batch the engine serves: its host
+    controller's choice and the batch's committed tokens per call."""
+    log, run = [], engine.run_batch
+
+    def run_batch(batch):
+        arm = engine.controller.choose()
+        engine.controller.choose = lambda: arm
+        try:
+            done = run(batch)
+        finally:
+            del engine.controller.choose
+        n = sum(r.stats["new_tokens"] for r in done)
+        log.append((arm, n / max(1, sum(r.stats["model_calls"]
+                                        for r in done))))
+        return done
+
+    engine.run_batch = run_batch
+    return log
+
+
+def arm_pulls_line(stats: dict) -> str:
+    """``adaptive_stats()`` as 'arm: pulls' pairs (retired requests)."""
+    return ", ".join(f"{tuple(a)}: {n}" for a, n in
+                     zip(stats["arms"], stats["pulls_retired"]))
+
+
+def check_f32_outputs(label, done, want):
+    """Every output equals its greedy_reference tokens ``want``."""
+    import numpy as np
+    for r, w in zip(done, want):
+        if not np.array_equal(r.output_ids, w):
+            j = int(np.argmax(r.output_ids != w)) if len(r.output_ids) == \
+                len(w) else -1
+            raise AssertionError(f"f32 {label}: request {r.request_id} != "
+                                 f"greedy_reference (first difference at "
+                                 f"new token {j})")
+    calls = sum(r.stats["model_calls"] for r in done)
+    print(f"  f32 {label} == greedy_reference for {len(done)} requests "
+          f"({sum(len(w) for w in want)} tokens, {calls} verify calls)")
+
+
+def phase_adaptive(tables, cont_rates: dict) -> dict:
+    """Phase 9 (see the module docstring).  Returns the kernels' launches
+    on each adaptive path (9a's static run, 9b's continuous paged run,
+    9c's f32 tree runs), by run, each counted from zero."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.controller import DEFAULT_ARMS
+    from repro_torch.core.spec_engine import SpecConfig, greedy_reference
+    from repro_torch.kernels.dispatch import unique_sweep_widths
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    cfg = get_config("stablelm-1.6b")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+    work = cont_workload()
+    texts, budgets = [t for t, _ in work], [m for _, m in work]
+    depths = len(unique_sweep_widths(DEFAULT_ARMS))
+    by_run = {}
+
+    # ---- 9a: static, one arm a batch ----
+    print(f"phase 9a: static serve_all, adaptive over {DEFAULT_ARMS} "
+          f"({len(work)} requests of phase 5's mix, max_batch 4), beside "
+          f"mixed ({SERVE_K}, {SERVE_W}) and greedy on the same batches")
+    for name, sp, kw in (("adaptive", spec, dict(adaptive=True)),
+                         (f"mixed ({SERVE_K}, {SERVE_W})", spec, {}),
+                         ("greedy", SpecConfig(strategy="greedy"), {})):
+        eng = ServingEngine(params, cfg, sp,
+                            tables=None if sp.strategy == "greedy"
+                            else tables, max_batch=4, buckets=CONT_BUCKETS,
+                            **kw)
+        log = recorded_arms(eng) if eng.controller else None
+        reset_launches()            # counts from zero just before the run
+        done, wall = serve_sampled(eng, texts, budgets, [False] * len(work))
+        launches = read_launches()
+        check_budgets(done, work)
+        n_new = sum(r.stats["new_tokens"] for r in done)
+        calls = sum(r.stats["model_calls"] for r in done)
+        print(f"  {name}: {n_new} new tokens in {wall:.3f} s = "
+              f"{n_new / wall:.1f} tokens/s, tokens/call "
+              f"{n_new / max(calls, 1):.3f}, launches {launches}")
+        if log is not None:
+            by_run["9a static"] = launches
+            for i, (arm, tpc) in enumerate(log):
+                print(f"    batch {i}: arm {arm}, tokens/call {tpc:.3f}")
+            if min(launches["spec_attention"], launches["ngram_match"]) <= 0:
+                raise AssertionError(f"adaptive static run missed K1/K2: "
+                                     f"{launches}")
+
+    # ---- 9b: continuous paged, one arm a slot a step ----
+    print(f"phase 9b: continuous paged adaptive ({len(work)} requests, "
+          f"{CONT_PAGES}-page pool), beside phase 5's runs")
+    eng = cont_engine(params, cfg, spec, tables, True, adaptive=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    done, wall = serve_continuous(eng, work)
+    launches = read_launches()
+    by_run["9b continuous paged"] = launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  paged adaptive: {cont_rate(done, wall)}, peak memory "
+          f"{peak:.2f} GiB, launches {launches}")
+    for name in ("paged mixed", "paged greedy"):
+        print(f"  (phase 5) {name}: {cont_rates[name]}")
+    check_paged_run(eng, done, work)
+    stats = eng.adaptive_stats()
+    print(f"  adaptive_stats: pulls per arm {arm_pulls_line(stats)}; in "
+          f"flight {stats['pulls_in_flight']}")
+    steps = launches["paged_spec_attention"] // cfg.num_layers
+    print(f"  K2 launches {launches['ngram_match']} in {steps} steps "
+          f"({depths} arm depths a step)")
+    if steps <= 0 or launches["ngram_match"] != steps * depths:
+        raise AssertionError(f"an adaptive step did not draft once per arm "
+                             f"depth: {launches}")
+    if sum(stats["pulls_retired"]) != sum(r.stats["model_calls"]
+                                          for r in done):
+        raise AssertionError(f"arm pulls do not account for every call: "
+                             f"{stats}")
+
+    # ---- 9d: sampled rows under arms, replayed ----
+    half = work[:len(work) // 2]
+    alt = [i % 2 == 1 for i in range(len(half))]
+    print(f"phase 9d: continuous paged adaptive, {len(half)} requests of "
+          f"the mix, every other sampled (t {SAMPLE_T}, p {SAMPLE_P}), "
+          f"twice")
+    runs = []
+    for _ in range(2):
+        eng = cont_engine(params, cfg, spec, tables, True, adaptive=True)
+        done, wall = serve_sampled(eng, [t for t, _ in half],
+                                   [m for _, m in half], alt,
+                                   continuous=True)
+        check_pool_drained(eng)
+        check_budgets(done, half)
+        print(f"  {rate_line(done, wall, alt)}; {wall:.3f} s; pulls per "
+              f"arm {arm_pulls_line(eng.adaptive_stats())}")
+        runs.append(done)
+    check_replay("9d adaptive sampled", runs)
+
+    # ---- 9e: profile ----
+    print("phase 9e: an adaptive continuous step beside phase 5b's mixed "
+          "step (torch.profiler, paged, 8 slots after the first "
+          "admissions)")
+    for name, kw in (("adaptive", dict(adaptive=True)),
+                     (f"mixed ({SERVE_K}, {SERVE_W})", {})):
+        eng = cont_engine(params, cfg, spec, tables, True, **kw)
+        for text, mnt in work:
+            eng.submit(text, max_new_tokens=mnt)
+        eng.step()
+        profile_window(f"paged {name} continuous step", eng.step)
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # ---- 9c: lossless in f32 ----
+    print("phase 9c: lossless (f32, TF32 off): adaptive static, continuous "
+          "paged and linear; tree arms")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = M.init_params(cfg32, seed=0, device="cuda")
+    lwork = work[:CONT_LOSSLESS]
+    want = []
+    for text, mnt in lwork:
+        toks = np.asarray(cont_engine_tokens(text))
+        want.append(greedy_reference(params32, cfg32, toks[None], mnt)
+                    [0, len(toks):].cpu().numpy())
+    eng = ServingEngine(params32, cfg32, spec, tables=tables, max_batch=4,
+                        buckets=CONT_BUCKETS, adaptive=True)
+    reset_launches()
+    done, _ = serve_sampled(eng, [t for t, _ in lwork],
+                            [m for _, m in lwork], [False] * len(lwork))
+    check_f32_outputs("adaptive static", done, want)
+    print(f"    launches {read_launches()}")
+    for paged in (True, False):
+        eng = cont_engine(params32, cfg32, spec, tables, paged,
+                          adaptive=True)
+        reset_launches()
+        done, _ = serve_continuous(eng, lwork)
+        launches = read_launches()
+        if paged:
+            check_pool_drained(eng)
+        check_f32_outputs(f"adaptive continuous "
+                          f"{'paged' if paged else 'linear'}", done, want)
+        print(f"    launches {launches}")
+    tprompts = tree_workload()
+    tarms = ((1, 0), (2, 2), TREE_WDB[:2])
+    tspec = tree_specs()[f"tree {TREE_WDB}"][0]
+    toks = np.stack([cont_engine_tokens(p, (TREE_BUCKET,))
+                     for p in tprompts])
+    ref = greedy_reference(params32, cfg32, toks, TREE_NEW).cpu().numpy()
+    twant = list(ref[:, TREE_BUCKET:])
+    for paged in (None, True):
+        eng = tree_engine(params32, cfg32, tspec, tables, paged,
+                          adaptive=True, arms=tarms)
+        reset_launches()
+        if paged:
+            done, _ = serve_continuous(eng, [(p, TREE_NEW)
+                                             for p in tprompts])
+            check_pool_drained(eng)
+        else:
+            done, _ = serve(eng, tprompts, TREE_NEW)
+        launches = read_launches()
+        mode = "continuous paged" if paged else "static"
+        by_run[f"9c f32 tree {mode}"] = launches
+        key = "paged_tree_spec_attention" if paged else "tree_spec_attention"
+        check_f32_outputs(f"tree arms {tarms} {mode}", done, twant)
+        print(f"    launches {launches}"
+              + (f"; pulls per arm {arm_pulls_line(eng.adaptive_stats())}"
+                 if paged else ""))
+        if launches[key] <= 0:
+            raise AssertionError(f"adaptive tree {mode} run did not launch "
+                                 f"K4: {launches}")
+    del params32, eng
+    torch.cuda.empty_cache()
+    print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return by_run
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the hybrid (Mamba + attention) at full width
 # ---------------------------------------------------------------------------
 def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode):
@@ -2039,9 +2504,10 @@ def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode):
           f"{noise:.4g}); {calls} verify calls")
 
 
-def phase_hybrid() -> dict:
-    """Phase 7 (see the module docstring).  Returns K5's launches in the
-    static mixed run (7a), the hybrid's main path."""
+def phase_hybrid() -> tuple:
+    """Phase 7 (see the module docstring).  Returns the launches of the
+    static mixed run (7a), the hybrid's main path, and of 7e's adaptive
+    runs."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2077,7 +2543,7 @@ def phase_hybrid() -> dict:
 
     # ---- 7a: static, the hybrid's main path ----
     print("phase 7a: static serving (8 requests, bucket 256, 64 new tokens)")
-    runs = {}
+    runs, rates = {}, {}
     for name, e in (("mixed", eng), ("greedy", ServingEngine(
             params, cfg, SpecConfig(strategy="greedy"),
             buckets=(SERVE_BUCKET,)))):
@@ -2088,9 +2554,10 @@ def phase_hybrid() -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**30
         n_new = sum(r.stats["new_tokens"] for r in done)
         calls = sum(r.stats["model_calls"] for r in done)
-        print(f"  {name}: {n_new} new tokens in {wall:.3f} s = "
-              f"{n_new / wall:.1f} tokens/s, tokens/call "
-              f"{n_new / max(calls, 1):.3f}, {calls} calls, peak memory "
+        rates[name] = (f"{n_new} new tokens in {wall:.3f} s = "
+                       f"{n_new / wall:.1f} tokens/s, tokens/call "
+                       f"{n_new / max(calls, 1):.3f}")
+        print(f"  {name}: {rates[name]}, {calls} calls, peak memory "
               f"{peak:.2f} GiB, launches {launches}")
         if any(r.stats["new_tokens"] != SERVE_NEW for r in done):
             raise AssertionError("a hybrid request did not reach its budget")
@@ -2150,15 +2617,9 @@ def phase_hybrid() -> dict:
         done, wall = serve_continuous(e, work)
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        n_new = sum(r.stats["new_tokens"] for r in done)
-        calls = sum(r.stats["model_calls"] for r in done)
-        lat = np.array([r.stats["latency_s"] for r in done])
         name = f"{'paged' if paged else 'linear'} {strategy}"
-        print(f"  {name}: {n_new} new tokens in {wall:.3f} s = "
-              f"{n_new / wall:.1f} tokens/s, tokens/call "
-              f"{n_new / max(calls, 1):.3f}, latency p50 "
-              f"{np.percentile(lat, 50):.3f} s p99 "
-              f"{np.percentile(lat, 99):.3f} s, peak memory {peak:.2f} GiB, "
+        rates[name] = cont_rate(done, wall)
+        print(f"  {name}: {rates[name]}, peak memory {peak:.2f} GiB, "
               f"launches {launches}")
         if paged:
             check_paged_run(e, done, work)
@@ -2178,6 +2639,7 @@ def phase_hybrid() -> dict:
           f"requests")
     if not all(same):
         raise AssertionError("bf16 hybrid paged differs from linear")
+    adaptive = hybrid_adaptive(params, cfg, tables, prompts, work, rates)
     del eng, e, params
     torch.cuda.empty_cache()
 
@@ -2205,7 +2667,64 @@ def phase_hybrid() -> dict:
                    "continuous paged")
     del params32, e
     torch.cuda.empty_cache()
-    return k5
+    return k5, adaptive
+
+
+def hybrid_adaptive(params, cfg, tables, prompts, work, rates) -> dict:
+    """Phase 7e: the hybrid under ``DEFAULT_ARMS``: static serve_all of
+    phase 3's 8 requests as 4 batches of 2 (one arm a batch, a dedicated
+    spec), then continuous paged over phase 5's mix (one arm a slot a step,
+    every slot verified at the table's maxima), beside 7a's and 7c's runs.
+    Returns the kernels' launches on each path, by run."""
+    import torch
+    from repro_torch.core.controller import DEFAULT_ARMS
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    print(f"phase 7e: the hybrid adaptive over {DEFAULT_ARMS}")
+    spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+    by_run = {}
+    eng = ServingEngine(params, cfg, spec, tables=tables, max_batch=2,
+                        buckets=(SERVE_BUCKET,), adaptive=True)
+    log = recorded_arms(eng)
+    reset_launches()
+    done, wall = serve(eng, prompts, SERVE_NEW)
+    launches = read_launches()
+    by_run["7e static"] = launches
+    n_new = sum(r.stats["new_tokens"] for r in done)
+    calls = sum(r.stats["model_calls"] for r in done)
+    print(f"  static adaptive (4 batches of 2): {n_new} new tokens in "
+          f"{wall:.3f} s = {n_new / wall:.1f} tokens/s, tokens/call "
+          f"{n_new / max(calls, 1):.3f}, launches {launches}")
+    for i, (arm, tpc) in enumerate(log):
+        print(f"    batch {i}: arm {arm}, tokens/call {tpc:.3f}")
+    for name in ("mixed", "greedy"):
+        print(f"  (7a, 8 requests in one batch) {name}: {rates[name]}")
+    if any(r.stats["new_tokens"] != SERVE_NEW for r in done):
+        raise AssertionError("a hybrid adaptive request missed its budget")
+    if min(launches["mamba_scan"], launches["spec_attention"]) <= 0:
+        raise AssertionError(f"static adaptive hybrid missed K5/K1: "
+                             f"{launches}")
+    eng = cont_engine(params, cfg, spec, tables, True, adaptive=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    done, wall = serve_continuous(eng, work)
+    launches = read_launches()
+    by_run["7e continuous paged"] = launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  continuous paged adaptive: {cont_rate(done, wall)}, peak "
+          f"memory {peak:.2f} GiB, launches {launches}")
+    print(f"    pulls per arm {arm_pulls_line(eng.adaptive_stats())}")
+    for name in ("paged mixed", "paged greedy"):
+        print(f"  (7c) {name}: {rates[name]}")
+    check_paged_run(eng, done, work)
+    if min(launches["mamba_scan"], launches["paged_spec_attention"],
+           launches["ngram_match"]) <= 0:
+        raise AssertionError(f"continuous adaptive hybrid missed a kernel: "
+                             f"{launches}")
+    print(f"  phase 7e took {time.perf_counter() - t_phase:.1f} s")
+    return by_run
 
 
 def template_args(mangled: str) -> list:
@@ -2298,12 +2817,17 @@ def main() -> int:
     k5 = phase_k5(S_main, cur_main)
     rec["mamba_scan"] = k5["prefill"]
 
+    print("phase 2e: the kernels at the adaptive step's shapes "
+          "(DEFAULT_ARMS: verify at (k, w + 1) = (25, 11), drafts at "
+          "k = 25 and w 2, 4, 10)")
+    phase_adaptive_kernels(S_main, cur_main, cont_cur)
+
     print("phase 3: serve")
     launches, tables, serve_out = phase_serve()
 
     print(f"phase 5: continuous batching over a {CONT_PAGES}-page pool "
           f"(bf16, {CONT_N} requests, {CONT_SLOTS} slots)")
-    launches["paged_spec_attention"] = phase_continuous(tables)
+    launches["paged_spec_attention"], cont_rates = phase_continuous(tables)
 
     print(f"phase 6: tree speculation (bf16, {TREE_N} requests of the tree "
           f"mix, {TREE_SLOTS} slots, bucket {TREE_BUCKET}, {TREE_NEW} new "
@@ -2315,10 +2839,16 @@ def main() -> int:
           f"{SAMPLE_P}, beside greedy rows)")
     phase_sampling(tables, serve_out, tree_out)
 
+    print("phase 9: in-flight adaptive (k, w) arms (bf16 StableLM, then "
+          "f32)")
+    adaptive = phase_adaptive(tables, cont_rates)
+
     print(f"phase 7: the hybrid (Jamba-1.5-Large, {HYB_PERIODS} period, no "
           f"experts, full width)")
-    hyb = phase_hybrid()
+    hyb, hyb_adaptive = phase_hybrid()
     launches["mamba_scan"] = hyb["mamba_scan"]
+    # each adaptive run's own launches (9a-9c, 7e), beside the main path's
+    adaptive.update(hyb_adaptive)
 
     cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
@@ -2336,7 +2866,10 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:61")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
-                    replaces=sources[n][1], launches=launches[n], **rec[n])
+                    replaces=sources[n][1], launches=launches[n],
+                    launches_adaptive={run: ls[n] for run, ls in
+                                       adaptive.items() if ls.get(n)},
+                    **rec[n])
                for n in sources]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -14,7 +14,7 @@ to the reference's drafters.  Nothing here reads back to the host.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -90,3 +90,41 @@ def mixed_draft(tables: NGramTables, buf: torch.Tensor, cur_len: torch.Tensor,
         buf.to(torch.int32), cur_len.to(torch.int32), q=q, k=k, w=w,
         last=last_token.to(torch.int32).contiguous(),
         bigram_topk=tables.bigram_topk, bigram_chain=tables.bigram_chain)
+
+
+# ----------------------------------------------------------------------------
+# multi-depth drafting (adaptive arm masking)
+# ----------------------------------------------------------------------------
+def multi_depth_draft(draft_fn: Callable, ws: Tuple[int, ...], w_max: int,
+                      widx: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Draft at every distinct masked depth and select per slot.
+
+    ``draft_fn(w) -> (drafts (B, k, w), valid (B, k), n_ctx (B,))`` runs
+    once per depth in ``ws`` (the arm table's, so a step's drafting calls
+    are fixed by the table, whatever the slots pick).  Each result is
+    zero-padded to ``w_max`` and slot b takes the drafts of depth
+    ``ws[widx[b]]``.
+
+    Depth matters beyond truncation only for the context N-gram: its
+    continuation hash and match guard are functions of w, so a depth-w_b
+    draft inside a (k_max, w_max) step must come from a genuine depth-w_b
+    sweep to equal a dedicated (k, w_b) run.  The model-derived drafters
+    are prefix-consistent in w, but go through here too, so that every
+    strategy shares one parity story.  Tokens past a slot's depth are
+    zeros; acceptance never takes them (``verify.accept`` gates on w_eff).
+    """
+    ds, vs, ns = [], [], []
+    for w in ws:
+        d, v, n = draft_fn(w)
+        ds.append(torch.nn.functional.pad(d, (0, w_max - w)))
+        vs.append(v)
+        ns.append(n)
+    if len(ws) == 1:                       # one depth: nothing to select
+        return ds[0], vs[0], ns[0]
+    B = widx.shape[0]
+    sel = widx.long()
+    b_idx = torch.arange(B, device=sel.device)
+    return (torch.stack(ds, dim=1)[b_idx, sel],
+            torch.stack(vs, dim=1)[b_idx, sel],
+            torch.stack(ns, dim=1)[b_idx, sel])

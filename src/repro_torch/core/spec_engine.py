@@ -18,10 +18,21 @@ The commit writes the winner's verified KV tail into the shared cache in
 place for attention-only stacks; a stack with Mamba layers instead replays
 the winning row through ``decode(n_commit=)``, which writes only the first
 n_commit positions of the KV cache and keeps the recurrent state after
-n_commit tokens (the reference's gated replay).  The adaptive branch (arms)
-is not ported yet.  Over a paged cache the step first grows every running
-row's pages to cover what it may commit (``cache.grow_pages``, device-side,
-no host read).
+n_commit tokens (the reference's gated replay).  Over a paged cache the
+step first grows every running row's pages to cover what it may commit
+(``cache.grow_pages``, device-side, no host read).
+
+In-flight adaptive (k, w) (``SpecConfig.arms``, the reference's DESIGN.md
+§9): (k, w) become the step's fixed maxima, and every step each slot picks
+one arm of the table by its own UCB (``core/controller.py``, on the
+device) and is masked down to it: one genuine draft per distinct arm
+depth (``drafters.multi_depth_draft``, one K2 launch each on the card),
+acceptance cut at the slot's (k_eff, w_eff) (a tree's paths by
+``path_max_branch < k_eff``), the same tokens as a dedicated run of that
+arm.  (1, 0) is plain greedy.  The bandit's (B, A) stats ride in
+``DecodeState.stats`` and are zeroed on admission and release; the arm
+table's tensors are built once per (table, device), so the step copies
+nothing from the host.
 
 Lossless speculative sampling (``SpecConfig.sampling``, the reference's
 DESIGN.md §12): per-slot ``temperature``, ``top_p`` and ``rng_key`` leaves
@@ -44,7 +55,8 @@ tree mode raises for them, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +67,10 @@ from ..models import cache as C
 from ..models import model as M
 from ..models.config import ModelConfig
 from . import tree as T
-from .drafters import bigram_draft, mixed_draft, unigram_draft
+from .controller import (arm_slowdowns, choose_arms, init_arm_stats,
+                         tree_arm_slowdowns, update_arm_stats)
+from .drafters import (bigram_draft, mixed_draft, multi_depth_draft,
+                       unigram_draft)
 from . import prng
 from .ngram_tables import NGramTables
 from .verify import accept, per_row_keys, sample_predictions, sample_token
@@ -93,6 +108,13 @@ class SpecConfig:
     # (deeper levels chain).  Attention-only archs, tables required.
     tree: bool = False
     tree_branch: int = 2
+    # In-flight adaptive (k, w): a table of (k_arm, w_arm) arms, each in
+    # [1, k] x [0, w] ((width, depth) pairs under ``tree``).  When set,
+    # (k, w) are the step's fixed maxima; each step every slot picks one
+    # arm by its own UCB and is masked down to it, the same tokens as a
+    # dedicated run of that arm.  (1, 0) is plain greedy decoding.
+    # The UCB's constants are controller.EXPLORE/EMA/ELL.
+    arms: Optional[Tuple[Tuple[int, int], ...]] = None
     # Lossless speculative sampling: verify with the sampled walk
     # (verify.sample_predictions); per-slot temperature/top_p/rng_key
     # leaves steer each row, temperature-0 rows stay bit-exact greedy.  Off
@@ -114,8 +136,28 @@ class SpecConfig:
                 f"tree_branch must be >= 1, got {self.tree_branch}")
         return self
 
+    def validate_arms(self) -> "SpecConfig":
+        """Raise unless the arm table fits the step's (k, w) box."""
+        if self.arms is None:
+            return self
+        if self.strategy == "greedy":
+            raise ValueError(
+                "arms require a drafting strategy (the greedy arm (1, 0) "
+                "is expressed inside the masked step, not via "
+                "strategy='greedy')")
+        if not self.arms:
+            raise ValueError("arms must be a non-empty tuple")
+        for a in self.arms:
+            ka, wa = a
+            if not (1 <= ka <= self.k and 0 <= wa <= self.w):
+                raise ValueError(
+                    f"arm {a} outside the compile-time box "
+                    f"[1, {self.k}] x [0, {self.w}]")
+        return self
+
     def validate(self) -> "SpecConfig":
         self.validate_tree()
+        self.validate_arms()
         if self.strategy not in STRATEGIES:
             raise ValueError(f"strategy must be one of {STRATEGIES}, got "
                              f"{self.strategy!r}")
@@ -177,7 +219,7 @@ def _init_stats(spec: SpecConfig, B: int, device) -> Dict[str, torch.Tensor]:
     # tree mode ranks over root-to-leaf PATHS, not drafter rows
     ranks = (T.num_paths(spec.k, spec.w, spec.tree_branch) if spec.tree
              else spec.k)
-    return {
+    st = {
         "calls": z(B),
         "tokens": z(B),
         # n_commit per verify call in bins 0..w+1; bin 0 stays zero (every
@@ -188,6 +230,67 @@ def _init_stats(spec: SpecConfig, B: int, device) -> Dict[str, torch.Tensor]:
         "accepted_ctx": z(B),                   # drafted tokens accepted
         "accepted_bigram": z(B),                # per source
     }
+    if spec.arms is not None:
+        # the per-slot bandit rides in the stats: zeroed by the same slot
+        # reset as the call and token counters (admission and release)
+        st.update(init_arm_stats(B, len(spec.arms), device))
+    return st
+
+
+class ArmConstants(NamedTuple):
+    """An arm table's tensors on one device (index = arm)."""
+    k: torch.Tensor          # (A,) int32 rows (tree: width) of each arm
+    w: torch.Tensor          # (A,) int32 depth of each arm
+    widx: torch.Tensor       # (A,) int64 index into unique_sweep_widths
+    slow: torch.Tensor       # (A,) f32 roofline slowdown prior
+    path_max_branch: Optional[torch.Tensor]  # (P,) int32, tree tables only
+
+
+def arm_constants(cfg: ModelConfig, spec: SpecConfig,
+                  device: torch.device) -> ArmConstants:
+    """Every per-arm tensor of ``spec``'s adaptive step on ``device``."""
+    tree = (spec.k, spec.w, spec.tree_branch) if spec.tree else None
+    return _arm_constants(cfg, spec.arms, tree, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _arm_constants(cfg: ModelConfig, arms: Tuple[Tuple[int, int], ...],
+                   tree: Optional[Tuple[int, int, int]],
+                   device: torch.device) -> ArmConstants:
+    """Built once per (config, arm table, tree shape, device) and
+    cached: a step then makes no host-to-device copy."""
+    sw = dispatch.unique_sweep_widths(arms)
+    slow = (tree_arm_slowdowns(cfg, arms, tree[2]) if tree
+            else arm_slowdowns(cfg, arms))
+    on = lambda v, dt: torch.tensor(v, dtype=dt, device=device)
+    pmb = (on(T.topology(*tree).path_max_branch, torch.int32) if tree
+           else None)
+    return ArmConstants(
+        k=on([a[0] for a in arms], torch.int32),
+        w=on([a[1] for a in arms], torch.int32),
+        widx=on([sw.index(w) if w > 0 else 0 for _, w in arms],
+                torch.int64),
+        slow=on(slow, torch.float32), path_max_branch=pmb)
+
+
+def _draft_adaptive(spec: SpecConfig, tables: Optional[NGramTables],
+                    buf, buf_len, last, widx):
+    """Arm-masked drafting: (k_max, w_max) candidates for every slot.
+
+    One genuine draft per distinct positive arm depth (the context sweep's
+    hash is a function of w, see ``drafters.multi_depth_draft``), selected
+    per slot by ``widx`` (B,), its arm's depth index.  A table whose arms
+    are all greedy drafts nothing."""
+    B, dev = buf.shape[0], buf.device
+    sw = dispatch.unique_sweep_widths(spec.arms)
+    if not sw:                              # every arm is (k, 0): greedy
+        return (torch.zeros((B, spec.k, spec.w), dtype=torch.int32,
+                            device=dev),
+                torch.zeros((B, spec.k), dtype=torch.bool, device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev))
+    draft_fn = lambda w: _draft(dataclasses.replace(spec, w=w, arms=None),
+                                tables, buf, buf_len, last)
+    return multi_depth_draft(draft_fn, sw, spec.w, widx)
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +532,18 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
     # reference's wrapping index does; it commits nothing
     last_i = torch.remainder(len_c - 1, L)[:, None].long()
     last = buf_c.gather(1, last_i)[:, 0]
-    drafts, valid, n_ctx = _draft(spec, tables, buf_c, len_c, last)
+    if spec.arms is not None:
+        # per-slot, per-step arm choice on the device: UCB over the slot's
+        # own (B, A) stats, then the fixed (k_max, w_max) shapes are masked
+        # down to the chosen arm
+        ac = arm_constants(cfg, spec, dev)
+        arm = choose_arms(s.stats, ac.slow)                # (B,)
+        k_eff, w_eff = ac.k[arm.long()], ac.w[arm.long()]
+        drafts, valid, n_ctx = _draft_adaptive(spec, tables, buf_c, len_c,
+                                               last, ac.widx[arm.long()])
+    else:
+        k_eff = w_eff = None
+        drafts, valid, n_ctx = _draft(spec, tables, buf_c, len_c, last)
     if spec.tree:
         if M.has_recurrent(cfg):
             raise ValueError(
@@ -456,8 +570,14 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
                                        n_levels=spec.w + 1)[:, 0]
         else:
             preds = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        # a (width_b, depth_b) arm keeps exactly the paths whose branch
+        # indices all fall below width_b (scattered through the lex order,
+        # not a prefix of the path list)
+        row_mask = (None if k_eff is None
+                    else ac.path_max_branch[None] < k_eff[:, None])
         # path views: (B, P, w) draft tokens, (B, P, w+1) predictions
-        acc = accept(nodes[:, tc.path_nodes], preds[:, tc.path_inputs])
+        acc = accept(nodes[:, tc.path_nodes], preds[:, tc.path_inputs],
+                     w_eff=w_eff, row_mask=row_mask)
     else:
         rows = torch.cat([last[:, None, None].expand(B, spec.k, 1), drafts],
                          dim=-1)                                 # (B,k,w+1)
@@ -471,7 +591,7 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
                                         s.top_p)
         else:
             greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-        acc = accept(drafts, greedy)
+        acc = accept(drafts, greedy, k_eff=k_eff, w_eff=w_eff)
     active = _running(s)
     budget = (s.prompt_len + s.budget - len_c).clamp(min=0)
     n_commit = torch.where(active, torch.minimum(acc.n_commit, budget), 0)
@@ -531,6 +651,10 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
         active & from_ctx, acc_drafted, 0)
     st["accepted_bigram"] = st["accepted_bigram"] + torch.where(
         active & ~from_ctx, acc_drafted, 0)
+    if spec.arms is not None:
+        # reward the pulled arm with the tokens its call committed (bonus
+        # included: the tokens-per-call quantity AdaptiveKW tracks)
+        st = update_arm_stats(st, arm, n_commit, active)
     return dataclasses.replace(s, buf=buf_c, buf_len=len_n, done=done_n,
                                model=state_n, stats=st, rng_key=carry_keys)
 

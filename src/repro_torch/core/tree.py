@@ -1,6 +1,7 @@
 """Static draft-tree topology for tree-structured batched speculation (port
-of ``repro/core/tree.py``, less ``arm_topologies``, which waits for the
-adaptive slice).
+of ``repro/core/tree.py``).  Under adaptive arms one (width_max, depth_max)
+topology serves every (width, depth) arm: ``path_max_branch`` masks a slot
+down to its width, acceptance to its depth.
 
 Tree speculation verifies ONE token tree per slot instead of k independent
 w-token rows: the first ``branch`` depths fan out over the drafter's

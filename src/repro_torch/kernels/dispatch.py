@@ -111,6 +111,18 @@ def ngram_draft(buf: torch.Tensor, buf_len: torch.Tensor, *, q: int, k: int,
               bigram_topk=bigram_topk, bigram_chain=bigram_chain)
 
 
+def unique_sweep_widths(arms) -> Tuple[int, ...]:
+    """Distinct positive speculation depths of an arm table, sorted.
+
+    The adaptive step drafts once per depth returned here (one K2 launch
+    each on the card), because the context sweep's continuation hash is a
+    function of w.  The set of launches one adaptive step makes is fixed by
+    the arm TABLE, never by the arms the slots pick at run time; w == 0
+    arms (plain greedy) need no sweep and contribute nothing.
+    """
+    return tuple(sorted({w for _, w in arms if w > 0}))
+
+
 def selective_scan(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
                    final: bool = True, steps: bool = False, n_commit=None):
     """The Mamba selective scan (K5 on the card, its plain version on the

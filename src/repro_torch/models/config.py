@@ -153,6 +153,10 @@ class ModelConfig:
         return rd - (rd % 2)
 
     @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff if self.moe_d_ff else self.d_ff
+
+    @property
     def mamba_d_inner(self) -> int:
         return self.mamba_expand * self.d_model
 

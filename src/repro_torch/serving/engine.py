@@ -1,5 +1,5 @@
 """Serving engine: ties the scheduler to the speculative generator (port of
-``repro/serving/engine.py``, less its mesh and adaptive-arm branches).
+``repro/serving/engine.py``, less its mesh branch).
 
 One ``ServingEngine`` owns (params, cfg, tables) and serves batched requests
 with either plain greedy decoding or the paper's batched speculation —
@@ -19,6 +19,13 @@ each request's worst-case pages up front (deferring the queue head while
 the pool is short), so one long prompt no longer sizes every slot's
 buffer.  The outputs are the same as the linear layout's.
 
+``adaptive=True`` works in both modes, with different machinery:
+``serve_all`` picks one (k, w) arm per whole batch with the host-side UCB
+controller (``core/controller.py`` ``AdaptiveKW``) and runs it as a
+dedicated spec; continuous batching bakes the arm table into the step
+(``SpecConfig.arms``): every slot picks its own arm every step on the
+device, and the step's shapes are the table's maxima whatever it picks.
+
 Both modes serve temperature and top-p requests (``submit(...,
 temperature=, top_p=, seed=)``) losslessly through the same speculative
 step, beside greedy ones (``SpecConfig.sampling``, ``core/verify.py``).
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..core.controller import DEFAULT_ARMS, AdaptiveKW
 from ..core.ngram_tables import NGramTables, build_bigram, build_unigram
 from ..core.spec_engine import (DecodeState, PagedConfig, SpecConfig,
                                 admit_slot, empty_decode_state, generate,
@@ -54,6 +62,8 @@ class ServingEngine:
                  spec: Optional[SpecConfig] = None,
                  tables: Optional[NGramTables] = None,
                  max_batch: int = 8,
+                 adaptive: bool = False,
+                 arms: Optional[Tuple[Tuple[int, int], ...]] = None,
                  buckets: Optional[Tuple[int, ...]] = None,
                  max_new_cap: int = 64,
                  paged: bool = False,
@@ -65,6 +75,10 @@ class ServingEngine:
         """``params`` live on ``device`` (default the CUDA card; pass
         ``device="cpu"`` for the plain path).  A drafting ``spec`` without
         ``tables`` builds them with one sweep over the vocabulary.
+        ``adaptive``: pick (k, w) online with the UCB controller instead of
+        the spec's fixed setting: per whole batch under ``serve_all``, per
+        slot per step (arm masking inside ``spec_step``) under continuous
+        batching.  ``arms`` overrides its arm table (``DEFAULT_ARMS``).
         ``buckets``: the scheduler's prompt-length ladder;
         ``buckets``/``max_new_cap`` bound the continuous DecodeState
         (buffer length = largest bucket + max_new_cap + w + 2).
@@ -94,6 +108,13 @@ class ServingEngine:
                 f"arch — recurrent mixers verify rows as causal "
                 f"sequences, which has no valid tree layout")
         self.tok = ByteTokenizer()
+        self.controller: Optional[AdaptiveKW] = None
+        self._arms: Optional[Tuple[Tuple[int, int], ...]] = None
+        if adaptive:
+            self._arms = tuple(tuple(a) for a in (arms or DEFAULT_ARMS))
+            self.controller = AdaptiveKW(cfg, arms=self._arms)
+        elif arms is not None:
+            raise ValueError("arms= requires adaptive=True")
         # None resolves in _init_continuous; spec.sampling pre-commits
         self.sampling = True if self.spec.sampling else sampling
         self._seed_key = prng.prng_key(seed)
@@ -110,11 +131,14 @@ class ServingEngine:
                 f"(sliding_window=None, >=1 attn layer); run linear instead")
         self._paged_cfg = (PagedConfig(num_pages or 0, page_size)
                            if paged else None)
-        if self.spec.strategy != "greedy" and tables is None:
-            tables = self.build_tables(k_max=max(self.spec.k, 25),
-                                       w_max=max(self.spec.w, 16))
+        if (self.spec.strategy != "greedy" or adaptive) and tables is None:
+            arm_k = max((a[0] for a in self._arms or ()), default=0)
+            arm_w = max((a[1] for a in self._arms or ()), default=0)
+            tables = self.build_tables(k_max=max(self.spec.k, 25, arm_k),
+                                       w_max=max(self.spec.w, 16, arm_w))
         self.tables = tables
-        # the spec the continuous path runs (sampling resolved at build)
+        # the spec the continuous path runs (sampling resolved, and the arm
+        # table baked in under adaptive, when the state is built)
         self._cont_spec: SpecConfig = self.spec
         self._cont_state: Optional[DecodeState] = None
         self._slots: Optional[SlotMap] = None
@@ -178,6 +202,17 @@ class ServingEngine:
         spec = dataclasses.replace(self.spec,
                                    max_new_tokens=batch.max_new_tokens,
                                    sampling=sampled)
+        kw = self.controller.choose() if self.controller else None
+        if kw is not None:
+            # the batch's arm as a dedicated spec: (1, 0) is plain greedy
+            # (no tree to build), a greedy engine spec drafts mixed
+            k, w = kw
+            strategy = ("greedy" if w == 0 else
+                        ("mixed" if self.spec.strategy == "greedy"
+                         else self.spec.strategy))
+            spec = dataclasses.replace(spec, k=max(k, 1), w=max(w, 1),
+                                       strategy=strategy,
+                                       tree=spec.tree and w > 0)
         eos = torch.tensor([self._effective_eos(r) for r in reqs],
                            dtype=torch.int32, device=self.device)
         tokens = torch.as_tensor(batch.tokens).to(self.device)
@@ -201,6 +236,10 @@ class ServingEngine:
         buf = buf.cpu().numpy()
         blen = blen.cpu().numpy()
         stats = {k: v.cpu().numpy() for k, v in stats.items()}
+        if kw is not None:
+            self.controller.update(
+                kw, tokens=float(stats["tokens"].sum()),
+                calls=float(max(stats["calls"].sum(), 1)))
         for i, req in enumerate(batch.requests):
             req.output_ids = buf[i, P:blen[i]].copy()
             req.output = self.tok.decode(req.output_ids)
@@ -226,6 +265,18 @@ class ServingEngine:
     # continuous batching (slot-level admission and retirement)
     # ------------------------------------------------------------------
     def _init_continuous(self) -> None:
+        spec = self.spec
+        if self.controller is not None:
+            # adaptive: bake the arm table into the step; its shapes are the
+            # table's maxima and every slot picks its arm each step (a tree
+            # spec reads the table as (width, depth) arms)
+            k_max = max(a[0] for a in self._arms)
+            w_max = max(a[1] for a in self._arms)
+            strategy = ("mixed" if spec.strategy == "greedy"
+                        else spec.strategy)
+            spec = dataclasses.replace(
+                spec, k=k_max, w=max(w_max, 1), strategy=strategy,
+                arms=self._arms).validate()
         # resolve the sampling flag ONCE, when the state is built: None
         # turns it on iff a sampled request is queued.  A sampled request
         # that later reaches a greedy-only step is rejected at admission
@@ -233,8 +284,8 @@ class ServingEngine:
         if self.sampling is None:
             self.sampling = any(r.temperature > 0
                                 for r in self.scheduler.queued_requests())
-        self._cont_spec = dataclasses.replace(
-            self.spec, sampling=bool(self.sampling))
+        self._cont_spec = dataclasses.replace(spec,
+                                              sampling=bool(self.sampling))
         # size the DecodeState to the queued workload, not the worst case:
         # a later prompt beyond the sized capacity is REJECTED at admission
         # (truncating it would corrupt its output).  Paged mode reserves the
@@ -243,11 +294,15 @@ class ServingEngine:
         if not self.paged and not self._explicit_buckets:
             prompt_cap = self.scheduler.max_queued_bucket() or prompt_cap
         self._cont_prompt_cap = prompt_cap
-        buf_size = prompt_cap + self.max_new_cap + self.spec.w + 2
+        # w is the step's: the arm table's maximum under adaptive
+        buf_size = prompt_cap + self.max_new_cap + self._cont_spec.w + 2
         self._cont_state = empty_decode_state(
             self.cfg, self._cont_spec, self.max_batch, buf_size,
             paged=self._paged_cfg, device=self.device)
         self._slots = SlotMap(self.max_batch)
+        # host-side total of the retired requests' arm pulls (adaptive)
+        self._arm_pulls_total = (np.zeros(len(self._arms), np.int64)
+                                 if self._arms else None)
         # page accounting (paged mode): admission reserves each request's
         # worst-case page count up front so the in-step growth can never
         # exhaust the pool mid-flight; physical allocation stays lazy.
@@ -298,6 +353,8 @@ class ServingEngine:
         calls_np = state.stats["calls"].cpu().numpy()
         tokens_np = state.stats["tokens"].cpu().numpy()
         accept_hist_np = state.stats["accept_hist"].cpu().numpy()
+        arm_pulls_np = (state.stats["arm_pulls"].cpu().numpy()
+                        if self._arms else None)
         retired: List[Request] = []
         for slot, req in self._slots.occupied():
             if not done[slot]:
@@ -317,6 +374,13 @@ class ServingEngine:
                 # readback above has synchronised with the device)
                 "latency_s": time.perf_counter() - req.stats["admit_t"],
             }
+            if arm_pulls_np is not None:
+                # the slot's bandit history, read before release zeroes it
+                req.stats["arm_pulls"] = {
+                    self._arms[a]: int(arm_pulls_np[slot, a])
+                    for a in range(len(self._arms))
+                    if arm_pulls_np[slot, a]}
+                self._arm_pulls_total += arm_pulls_np[slot].astype(np.int64)
             state = self._run_release(state, slot)
             self._slots.release(slot)
             if self.paged:
@@ -328,8 +392,9 @@ class ServingEngine:
     def _slot_pages(self, prompt_len: int, mnt: int) -> int:
         """Worst-case pool pages one request can ever occupy: the cache
         holds at most prompt_len + mnt + w positions (cur_len peaks at
-        prompt_len + mnt - 1 and spec growth covers cur_len + w + 1)."""
-        return int(Cache.pages_for_len(prompt_len + mnt + self.spec.w,
+        prompt_len + mnt - 1 and spec growth covers cur_len + w + 1); w is
+        the step's, the arm table's maximum under adaptive."""
+        return int(Cache.pages_for_len(prompt_len + mnt + self._cont_spec.w,
                                        self._page_size))
 
     def _reject(self, req: Request, reason: str) -> Request:
@@ -433,14 +498,17 @@ class ServingEngine:
         return retired
 
     def reset_pool_counters(self) -> None:
-        """Zero the cumulative pool counters (peak pages, deferral rounds,
-        rejections) without touching the pool, so that a measured window
+        """Zero the cumulative pool and bandit counters (peak pages,
+        deferral rounds, rejections, retired arm pulls) without touching
+        the pool or the in-flight bandit state, so that a measured window
         starts clean after a warm-up."""
         if self._cont_state is None:
             return
         if self.paged:
             self._pool_peak = 0
             self._deferrals = 0
+        if self._arm_pulls_total is not None:
+            self._arm_pulls_total[:] = 0
         self._rejected = 0
 
     def pool_stats(self) -> Dict:
@@ -459,6 +527,17 @@ class ServingEngine:
                 "peak_pages": self._pool_peak,
                 "deferrals": self._deferrals,
                 "rejected": self._rejected}
+
+    def adaptive_stats(self) -> Dict:
+        """Continuous-mode bandit telemetry: the arm table, the pulls per
+        arm over every RETIRED request, and the in-flight slots' current
+        pulls (adaptive continuous mode only; reads the device)."""
+        if self._arms is None or self._cont_state is None:
+            return {}
+        in_flight = self._cont_state.stats["arm_pulls"].cpu().numpy()
+        return {"arms": [list(a) for a in self._arms],
+                "pulls_retired": self._arm_pulls_total.tolist(),
+                "pulls_in_flight": in_flight.sum(axis=0).tolist()}
 
     def serve_continuous(self) -> List[Request]:
         """Drain the queue with continuous batching; blocks until idle."""

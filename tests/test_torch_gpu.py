@@ -32,7 +32,10 @@ P_SPLIT_ERR, half of what one bf16 P allowed.  Sampling: the threefry
 keys, bits and uniforms of ``core/prng.py`` on the card equal the CPU's
 bit for bit (gumbel noise to 1e-6), and sampled spec_steps (linear,
 paged, tree) draw the CPU's tokens with the same keys, the
-temperature-0 row equal to the greedy-only step's.
+temperature-0 row equal to the greedy-only step's.  Adaptive arms:
+masked spec_steps (linear, paged, tree, sampled) choose the CPU's arms and
+serve its tokens, with its arm stats (rewards to 1e-6); an adaptive step
+makes no synchronising call, and launches K2 once per distinct arm depth.
 """
 import numpy as np
 import pytest
@@ -679,3 +682,125 @@ def test_sampled_step_does_not_synchronise(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert int(s.buf_len.min()) >= 24 + 4
+
+
+def _adaptive_setup(device, k_max=8, w_max=6):
+    """A tiny f32 byte-vocabulary model, seeded tables of (k_max, w_max)
+    and two prompts of code, on the CPU; the card's copies on ``device``."""
+    from repro_torch.core.ngram_tables import NGramTables
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ModelConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(name="tiny", num_layers=2, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=128, vocab_size=259,
+                      param_dtype=torch.float32,
+                      compute_dtype=torch.float32).validate()
+    rng = np.random.default_rng(3)
+    tab = NGramTables(torch.arange(k_max, dtype=torch.int32),
+                      torch.as_tensor(rng.integers(0, 259, (259, k_max)),
+                                      dtype=torch.int32),
+                      torch.as_tensor(rng.integers(0, 259, (259, w_max)),
+                                      dtype=torch.int32))
+    text = np.frombuffer(b"def f(x): return x + 1; def g(x): return f(x)",
+                         np.uint8).astype(np.int32)
+    prompt = torch.as_tensor(np.stack([text[:32], text[8:40]]))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    on = {"cpu": (params, tab),
+          "cuda": (_to(params, device), NGramTables(*(_to(a, device) for a
+                   in (tab.unigram_topk, tab.bigram_topk,
+                       tab.bigram_chain))))}
+    return cfg, prompt, on
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["linear", "paged", "tree", "sampled"])
+def test_adaptive_spec_step_equals_the_cpu(cuda_device, layout):
+    """Adaptive spec_steps of a tiny f32 model (arms masked inside a (4, 3)
+    box; a (3, 4) tree's (width, depth) arms; sampled rows beside a
+    temperature-0 one) choose the CPU's arms and serve its tokens through
+    K1, K3 or K4 and K2, with the CPU's arm stats."""
+    import dataclasses
+    from repro_torch.core import prng
+    from repro_torch.core import spec_engine as E
+    cfg, prompt, on = _adaptive_setup(cuda_device)
+    spec = E.SpecConfig(k=4, w=3, strategy="mixed", max_new_tokens=16,
+                        arms=((1, 0), (2, 2), (3, 1), (4, 3)))
+    kw = {}
+    if layout == "tree":
+        spec = E.SpecConfig(k=3, w=4, strategy="mixed", max_new_tokens=16,
+                            tree=True, tree_branch=2,
+                            arms=((1, 0), (2, 2), (3, 4)))
+    if layout == "sampled":
+        spec = dataclasses.replace(spec, sampling=True)
+        kw = dict(temperature=torch.tensor([0.0, 0.9]),
+                  top_p=torch.tensor([1.0, 0.9]), rng=prng.prng_key(5))
+    paged = E.PagedConfig(page_size=8) if layout == "paged" else None
+    fn = paged_spec_attention_cuda if paged else spec_attention_cuda
+    states = {}
+    for dev in ("cpu", "cuda"):
+        p, t = on[dev]
+        s = E.init_decode_state(p, cfg, spec, prompt.to(dev), paged=paged,
+                                **_to(kw, dev))
+        fn.launches = fn.tree_launches = 0
+        for _ in range(8):
+            s = E.spec_step(p, cfg, spec, s, t)
+        if dev == "cuda":
+            assert (fn.tree_launches if spec.tree else fn.launches) > 0
+        states[dev] = s
+    gpu, cpu = states["cuda"], states["cpu"]
+    for leaf in ("buf", "buf_len", "rng_key"):
+        assert torch.equal(getattr(gpu, leaf).cpu(), getattr(cpu, leaf)), leaf
+    for key in ("arm_pulls", "arm_last", "calls", "tokens", "accept_hist"):
+        assert torch.equal(gpu.stats[key].cpu(), cpu.stats[key]), key
+    _close(gpu.stats["arm_reward"], cpu.stats["arm_reward"], 1e-6)
+    assert torch.equal(cpu.stats["arm_pulls"].sum(1), cpu.stats["calls"])
+    assert int(cpu.stats["calls"].min()) >= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+def test_adaptive_step_does_not_synchronise(cuda_device, paged):
+    """An adaptive mixed spec_step on the card makes no call that waits
+    for the device (torch's sync debug mode raises on one): the arm
+    table's tensors are built once per (table, device), and the choice,
+    the per-depth drafts and the bandit update stay on the card."""
+    from repro_torch.core import spec_engine as E
+    cfg, prompt, on = _adaptive_setup(cuda_device)
+    spec = E.SpecConfig(k=4, w=3, strategy="mixed", max_new_tokens=16,
+                        arms=((1, 0), (2, 2), (3, 1), (4, 3)))
+    p, t = on["cuda"]
+    s = E.init_decode_state(p, cfg, spec, prompt.to(cuda_device),
+                            paged=E.PagedConfig(page_size=8) if paged
+                            else None)
+    s = E.spec_step(p, cfg, spec, s, t)     # builds the arm tensors
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            s = E.spec_step(p, cfg, spec, s, t)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(s.stats["arm_pulls"].sum(1), s.stats["calls"])
+    assert int(s.stats["calls"].sum()) == 6
+
+
+@pytest.mark.gpu
+def test_adaptive_step_launches_k2_once_per_arm_depth(cuda_device):
+    """The default arm table (depths 2, 4 and 10 at k = 25): every adaptive
+    step launches K2 three times, whatever arms the slots pick."""
+    from repro_torch.core import spec_engine as E
+    from repro_torch.core.controller import DEFAULT_ARMS
+    from repro_torch.kernels.dispatch import unique_sweep_widths
+    cfg, prompt, on = _adaptive_setup(cuda_device, k_max=25, w_max=16)
+    spec = E.SpecConfig(k=25, w=10, strategy="mixed", max_new_tokens=24,
+                        arms=DEFAULT_ARMS)
+    p, t = on["cuda"]
+    s = E.init_decode_state(p, cfg, spec, prompt.to(cuda_device))
+    depths = len(unique_sweep_widths(DEFAULT_ARMS))
+    assert depths == 3
+    for _ in range(6):
+        before = ngram_draft_cuda.launches
+        s = E.spec_step(p, cfg, spec, s, t)
+        assert ngram_draft_cuda.launches == before + depths
+    assert torch.equal(s.stats["arm_pulls"].sum(1), s.stats["calls"])
