@@ -107,6 +107,34 @@ Phases (any failure raises and the script exits non-zero):
                greedy_reference.  Phase 2e holds each kernel at the
                adaptive step's shapes (K1 and K3 at 25 x 11 inputs, K2 at
                k 25 and w 2, 4, 10, K5 at 200 verify rows from 8 states).
+ 10. archs  — the registry's other attention-only architectures, after
+               phase 7, one model at a time (seeded, bf16, full width;
+               Nemotron-4 and Qwen2-VL cut to 4 layers), each freed
+               after, with its peak memory: 10a Mistral-7B (its 4096-token
+               window keeps it outside K1's contract: every verify layer
+               runs the plain verify, counted, K1 never; K2 drafts) serves
+               phase 3's 8 requests statically, mixed and greedy,
+               profiled, and the plain verify's device ms is printed
+               beside K1's and SDPA's at its verify shape; 10b two
+               ~4,200-byte prompts and 64 new tokens wrap its 4096-slot
+               ring in prefill and under speculation, then in f32 at
+               depth 2 the outputs are greedy decoding
+               (``check_lossless``'s tie rule); 10c-10e Gemma-2B,
+               GLM-4-9B, Nemotron-4 and Qwen2-VL (M-RoPE) serve phase 3's
+               requests statically (K1 steps x layers times), Gemma and
+               GLM phase 5's mix continuously paged (K3), and in f32
+               (Nemotron at 1 layer, the others at 2) their static mixed
+               outputs are greedy decoding; 10f HuBERT-XLarge's encoder
+               (``forward(embeds=)``) in bf16 against f32 on the same
+               weights; 10g StableLM's ``long_context_variant`` (an
+               8192-slot ring): two 8192-token prompts prefill through the
+               blockwise attention (timed), 64 new tokens wrap the ring,
+               and at depth 2 in f32 the outputs are greedy decoding.
+               Phase 2f holds K1 and K3 at Gemma's (8 / 1 / 256), GLM's
+               (32 / 2 / 128), Nemotron's (96 / 8 / 192) and Qwen's
+               (64 / 8 / 128) heads, verify and decode, beside their
+               bounds and SDPA, with their instance's registers and
+               spills.
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
 for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
@@ -120,8 +148,9 @@ these kernels beside another checkout's.
 The last two lines of stdout are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
 JSON record: each kernel's ``launches`` on its main path's run (phases 3, 5,
-6 and 7a), and under ``launches_adaptive`` its launches on each adaptive
-run (9a, 9b, 9c's f32 tree runs, 7e), each counted from zero.
+6 and 7a), under ``launches_adaptive`` its launches on each adaptive
+run (9a, 9b, 9c's f32 tree runs, 7e) and under ``launches_archs`` on each
+bf16 run of phase 10, each counted from zero.
 """
 from __future__ import annotations
 
@@ -1106,7 +1135,8 @@ def phase_kernels(S_main: int, cur_main: list) -> dict:
 # phase 2: K2, a step's context-strategy drafts in one launch
 # ---------------------------------------------------------------------------
 SENTINEL_TOKEN = 1097884494     # 0x4170634E: its w=1 hash is 0xFFFFFFFF
-K2_VOCABS = {"stablelm": 100352, "jamba": 65536}
+K2_VOCABS = {"stablelm": 100352, "jamba": 65536, "mistral": 32000,
+             "glm": 151552, "qwen": 152064, "gemma/nemotron": 256000}
 K2_TABLES = (25, 16)            # the engine's (k_max, w_max) at k=w=10
 
 
@@ -1213,7 +1243,8 @@ def k2_bound_ms(buf, buf_len, q, k, w, mixed: bool) -> tuple:
 
 def phase_k2(S_main: int, cur_main: list) -> dict:
     """K2 against its plain version, bit for bit, in both strategies over
-    the main path's rows, long rows, q, w, k and vocabulary variants and the
+    the main path's rows, long rows, q, w, k, the main shape over the
+    bigram tables of every served vocabulary (phase 10's included) and the
     adversarial rows; then its times at the three real-text shapes beside
     its bound, its plain version and one launch's floor."""
     import torch
@@ -1235,9 +1266,9 @@ def phase_k2(S_main: int, cur_main: list) -> dict:
          SERVE_K, 16, tables["jamba"]),
         ("k=k_max L=332", *k2_text_rows(8, S_main, cur_main), 1,
          K2_TABLES[0], SERVE_W, st),
-        ("jamba vocab L=332", *k2_text_rows(8, S_main, cur_main), 1, SERVE_K,
-         SERVE_W, tables["jamba"]),
-    ] + k2_adversarial(st)
+    ] + [(f"{n} vocab L=332", *k2_text_rows(8, S_main, cur_main), 1,
+          SERVE_K, SERVE_W, tables[n]) for n in K2_VOCABS if n != "stablelm"
+         ] + k2_adversarial(st)
     for name, buf, cl, q, k, w, tab in cases:
         last = buf.gather(1, torch.remainder(cl.long() - 1, buf.shape[1])
                           [:, None])[:, 0].contiguous()
@@ -2451,33 +2482,66 @@ def phase_adaptive(tables, cont_rates: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 7: the hybrid (Mamba + attention) at full width
 # ---------------------------------------------------------------------------
-def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode):
-    """Each output is greedy decoding of its prompt, up to f32 ties.
+def oracle_logits(params, cfg, seq, lo: int, hi: int, pad_to: int = 0):
+    """Next-token logits at positions lo..hi-1 of one full forward over
+    ``seq`` (B, T), zero-padded at the end to a multiple of ``pad_to``
+    when given (causal: the padding changes no earlier position), so that
+    a long sequence takes the blockwise attention path."""
+    import torch.nn.functional as F
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import lm_logits
+    if pad_to:
+        seq = F.pad(seq, (0, -seq.shape[1] % pad_to))
+    hidden, _ = M.forward_hidden(params, cfg, tokens=seq)
+    return lm_logits(params["embed"], hidden[:, lo:hi], cfg)
 
-    The outputs are compared with greedy_reference token for token, and
-    every output token is held against the oracle's full forward over its
-    own prefix (prompt + the output before it, one forward for all
-    positions): it must be the oracle's argmax there, or lie within the
-    f32 noise of it, measured in this run as the largest logit difference
-    between two oracle evaluations of the same sequences (batch of all
-    requests against one at a time).  A token within that noise is a tie
-    (two top logits closer than f32 evaluation can separate); each is
-    printed with its margin.  Any other difference fails the run."""
-    import numpy as np
+
+def oracle_greedy(params, cfg, toks, max_new: int, pad_to: int = 0):
+    """Greedy decoding by full forwards only: ``greedy_reference``, or with
+    ``pad_to`` the same loop over ``oracle_logits`` (padded buffers)."""
     import torch
     from repro_torch.core.spec_engine import greedy_reference
-    from repro_torch.models import model as M
+    if not pad_to:
+        return greedy_reference(params, cfg, toks, max_new).cpu().numpy()
+    B, P = toks.shape
+    buf = torch.zeros((B, P + max_new), dtype=torch.int32, device="cuda")
+    buf[:, :P] = torch.as_tensor(toks, device="cuda")
+    with torch.no_grad():
+        for i in range(max_new):
+            buf[:, P + i] = oracle_logits(params, cfg, buf[:, :P + i], P + i - 1,
+                                          P + i, pad_to)[:, 0].argmax(-1)
+    return buf.cpu().numpy()
+
+
+def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode,
+                   pad_to: int = 0):
+    """Each output is greedy decoding of its prompt, up to f32 ties.
+
+    The outputs are compared with greedy decoding by full forwards
+    (``oracle_greedy``) token for token, and every output token is held
+    against the oracle's full forward over its own prefix (prompt + the
+    output before it, one forward for all positions): it must be the
+    oracle's argmax there, or lie within the f32 noise of it, measured in
+    this run as the largest logit difference between two oracle
+    evaluations of the same sequences (batch of all requests against one
+    at a time).  A token within that noise is a tie (two top logits closer
+    than f32 evaluation can separate); each is printed with its margin.
+    Any other difference fails the run.  ``pad_to``: see
+    ``oracle_logits``."""
+    import numpy as np
+    import torch
     toks = np.stack([tok_fn(p) for p in prompts])
     P, n = toks.shape[1], len(done)
-    ref = greedy_reference(params32, cfg32, toks, max_new).cpu().numpy()
+    ref = oracle_greedy(params32, cfg32, toks, max_new, pad_to)
     out = np.stack([r.output_ids for r in done])
     if out.shape != (n, max_new):
-        raise AssertionError(f"f32 hybrid {mode}: outputs {out.shape}")
+        raise AssertionError(f"f32 {mode}: outputs {out.shape}")
     seq = torch.as_tensor(np.concatenate([toks, out], 1), device="cuda")
+    T = seq.shape[1]
     with torch.no_grad():
-        logits = M.forward(params32, cfg32, tokens=seq)[0][:, P - 1:-1]
-        one = torch.cat([M.forward(params32, cfg32, tokens=seq[i:i + 1])[0]
-                         [:, P - 1:-1] for i in range(n)])
+        logits = oracle_logits(params32, cfg32, seq, P - 1, T - 1, pad_to)
+        one = torch.cat([oracle_logits(params32, cfg32, seq[i:i + 1], P - 1,
+                                       T - 1, pad_to) for i in range(n)])
     noise = float((logits - one).abs().max())
     chosen = logits.gather(-1, seq[:, P:, None].long())[..., 0]
     gap = (logits.max(-1).values - chosen).cpu().numpy()     # >= 0
@@ -2485,10 +2549,12 @@ def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode):
     for i in range(n):
         if not exact[i]:
             j = int(np.argmax(out[i] != ref[i, P:]))
-            m = top2_margin(params32, cfg32, ref[i], P + j - 1)
-            print(f"  request {done[i].request_id}: f32 hybrid {mode} != "
-                  f"greedy_reference from new token {j} (greedy_reference's"
-                  f" top-2 margin there {m:.4g})")
+            top = oracle_logits(params32, cfg32, torch.as_tensor(
+                ref[i:i + 1, :P + j], device="cuda"), P + j - 1, P + j,
+                pad_to)[0, 0].topk(2).values
+            print(f"  request {done[i].request_id}: f32 {mode} != "
+                  f"greedy decoding from new token {j} (the oracle's "
+                  f"top-2 margin there {float(top[0] - top[1]):.4g})")
     for i, t in zip(*np.nonzero(gap > 0)):
         tie = gap[i, t] <= noise
         print(f"  request {done[i].request_id} new token {t}: the oracle's "
@@ -2496,9 +2562,9 @@ def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode):
               f"({'a tie within' if tie else 'ABOVE'} the f32 noise "
               f"{noise:.4g})")
         if not tie:
-            raise AssertionError(f"f32 hybrid {mode} is not lossless")
+            raise AssertionError(f"f32 {mode} is not lossless")
     calls = sum(r.stats["model_calls"] for r in done)
-    print(f"  f32 hybrid {mode}: == greedy_reference for {sum(exact)} of {n}"
+    print(f"  f32 {mode}: == greedy decoding for {sum(exact)} of {n}"
           f" requests x {max_new} tokens; every token the oracle's argmax on"
           f" its own prefix but {int((gap > 0).sum())} f32 tie(s) (noise "
           f"{noise:.4g}); {calls} verify calls")
@@ -2656,7 +2722,7 @@ def phase_hybrid() -> tuple:
     tok_fn = lambda p: e.scheduler.pad_to_bucket(e.tok.encode(p))
     done, _ = serve(e, lprompts, LOSSLESS_NEW)
     check_lossless(params32, cfg32, done, lprompts, tok_fn, LOSSLESS_NEW,
-                   "static")
+                   "hybrid static")
     e = ServingEngine(params32, cfg32, spec, tables=tables,
                       max_batch=CONT_SLOTS, buckets=(SERVE_BUCKET,),
                       max_new_cap=LOSSLESS_NEW, paged=True,
@@ -2664,7 +2730,7 @@ def phase_hybrid() -> tuple:
     done, _ = serve_continuous(e, [(p, LOSSLESS_NEW) for p in lprompts])
     print(f"    pool: {check_pool_drained(e)}")
     check_lossless(params32, cfg32, done, lprompts, tok_fn, LOSSLESS_NEW,
-                   "continuous paged")
+                   "hybrid continuous paged")
     del params32, e
     torch.cuda.empty_cache()
     return k5, adaptive
@@ -2725,6 +2791,540 @@ def hybrid_adaptive(params, cfg, tables, prompts, work, rates) -> dict:
                              f"{launches}")
     print(f"  phase 7e took {time.perf_counter() - t_phase:.1f} s")
     return by_run
+
+
+# ---------------------------------------------------------------------------
+# phase 2f: K1 and K3 at the head shapes of the registry's other archs
+# ---------------------------------------------------------------------------
+ARCH_HEADS = (  # arch, H, KV, hd
+    ("gemma-2b", 8, 1, 256), ("glm4-9b", 32, 2, 128),
+    ("nemotron-4-340b", 96, 8, 192), ("qwen2-vl-72b", 64, 8, 128))
+PTXAS = {}           # kernel instance -> its -Xptxas -v report (phase 1)
+
+
+def mma_instance(H, KV, hd, KW1, paged: bool) -> str:
+    """The bf16 verify kernel's instance for these heads (the rule of
+    ``launch_mma_hd`` in csrc/spec_attention.cu) with its ptxas report."""
+    cap = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    mf = 2 if hd <= 128 and (H // KV) * KW1 > 64 else 1
+    name = f"spec_attention_mma_kernel<{cap}, {mf}, {int(paged)}>"
+    return f"{name}: {PTXAS.get(name, 'no ptxas report')}"
+
+
+def check_bf16_k1(label, out, want, ops, W1):
+    """Phase 2's bf16 check at a verify shape: within K1_SPLIT_ERR of the
+    plain version, or, where one output ulp exceeds it, within
+    K1_EXCESS_ERR of the plain version's own rounding with the control
+    above that limit (phase 2e's rule)."""
+    _, err = close(out, want, TOL["bfloat16"])
+    print(f"    bf16 vs its plain version {err:.4g} (K1_SPLIT_ERR "
+          f"{K1_SPLIT_ERR})")
+    if err <= K1_SPLIT_ERR:
+        return
+    excess, control = k1_rounding_split(out, want, ops, W1)
+    if not excess <= K1_EXCESS_ERR < control:
+        raise AssertionError(
+            f"bf16 K1 at {label}: {excess} beyond the plain version's "
+            f"rounding, control {control}; the limit {K1_EXCESS_ERR} must "
+            f"lie between them")
+
+
+def phase_arch_kernels(S_main: int, cur_main: list, cont_cur: list) -> None:
+    """Phase 2f: K1 and K3 against their plain versions (f32 2e-5, bf16
+    2e-2 and phase 2's K1_SPLIT_ERR rule; K3 bit for bit K1 on the
+    gathered view) at the verify (B 8, K 10, W1 11, S 332, ragged cur_len)
+    and decode (KW1 1) shapes of Gemma-2B, GLM-4-9B, Nemotron-4 and
+    Qwen2-VL's heads; the bf16 ones timed by events and device ms beside
+    their bound and SDPA, with their instance's registers and spills."""
+    import torch
+    from repro_torch.kernels.ref import gather_pages
+    from repro_torch.kernels.spec_attention import (
+        paged_spec_attention_cuda, paged_spec_attention_plain,
+        spec_attention_cuda, spec_attention_plain)
+    t_phase = time.perf_counter()
+    for arch, H, KV, hd in ARCH_HEADS:
+        for kind, K, W1 in (("verify", SERVE_K, SERVE_W + 1),
+                            ("decode", 1, 1)):
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).replace("torch.", "")
+                ops = k1_inputs(8, K, W1, H, KV, hd, S_main, cur_main, dtype,
+                                seed=41 + hd + K)
+                out = spec_attention_cuda(*ops, w1=W1)
+                want = spec_attention_plain(*ops, w1=W1)
+                ok, e = close(out, want, TOL[dname])
+                pops = k3_inputs(8, K, W1, H, KV, hd, CONT_PAGE, cont_cur,
+                                 dtype, seed=43 + hd + K)
+                q, kp, vp, pt, kt, vt, cur = pops
+                pout = paged_spec_attention_cuda(*pops, w1=W1)
+                pok, pe = close(pout, paged_spec_attention_plain(
+                    *pops, w1=W1), TOL[dname])
+                k_lin, v_lin = gather_pages(kp, vp, pt)
+                same = torch.equal(pout, spec_attention_cuda(
+                    q, k_lin, v_lin, kt, vt, cur, w1=W1))
+                print(f"  {arch:15s} {kind} {dname:8s} B=8 K={K} W1={W1} "
+                      f"H={H} KV={KV} hd={hd}: K1 S={S_main} max_abs_err="
+                      f"{e:.4g} {'ok' if ok else 'FAIL'}; K3 ps={CONT_PAGE}"
+                      f" max_abs_err={pe:.4g} {'ok' if pok else 'FAIL'}, =="
+                      f" K1 on the gathered view {'ok' if same else 'FAIL'}")
+                if not (ok and pok and same):
+                    raise AssertionError(f"K1/K3 at {arch}'s {kind} shape "
+                                         f"({dname}) disagree")
+            if kind == "verify":
+                check_bf16_k1(f"{arch}'s verify shape", out, want, ops, W1)
+            for name, fn, plain, lib_ops, bound, err in (
+                    ("K1", lambda: spec_attention_cuda(*ops, w1=W1),
+                     lambda: spec_attention_plain(*ops, w1=W1), ops,
+                     k1_bound_ms(ops[0], ops[1], ops[3], ops[5], W1), e),
+                    ("K3", lambda: paged_spec_attention_cuda(*pops, w1=W1),
+                     lambda: paged_spec_attention_plain(*pops, w1=W1),
+                     (q, k_lin, v_lin, kt, vt, cur),
+                     k3_bound_ms(q, kp, pt, kt, cur, W1), pe)):
+                lib_fn, _ = sdpa_yardstick(*lib_ops, W1)
+                r = timed(f"{name} {arch} {kind} (bf16)", fn, lib_fn,
+                          dict(max_abs_err=err, bound_ms=bound[0],
+                               bound_by=bound[1],
+                               plain_ms=time_ms(plain, iters=5, warmup=1)))
+                print(f"    plain_ms={r['plain_ms']:.4f} bound_ms="
+                      f"{bound[0]:.5f} ({bound[1]}); "
+                      f"{mma_instance(H, KV, hd, K * W1, name == 'K3')}")
+    print(f"  phase 2f took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the registry's other attention-only architectures
+# ---------------------------------------------------------------------------
+ARCH_RUNS = (("10c", "gemma-2b"), ("10d", "glm4-9b"),
+             ("10e", "nemotron-4-340b"), ("10e", "qwen2-vl-72b"))
+ARCH_DEPTH = {"nemotron-4-340b": 4, "qwen2-vl-72b": 4}   # of 96 and 80
+ARCH_F32_DEPTH = {"nemotron-4-340b": 1}                  # others: 2
+BIGRAM_BATCH = 2048          # the tables' sweep batch for vocabularies
+RING_CHARS, RING_BUCKET, RING_NEW = 4200, 4224, 64      # 10b: 4096-slot ring
+LONG_BUCKET, LONG_NEW = 8192, 64                        # 10g: 8192-slot ring
+HUBERT_FRAMES = (2, 1024)
+HUBERT_REL_TOL = 5e-2        # bf16 against f32 logits, relative (Frobenius)
+
+
+def arch_config(arch: str, layers: int = 0, f32: bool = False):
+    """The published config, cut to ``layers`` when given, in f32 when
+    asked (bf16 otherwise)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                  compute_dtype=torch.float32)
+    return cfg
+
+
+def load_model(cfg, seed: int = 0):
+    """Seeded parameters on the card, after a fresh peak-memory count (an
+    earlier model's engines may sit in reference cycles: collect them
+    first, so that its weights are gone)."""
+    import gc
+    import torch
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=seed, device="cuda")
+    sync()
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"H={cfg.num_heads} KV={cfg.num_kv_heads} hd="
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_count() / 1e9:.3f}B params "
+          f"{str(cfg.param_dtype)[6:]}, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, seeded init "
+          f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def peak_line(label: str) -> None:
+    import torch
+    print(f"  {label}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB")
+
+
+def arch_tables(params, cfg, batch: int = BIGRAM_BATCH):
+    """The mixed strategy's n-gram tables (k_max 25, w_max 16), by one
+    sweep over the vocabulary at ``batch`` tokens a forward, where a
+    default ServingEngine sweeps 256 at a time.  In bf16 the two batches
+    give different tables (the matmuls' reduction order follows the
+    batch: 255,961 of Gemma-2B's 512,000 top-k and chain rows differ,
+    ROADMAP queue 3).  That is acceptable here because the tables only
+    propose drafts: verification decides every served token, so no check
+    of this phase depends on which tables were built."""
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(params, cfg, SpecConfig(strategy="greedy"),
+                        buckets=(SERVE_BUCKET,))
+    t0 = time.perf_counter()
+    tables = eng.build_tables(k_max=25, w_max=16, batch=batch)
+    sync()
+    print(f"  n-gram tables (bigram sweep over {cfg.vocab_size} tokens, "
+          f"batch {batch}): {time.perf_counter() - t0:.2f} s")
+    return tables
+
+
+def arch_static(params, cfg, tables, prompts, label: str, runs: dict,
+                max_new: int = SERVE_NEW, bucket: int = SERVE_BUCKET):
+    """Static mixed (10, 10) beside greedy on ``prompts``: tokens/s,
+    tokens/call, launches and plain-verify calls; asserts each step went
+    through the path the config's contract gives it (K1 steps x layers
+    times, or the plain verify as often and K1 never) and K2 once a mixed
+    step.  Records each run's launches in ``runs``; returns the mixed
+    run's requests."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.kernels.dispatch import verify_kernel_supported
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import ServingEngine
+    kernel = verify_kernel_supported(cfg)
+    out = {}
+    for name in ("mixed", "greedy"):
+        spec = (SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+                if name == "mixed" else SpecConfig(strategy="greedy"))
+        eng = ServingEngine(params, cfg, spec, buckets=(bucket,),
+                            tables=tables if name == "mixed" else None)
+        reset_launches()              # counts from zero just before the run
+        A.plain_verify.calls = 0
+        done, wall = serve(eng, prompts, max_new)
+        launches, plain = read_launches(), A.plain_verify.calls
+        n_new = sum(r.stats["new_tokens"] for r in done)
+        calls = sum(r.stats["model_calls"] for r in done)
+        steps = max(r.stats["model_calls"] for r in done)
+        print(f"  {label} {name}: {n_new} new tokens in {wall:.3f} s = "
+              f"{n_new / wall:.1f} tokens/s, tokens/call "
+              f"{n_new / max(calls, 1):.3f}, {steps} steps, launches "
+              f"{launches}, plain-verify calls {plain}")
+        if any(r.stats["new_tokens"] != max_new for r in done):
+            raise AssertionError(f"{label} {name}: a request missed its "
+                                 f"budget")
+        want = steps * cfg.num_layers
+        got = (launches["spec_attention"], plain) if kernel \
+            else (plain, launches["spec_attention"])
+        if got != (want, 0) or launches["paged_spec_attention"]:
+            raise AssertionError(
+                f"{label} {name}: {'K1' if kernel else 'plain verify'} ran "
+                f"{got[0]} times, the other path {got[1]}; want {want} "
+                f"({steps} steps x {cfg.num_layers} layers) and 0")
+        if name == "mixed" and launches["ngram_match"] != steps:
+            raise AssertionError(f"{label}: K2 launched "
+                                 f"{launches['ngram_match']} times in "
+                                 f"{steps} drafting steps")
+        runs[f"{label} {name}"] = launches
+        out[name] = done
+    same = sum(bool(np.array_equal(a.output_ids, b.output_ids))
+               for a, b in zip(out["mixed"], out["greedy"]))
+    print(f"  {label}: bf16 mixed == bf16 greedy for {same} of "
+          f"{len(prompts)} requests")
+    torch.cuda.synchronize()
+    return out["mixed"]
+
+
+def arch_continuous(params, cfg, tables, label: str, runs: dict) -> None:
+    """Phase 5's mix, continuous paged mixed (10, 10) over the 16-page
+    pool: K3 steps x layers times, K2 once a step, K1 never."""
+    from repro_torch.core.spec_engine import SpecConfig
+    work = cont_workload()
+    eng = cont_engine(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W,
+                                              strategy="mixed"), tables, True)
+    reset_launches()
+    done, wall = serve_continuous(eng, work)
+    launches = read_launches()
+    print(f"  {label} continuous paged mixed: {cont_rate(done, wall)}, "
+          f"launches {launches}")
+    check_paged_run(eng, done, work)
+    steps = launches["ngram_match"]
+    if steps <= 0 or launches["spec_attention"] \
+            or launches["paged_spec_attention"] != steps * cfg.num_layers:
+        raise AssertionError(f"{label} continuous paged: want K3 = {steps} "
+                             f"steps x {cfg.num_layers} layers and no K1: "
+                             f"{launches}")
+    runs[f"{label} continuous paged"] = launches
+
+
+def arch_lossless(arch: str, tables, prompts, max_new: int, label: str,
+                  layers: int, bucket: int = SERVE_BUCKET, pad_to: int = 0,
+                  base=None) -> None:
+    """``base`` (default the published config) cut to ``layers`` in f32
+    (TF32 off), served statically mixed (10, 10) with ``tables``: greedy
+    decoding up to f32 ties (``check_lossless``)."""
+    import torch
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = arch_config(arch) if base is None else base
+    cfg32 = dataclasses.replace(cfg, num_layers=layers,
+                                param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    params32 = load_model(cfg32)
+    eng = ServingEngine(params32, cfg32, SpecConfig(k=SERVE_K, w=SERVE_W,
+                                                    strategy="mixed"),
+                        tables=tables, buckets=(bucket,))
+    done, wall = serve(eng, prompts, max_new)
+    tok_fn = lambda p: eng.scheduler.pad_to_bucket(eng.tok.encode(p))
+    check_lossless(params32, cfg32, done, prompts, tok_fn, max_new,
+                   f"{label} ({layers} layer{'s' * (layers > 1)}) static "
+                   f"mixed", pad_to=pad_to)
+    peak_line(f"{label} f32")
+    del params32, eng
+    torch.cuda.empty_cache()
+
+
+def mistral_verify_times(cfg, S_main: int, cur_main: list) -> None:
+    """10a: at Mistral's verify shape (B 8, K 10, W1 11, H 32, KV 8, hd
+    128, the main path's S and cur_len) the plain verify the model runs
+    (its window is out of reach at S 332, so all three compute the same
+    function), K1 and SDPA on the same bf16 inputs: outputs within bf16
+    2e-2 of one another, events and device ms, one bound."""
+    import torch
+    from repro_torch.models.attention import _verify_attention_xla
+    from repro_torch.kernels.spec_attention import spec_attention_cuda
+    W1 = SERVE_W + 1
+    ops = k1_inputs(8, SERVE_K, W1, 32, 8, 128, S_main, cur_main,
+                    torch.bfloat16, seed=51)
+    q, kc, vc, kt, vt, cl = ops
+    slots = torch.arange(S_main, device="cuda")[None]
+    cache_pos = torch.where(slots < cl[:, None], slots, -1).to(torch.int32)
+    pos2d = cl[:, None].long() + torch.arange(W1, device="cuda")[None]
+    plain = lambda: _verify_attention_xla(q, kc, vc, kt, vt, cache_pos,
+                                          pos2d, cfg)
+    lib_fn, lib_out = sdpa_yardstick(*ops, W1)
+    k1_out = spec_attention_cuda(*ops, w1=W1)
+    p_out = plain().to(torch.bfloat16)
+    errs = [close(a, b, 2e-2) for a, b in ((k1_out, p_out), (lib_out, p_out))]
+    bound, by = k1_bound_ms(q, kc, kt, cl, W1)
+    print(f"  Mistral's verify shape B=8 K={SERVE_K} W1={W1} H=32 KV=8 "
+          f"hd=128 S={S_main} (bf16): K1 vs the plain verify max_abs_err "
+          f"{errs[0][1]:.4g}, SDPA vs it {errs[1][1]:.4g}; bound_ms="
+          f"{bound:.5f} ({by})")
+    if not all(ok for ok, _ in errs):
+        raise AssertionError("K1, SDPA and the plain verify disagree at "
+                             "Mistral's verify shape")
+    for name, fn in (("plain verify (the model's path)", plain),
+                     ("K1 on the same inputs", lambda: spec_attention_cuda(
+                         *ops, w1=W1)),
+                     ("SDPA on the same inputs", lib_fn)):
+        print(f"    {name}: ms={time_ms(fn):.4f} device_ms="
+              f"{fmt_ms(device_ms(fn))}")
+
+
+def long_text(chars: int, seed: int) -> str:
+    """A code prompt of ``chars`` bytes: the reference datasets' examples
+    joined and repeated."""
+    from repro_torch.data.datasets import make_prompts
+    text = " ".join(p + c for p, c in make_prompts("code", 6, seed=seed))
+    return ((text + " ") * (chars // len(text) + 1))[:chars]
+
+
+def phase_mistral(S_main: int, cur_main: list, prompts, runs) -> None:
+    """10a and 10b (see ``phase_archs``)."""
+    import torch
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.kernels.dispatch import verify_kernel_supported
+    from repro_torch.models.cache import cache_buffer_len
+    cfg = arch_config("mistral-7b")
+    assert not verify_kernel_supported(cfg), cfg.sliding_window
+    print("phase 10a: Mistral-7B (full width, bf16): the plain verify, "
+          "static serving")
+    mistral_verify_times(cfg, S_main, cur_main)
+    params = load_model(cfg)
+    tables = arch_tables(params, cfg, batch=256)
+    arch_static(params, cfg, tables, prompts, "10a mistral-7b", runs)
+    spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+    profile_steps(params, cfg, spec, tables, prompts, steps=3,
+                  label="mistral mixed step")
+    profile_steps(params, cfg, SpecConfig(strategy="greedy"), None, prompts,
+                  steps=3, label="mistral greedy step")
+    peak_line("mistral-7b bf16")
+    ring = [long_text(RING_CHARS, 1), long_text(RING_CHARS, 2)]
+    S = cache_buffer_len(cfg, RING_BUCKET + RING_NEW + SERVE_W + 2)
+    print(f"phase 10b: Mistral's ring wraps ({len(ring)} prompts of "
+          f"{RING_CHARS} bytes in bucket {RING_BUCKET}, {RING_NEW} new "
+          f"tokens, a {S}-slot ring: wrapped in prefill and again under "
+          f"speculation)")
+    if S != cfg.sliding_window or RING_BUCKET <= S:
+        raise AssertionError(f"the ring ({S} slots) would not wrap")
+    arch_static(params, cfg, tables, ring, "10b mistral-7b ring", runs,
+                max_new=RING_NEW, bucket=RING_BUCKET)
+    peak_line("mistral-7b bf16 ring")
+    del params
+    torch.cuda.empty_cache()
+    arch_lossless("mistral-7b", tables, ring, RING_NEW, "10b mistral-7b ring",
+                  layers=2, bucket=RING_BUCKET)
+
+
+def phase_archs(S_main: int, cur_main: list, lm_tables) -> dict:
+    """Phase 10: the registry's other attention-only archs at full width
+    (Nemotron-4 and Qwen2-VL cut to 4 layers), bf16, seeded weights, one
+    model at a time, each freed after.
+
+    10a: Mistral-7B serves phase 3's 8 requests statically (mixed (10, 10)
+    and greedy; profiled): its window keeps K1 off, so every verify layer
+    is the plain verify (steps x 32 calls) and K2 drafts; the plain
+    verify's device ms beside K1 and SDPA at its verify shape.  10b: two
+    ~4,200-byte prompts and 64 new tokens wrap its 4,096-slot ring in
+    prefill and under speculation (bf16, full width), then in f32 at depth
+    2 the same requests are greedy decoding (``check_lossless``'s tie
+    rule).  10c-10e: Gemma-2B, GLM-4-9B, Nemotron-4 (4 layers) and Qwen2-VL
+    (4 layers, M-RoPE) serve phase 3's requests statically (K1 steps x
+    layers times), Gemma and GLM phase 5's mix continuously paged (K3),
+    and in f32 (Nemotron at 1 layer, the others at 2) the static mixed
+    outputs are greedy decoding.  10f: HuBERT-XLarge's encoder on 2 x 1024
+    seeded frame embeddings, bf16 against f32 on the same weights.  10g:
+    StableLM's long-context variant (an 8,192-slot ring): two 8,192-token
+    prompts prefill through the blockwise attention, 64 new tokens wrap
+    the ring; in f32 at depth 2 greedy decoding.  Returns each run's
+    kernel launches."""
+    import torch
+    t_phase = time.perf_counter()
+    runs: dict = {}
+    prompts = smoke_prompts()
+    t0 = time.perf_counter()
+    phase_mistral(S_main, cur_main, prompts, runs)
+    print(f"  phases 10a-10b took {time.perf_counter() - t0:.1f} s")
+    for label, arch in ARCH_RUNS:
+        t0 = time.perf_counter()
+        layers = ARCH_DEPTH.get(arch, 0)
+        cfg = arch_config(arch, layers)
+        print(f"phase {label}: {arch} "
+              f"({f'{layers} of its layers' if layers else 'full depth'}, "
+              f"full width, bf16)")
+        params = load_model(cfg)
+        tables = arch_tables(params, cfg)
+        if arch == "gemma-2b":
+            small = arch_tables(params, cfg, batch=256)
+            diff = sum(int((a != b).any(dim=-1).sum()) for a, b in (
+                (tables.bigram_topk, small.bigram_topk),
+                (tables.bigram_chain, small.bigram_chain)))
+            print(f"    tables at batch {BIGRAM_BATCH} == batch 256: rows "
+                  f"that differ {diff} of {2 * cfg.vocab_size}")
+        arch_static(params, cfg, tables, prompts, f"{label} {arch}", runs)
+        if arch in ("gemma-2b", "glm4-9b"):
+            arch_continuous(params, cfg, tables, f"{label} {arch}", runs)
+        peak_line(f"{arch} bf16")
+        del params
+        torch.cuda.empty_cache()
+        n = 2 if arch == "nemotron-4-340b" else LOSSLESS_REQUESTS
+        arch_lossless(arch, tables, prompts[:n], LOSSLESS_NEW,
+                      f"{label} {arch}", ARCH_F32_DEPTH.get(arch, 2))
+        print(f"  phase {label} {arch} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_hubert()
+    print(f"  phase 10f took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_long_context(lm_tables, prompts, runs)
+    print(f"  phase 10g took {time.perf_counter() - t0:.1f} s")
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+def phase_hubert() -> None:
+    """10f: HuBERT-XLarge (full width and depth, encoder-only, no decode
+    path) from seeded frame embeddings: ``forward(embeds=)`` in bf16,
+    against the same forward in f32 on the same (bf16) weights."""
+    import torch
+    from repro_torch.configs import supports_decode
+    from repro_torch.models import model as M
+    cfg = arch_config("hubert-xlarge")
+    print(f"phase 10f: {cfg.name} (full, bf16; {HUBERT_FRAMES[0]} x "
+          f"{HUBERT_FRAMES[1]} seeded frame embeddings)")
+    assert not supports_decode(cfg)
+    params = load_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    emb = torch.randn(HUBERT_FRAMES + (cfg.d_model,), generator=g,
+                      device="cuda")
+    fwd = lambda: M.forward(params, cfg, embeds=emb)[0]
+    logits = fwd()
+    ms = time_ms(fwd, iters=5, warmup=1)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    up = lambda t: {k: up(v) for k, v in t.items()} if isinstance(t, dict) \
+        else t.float()
+    params32 = up(params)
+    want = M.forward(params32, cfg32, embeds=emb)[0]
+    rel = float((logits - want).norm() / want.norm())
+    print(f"  logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}; bf16 forward {ms:.3f} ms "
+          f"(events, 5 calls); bf16 vs f32 relative error {rel:.4g} "
+          f"(limit {HUBERT_REL_TOL}), max abs "
+          f"{float((logits - want).abs().max()):.4g} at max |logit| "
+          f"{float(want.abs().max()):.4g}")
+    if logits.shape != HUBERT_FRAMES + (cfg.vocab_size,) \
+            or not bool(torch.isfinite(logits).all()) or rel > HUBERT_REL_TOL:
+        raise AssertionError("HuBERT's bf16 logits are wrong")
+    peak_line("hubert-xlarge")
+    del params, params32
+    torch.cuda.empty_cache()
+
+
+def phase_long_context(tables, prompts, runs) -> None:
+    """10g: ``long_context_variant`` of StableLM-2-1.6B (an 8,192-slot
+    ring) at full width, bf16: a prefill of two 8,192-token prompts through
+    the blockwise attention (timed), then static mixed and greedy serving
+    with 64 new tokens (the ring wraps; the plain verify carries every
+    verify layer); in f32 at depth 2, 32 new tokens are greedy decoding
+    (the oracle's buffers padded to whole 1,024-key blocks)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, long_context_variant
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.serving.scheduler import Scheduler
+    cfg = long_context_variant(get_config("stablelm-1.6b"))
+    print(f"phase 10g: {cfg.name} (window {cfg.sliding_window}, full width, "
+          f"bf16): 2 prompts of {LONG_BUCKET} tokens, {LONG_NEW} new")
+    texts = [long_text(LONG_BUCKET, 3), long_text(LONG_BUCKET, 4)]
+    real = A._blockwise_attention
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    A._blockwise_attention = counted
+    try:
+        params = load_model(cfg)
+        toks = torch.as_tensor(np.stack(
+            [Scheduler(buckets=(LONG_BUCKET,)).pad_to_bucket(
+                ByteTokenizer().encode(t)) for t in texts]), device="cuda")
+        state = M.init_state(cfg, 2, LONG_BUCKET + LONG_NEW + SERVE_W + 2)
+        sync()
+        t0 = time.perf_counter()
+        logits, _ = M.prefill(params, cfg, state, tokens=toks,
+                              last_only=True)
+        sync()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  prefill (2 x {LONG_BUCKET} tokens): {pre_ms:.1f} ms, "
+              f"blockwise calls {len(calls)} ({cfg.num_layers} layers), "
+              f"finite {bool(torch.isfinite(logits).all())}, ring slots "
+              f"{state['groups']['p0']['k'].shape[2]}")
+        peak_line("prefill")
+        if len(calls) != cfg.num_layers or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError("the long prefill did not run blockwise "
+                                 "in every layer, or is not finite")
+        del state, logits
+        calls.clear()
+        done = arch_static(params, cfg, tables, texts, "10g stablelm+swa",
+                           runs, max_new=LONG_NEW, bucket=LONG_BUCKET)
+        print(f"  blockwise calls while serving: {len(calls)}")
+        if not calls or any(len(r.output_ids) != LONG_NEW for r in done):
+            raise AssertionError("long-context serving missed the blockwise "
+                                 "prefill")
+        peak_line("stablelm+swa bf16")
+        del params
+        torch.cuda.empty_cache()
+        arch_lossless("stablelm-1.6b", tables, texts, LOSSLESS_NEW,
+                      "10g stablelm+swa", 2, bucket=LONG_BUCKET,
+                      pad_to=A.BLOCKWISE_BLOCK, base=cfg)
+    finally:
+        A._blockwise_attention = real
 
 
 def template_args(mangled: str) -> list:
@@ -2792,6 +3392,7 @@ def main() -> int:
         for kernel, report in ptxas_report(
                 log.read_text() if log.exists() else ""):
             print(f"  {name}: {kernel}: {report}")
+            PTXAS[kernel] = report
     card = card_line()
     print(f"  {card}")
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2822,6 +3423,10 @@ def main() -> int:
           "k = 25 and w 2, 4, 10)")
     phase_adaptive_kernels(S_main, cur_main, cont_cur)
 
+    print("phase 2f: K1 and K3 at Gemma-2B's, GLM-4-9B's, Nemotron-4's and "
+          "Qwen2-VL's heads (verify and decode)")
+    phase_arch_kernels(S_main, cur_main, cont_cur)
+
     print("phase 3: serve")
     launches, tables, serve_out = phase_serve()
 
@@ -2850,6 +3455,11 @@ def main() -> int:
     # each adaptive run's own launches (9a-9c, 7e), beside the main path's
     adaptive.update(hyb_adaptive)
 
+    print("phase 10: the registry's other attention-only archs (Mistral-7B,"
+          " Gemma-2B, GLM-4-9B, Nemotron-4, Qwen2-VL, HuBERT, StableLM's "
+          "long-context variant)")
+    archs = phase_archs(S_main, cur_main, tables)
+
     cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
                    cu, "src/repro/kernels/spec_attention.py:137"),
@@ -2869,6 +3479,8 @@ def main() -> int:
                     replaces=sources[n][1], launches=launches[n],
                     launches_adaptive={run: ls[n] for run, ls in
                                        adaptive.items() if ls.get(n)},
+                    launches_archs={run: ls[n] for run, ls in archs.items()
+                                    if ls.get(n)},
                     **rec[n])
                for n in sources]
     print(json.dumps({"kernels": kernels}))

@@ -41,24 +41,35 @@ def _topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
+UNIGRAM_CHUNK = 1 << 16        # tokens of the vocabulary read at a time
+
+
 def build_unigram(embedding: torch.Tensor, lm_head: torch.Tensor,
                   k_max: int = 32, appendix_variant: bool = False
                   ) -> torch.Tensor:
     """embedding: (V, d) input embeddings; lm_head: (d, V) output embeds.
 
     Returns the k_max tokens with the smallest d(x) (main-text formula), or
-    the appendix's topk(-(mu Cov u_x)) when ``appendix_variant``.
+    the appendix's topk(-(mu Cov u_x)) when ``appendix_variant``.  The
+    vocabulary is read ``UNIGRAM_CHUNK`` tokens at a time in f32, so that
+    no f32 copy of a whole table is made (one of Nemotron-4's
+    256000 x 18432 tables is 18.9 GB in f32).
     """
-    Ve = embedding.float()
-    U = lm_head.float()                        # columns u_x: (d, V)
-    cov = (Ve.T @ Ve) / Ve.shape[0]            # (d, d)
-    mu = U.mean(dim=1, keepdim=True)           # (d, 1)
+    V = embedding.shape[0]
+    parts = [slice(i, i + UNIGRAM_CHUNK) for i in range(0, V, UNIGRAM_CHUNK)]
+    cov = sum(e.T @ e for e in (embedding[c].float() for c in parts)) / V
+    mu = sum(lm_head[:, c].float().sum(dim=1, keepdim=True)
+             for c in parts) / V                       # (d, 1)
     if appendix_variant:
-        dists = (mu.T @ cov @ U).squeeze(0)
+        w = mu.T @ cov
+        dists = torch.cat([(w @ lm_head[:, c].float()).squeeze(0)
+                           for c in parts])
         return _topk_indices(-dists, k_max).to(torch.int32)
-    diff = U - mu
-    d2 = torch.einsum("dv,de,ev->v", diff, cov, diff)
-    return _topk_indices(-d2, k_max).to(torch.int32)
+    d2 = []
+    for c in parts:
+        diff = lm_head[:, c].float() - mu
+        d2.append(torch.einsum("dv,de,ev->v", diff, cov, diff))
+    return _topk_indices(-torch.cat(d2), k_max).to(torch.int32)
 
 
 def build_bigram(next_logits_fn: Callable[[torch.Tensor], torch.Tensor],

@@ -2,11 +2,17 @@
 cache (port of ``repro/models/attention.py``).
 
 Prefill and the full forward use ``masked_attention``, plain tensor ops (the
-reference leaves it to XLA as well).  Verify and decode use the bifurcated
-attention of the paper's batched (k, w+1) verification: on the card through
-K1 (``kernels/dispatch.verify_attention``) or, over a paged pool, K3
-(``dispatch.verify_attention_paged``), and K4 for a token tree in either
-layout; on the CPU through ``_verify_attention_xla``, the plain verify.
+reference leaves it to XLA as well), blockwise with an online softmax from
+``BLOCKWISE_THRESHOLD`` keys on.  Verify and decode use the bifurcated
+attention of the paper's batched (k, w+1) verification.  Which path is
+decided by the config alone, as the reference's ``_use_verify_kernel``
+does (``dispatch.verify_kernel_supported``): inside K1's contract, on the
+card through K1 (``kernels/dispatch.verify_attention``) or, over a paged
+pool, K3 (``dispatch.verify_attention_paged``), and K4 for a token tree in
+either layout, on the CPU through ``_verify_attention_xla``; outside it (a
+sliding window or a logit softcap), through ``plain_verify`` on whatever
+device the tensors are on, the counterpart of the reference's XLA verify
+for those configs.
 """
 from __future__ import annotations
 
@@ -34,10 +40,20 @@ def _rope_inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
 
 
 def rope_freqs(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
-    """positions: (B, T) int. Returns (B, T, rd/2) f32."""
-    if cfg.rope == MROPE:
-        raise NotImplementedError("M-RoPE is not ported yet")
+    """positions: (B, T) int, or (3, B, T) t/h/w rows for M-RoPE.  Returns
+    (B, T, rd/2) f32.  M-RoPE gives rotary half-dim i the position row of
+    its section (``cfg.mrope_sections`` half-dims for t, h, w in turn)."""
     inv = _rope_inv_freq(cfg, positions.device)
+    if cfg.rope == MROPE:
+        if positions.dim() != 3:
+            raise ValueError("M-RoPE needs (3, B, T) positions")
+        sec_id = torch.repeat_interleave(
+            torch.arange(3, device=positions.device),
+            torch.as_tensor(cfg.mrope_sections, device=positions.device))
+        sec_id = torch.cat([sec_id, sec_id.new_full(
+            (max(inv.shape[0] - sec_id.shape[0], 0),), 2)])[:inv.shape[0]]
+        pos = positions.float()[sec_id]                # (rd/2, B, T)
+        return torch.movedim(pos, 0, -1) * inv
     return positions.float()[..., None] * inv
 
 
@@ -60,31 +76,87 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor,
 # ----------------------------------------------------------------------------
 # full attention (prefill / forward), plain tensor ops
 # ----------------------------------------------------------------------------
+# From this many keys on (in whole blocks), full attention runs blockwise
+# with an online softmax, so that only one (B, KV, G, T, block) slab of
+# logits is live at a time instead of the whole (B, KV, G, T, S) tensor
+# (the reference's constants).
+BLOCKWISE_THRESHOLD = 8192
+BLOCKWISE_BLOCK = 1024
+
+
+def _valid_keys(kp, q_pos, cfg: ModelConfig, causal: bool) -> torch.Tensor:
+    """(B, 1, 1, T, S') visibility of keys at positions ``kp`` (B, S')."""
+    valid = (kp >= 0)[:, None, None, None, :]
+    if causal:
+        valid = valid & (kp[:, None, :] <= q_pos[:, :, None])[:, None, None]
+    if cfg.sliding_window is not None:
+        win = cfg.sliding_window
+        valid = valid & (kp[:, None, :]
+                         > q_pos[:, :, None] - win)[:, None, None]
+    return valid
+
+
+def _blockwise_attention(q, k, v, q_pos, k_pos, cfg: ModelConfig,
+                         causal: bool, block: int = BLOCKWISE_BLOCK
+                         ) -> torch.Tensor:
+    """Flash-style attention: a loop over key blocks with an online
+    softmax.  Same contract as ``masked_attention`` (S a multiple of
+    ``block``); the same softmax, up to float reassociation."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if S % block:
+        raise ValueError(f"{S} keys are not a whole number of {block}-key "
+                         f"blocks")
+    qf = q.reshape(B, T, KV, G, hd).float()
+    scale = 1.0 / (hd ** 0.5)
+    m = torch.full((B, KV, G, T), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, T), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, T, hd), dtype=torch.float32,
+                      device=q.device)
+    for lo in range(0, S, block):
+        k_c = k[:, lo:lo + block].float()
+        v_c = v[:, lo:lo + block].float()
+        logits = torch.einsum("btkgh,bskh->bkgts", qf, k_c) * scale
+        if cfg.attn_logit_softcap:
+            c = cfg.attn_logit_softcap
+            logits = c * torch.tanh(logits / c)
+        logits = torch.where(
+            _valid_keys(k_pos[:, lo:lo + block], q_pos, cfg, causal),
+            logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        del logits
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgts,bskh->bkgth", p,
+                                                    v_c)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return torch.movedim(out, -2, 1).reshape(B, T, H, hd).to(q.dtype)
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_pos: torch.Tensor, k_pos: torch.Tensor,
                      cfg: ModelConfig, causal: bool) -> torch.Tensor:
     """q: (B,T,H,hd) k/v: (B,S,KV,hd); *_pos: (B,T)/(B,S) (-1 = invalid key).
 
-    Returns (B, T, H, hd).  GQA via reshape to (KV, G) groups.  (The
-    reference's blockwise path for S >= 8192 computes the same softmax; it is
-    not ported with this slice.)
+    Returns (B, T, H, hd).  GQA via reshape to (KV, G) groups.  From
+    ``BLOCKWISE_THRESHOLD`` keys on, in whole blocks, the blockwise path.
     """
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
+    if S >= BLOCKWISE_THRESHOLD and S % BLOCKWISE_BLOCK == 0:
+        return _blockwise_attention(q, k, v, q_pos, k_pos, cfg, causal)
     G = H // KV
     qf = q.reshape(B, T, KV, G, hd).float()
     logits = torch.einsum("btkgh,bskh->bkgts", qf, k.float()) / (hd ** 0.5)
     if cfg.attn_logit_softcap:
         c = cfg.attn_logit_softcap
         logits = c * torch.tanh(logits / c)
-    valid = (k_pos >= 0)[:, None, None, None, :]
-    if causal:
-        valid = valid & (k_pos[:, None, :] <= q_pos[:, :, None])[:, None, None]
-    if cfg.sliding_window is not None:
-        win = cfg.sliding_window
-        valid = valid & (k_pos[:, None, :]
-                         > q_pos[:, :, None] - win)[:, None, None]
-    logits = torch.where(valid, logits, NEG_INF)
+    logits = torch.where(_valid_keys(k_pos, q_pos, cfg, causal), logits,
+                         NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
     return out.reshape(B, T, H, hd).to(q.dtype)
@@ -115,14 +187,14 @@ def attn_full(params: Params, x: torch.Tensor, cfg: ModelConfig,
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Self-attention over a full block (prefill / forward).
 
-    positions: (B, T). seq_mask: (B, T) bool for padding.
-    Returns output and the (k, v) tensors for cache insertion.
+    positions: (B, T), or (3, B, T) for M-RoPE.  seq_mask: (B, T) bool for
+    padding.  Returns output and the (k, v) tensors for cache insertion.
     """
     freqs = rope_freqs(cfg, positions) if cfg.rope != "none" else None
     q, k, v = qkv_project(params, x, cfg, freqs)
-    k_pos = positions if seq_mask is None else torch.where(seq_mask,
-                                                           positions, -1)
-    out = masked_attention(q, k, v, positions, k_pos, cfg, causal=cfg.causal)
+    pos2d = positions[0] if positions.dim() == 3 else positions
+    k_pos = pos2d if seq_mask is None else torch.where(seq_mask, pos2d, -1)
+    out = masked_attention(q, k, v, pos2d, k_pos, cfg, causal=cfg.causal)
     B, T = out.shape[:2]
     y = out.reshape(B, T, -1) @ params["wo"].to(cfg.compute_dtype)
     return y, (k, v)
@@ -139,7 +211,8 @@ def _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail, cache_pos,
     pos2d: (B,W1) query positions.  ``tail_mask``: optional static (W1, W1)
     bool tail visibility replacing the causal triangle, tree verification's
     ancestor mask (K == 1 there).  Returns (B,K,W1,H,hd) f32.
-    Covers softcap and sliding-window ring caches, which K1 does not.
+    Covers softcap and sliding-window ring caches, which K1 does not
+    (``plain_verify`` routes those configs here on any device).
     """
     B, K, W1, H, hd = q.shape
     KV = k_cache.shape[2]
@@ -177,6 +250,23 @@ def _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail, cache_pos,
     return out.reshape(B, K, W1, H, hd)
 
 
+def plain_verify(q, k_cache, v_cache, k_tail, v_tail, cache_pos, pos2d,
+                 cfg: ModelConfig, tail_mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The verify of a config outside K1's contract (a sliding window or a
+    logit softcap), on the card as on the CPU: ``_verify_attention_xla``,
+    which is what the reference runs for such a config
+    (``_use_verify_kernel``), so it is the config's own main path and not
+    a stand-in for a kernel.  ``plain_verify.calls`` counts its calls, as
+    the kernels' wrappers count their launches."""
+    plain_verify.calls += 1
+    return _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail,
+                                 cache_pos, pos2d, cfg, tail_mask=tail_mask)
+
+
+plain_verify.calls = 0
+
+
 def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -189,14 +279,20 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
     x: (B, k, w1, d) — k speculative rows per sequence.  Each row attends to
     the SHARED context cache (read once, not k times) plus its own
     (w1)-token tail, causally, with no cross-row attention.
-    positions: (B, w1), identical for all k rows.  cur_len: (B,) int32
-    committed cache length; cache_pos: (B, S) (``cache.key_positions``).
-    On the card this runs K1, which raises for a config outside its
-    contract (``dispatch.verify_kernel_supported``).
+    positions: (B, w1), or (3, B, w1) for M-RoPE, identical for all k
+    rows.  cur_len: (B,) int32 committed cache length; cache_pos: (B, S)
+    (``cache.key_positions``).  A config outside K1's contract
+    (``dispatch.verify_kernel_supported``: a sliding window, whose cache
+    may be a ring, or a logit softcap) runs ``plain_verify`` on any device;
+    inside it a CUDA tensor runs K1, which raises on an operand it
+    refuses.
     page_table: (B, PPS) when the cache is PAGED: k_cache/v_cache are then
-    the layer's shared pool (NP, ps, KV, hd).  On the card K3 walks the
-    table; on the CPU the per-slot linear view is gathered first and the
-    plain verify runs on it unchanged, with cache_pos over PPS*ps slots.
+    the layer's shared pool (NP, ps, KV, hd).  On the card a config inside
+    the contract runs K3, which walks the table; otherwise the per-slot
+    linear view is gathered first and the plain verify runs on it
+    unchanged, with cache_pos over PPS*ps slots.  (Paged states refuse
+    window configs, ``cache.paged_supported``; a softcap config may be
+    paged.)
     tail_mask: optional static tail visibility of a token tree (the tree
     rides as the single row k == 1; ``core/tree.device_constants``):
     K4 on the card, the plain verify with its bool mask on the CPU.
@@ -212,11 +308,9 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
     qk = q.reshape(B, K, W1, cfg.num_heads, hd)
     kn = k_new.reshape(B, K, W1, KV, hd)
     vn = v_new.reshape(B, K, W1, KV, hd)
-    if dispatch.on_card(x):
-        if not dispatch.verify_kernel_supported(cfg):
-            raise ValueError(
-                f"{cfg.name}: sliding-window or softcapped attention is "
-                f"outside the verify kernel's contract")
+    pos2d = positions[0] if positions.dim() == 3 else positions
+    kernel = dispatch.verify_kernel_supported(cfg)
+    if kernel and dispatch.on_card(x):
         if page_table is not None:
             out = dispatch.verify_attention_paged(qk, k_cache, v_cache,
                                                   page_table, kn, vn,
@@ -227,11 +321,11 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
                                             cur_len, w1=W1,
                                             tail_mask=tail_mask)
     else:
-        mask = None if tail_mask is None else tail_mask.mask
         if page_table is not None:
             k_cache, v_cache = gather_pages(k_cache, v_cache, page_table)
-        out = _verify_attention_xla(qk, k_cache, v_cache, kn, vn, cache_pos,
-                                    positions, cfg, tail_mask=mask)
+        verify = _verify_attention_xla if kernel else plain_verify
+        out = verify(qk, k_cache, v_cache, kn, vn, cache_pos, pos2d, cfg,
+                     tail_mask=None if tail_mask is None else tail_mask.mask)
     out = out.reshape(B, K, W1, cfg.num_heads * hd).to(cd)
     y = out @ params["wo"].to(cd)
     return y, kn, vn

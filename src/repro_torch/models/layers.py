@@ -28,14 +28,14 @@ def dense_init(shape, dtype, generator: torch.Generator, device,
     std = scale / (shape[-2] ** 0.5)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)      # in place: one f32 copy at a time
 
 
 def embed_init(shape, dtype, generator: torch.Generator,
                device) -> torch.Tensor:
     t = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (0.02 * t).to(dtype)
+    return t.mul_(0.02).to(dtype)
 
 
 # ----------------------------------------------------------------------------

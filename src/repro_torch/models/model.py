@@ -18,15 +18,16 @@ import torch
 from .cache import (attn_groups, init_state, is_paged, key_positions,
                     kv_write, paged_dims, paged_kv_write, phys_slots,
                     write_slots)
-from .config import ATTN, ModelConfig, layer_blocks
+from .config import ATTN, MROPE, ModelConfig, layer_blocks
 from .layers import apply_norm, embed_tokens, lm_logits
 from .transformer import init_params, run_stack
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
 
-__all__ = ["init_params", "init_state", "forward", "prefill", "decode",
-           "verify", "commit_kv_tails", "has_recurrent", "make_positions"]
+__all__ = ["init_params", "init_state", "forward", "forward_hidden",
+           "prefill", "decode", "verify", "commit_kv_tails", "has_recurrent",
+           "make_positions"]
 
 
 def has_recurrent(cfg: ModelConfig) -> bool:
@@ -37,15 +38,31 @@ def _pure_recurrent(cfg: ModelConfig) -> bool:
     return all(b.mixer != ATTN for b in layer_blocks(cfg))
 
 
-def make_positions(cfg: ModelConfig, B: int, T: int,
-                   offset: Optional[torch.Tensor] = None,
-                   device=None) -> torch.Tensor:
+def _linear_positions(B: int, T: int, offset: Optional[torch.Tensor] = None,
+                      device=None) -> torch.Tensor:
     """(B, T) int64 positions, shifted by ``offset`` (B,) when given."""
     dev = offset.device if offset is not None else device
     pos = torch.arange(T, device=dev)[None].expand(B, T)
     if offset is not None:
         pos = pos + offset[:, None].long()
     return pos
+
+
+def _rope_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """(B, T) positions as the config's RoPE reads them: (3, B, T) for
+    M-RoPE, where a text token's t/h/w positions coincide (Qwen2-VL
+    §3.1)."""
+    if cfg.rope == MROPE:
+        return pos[None].expand(3, *pos.shape)
+    return pos
+
+
+def make_positions(cfg: ModelConfig, B: int, T: int,
+                   offset: Optional[torch.Tensor] = None,
+                   device=None) -> torch.Tensor:
+    """(B, T) int64 positions, shifted by ``offset`` (B,) when given;
+    (3, B, T) for M-RoPE."""
+    return _rope_positions(cfg, _linear_positions(B, T, offset, device))
 
 
 def _cache_len(state: State) -> int:
@@ -64,19 +81,37 @@ def _paged_ctx(state: State, pos: torch.Tensor) -> Dict[str, Any]:
             "slots": phys_slots(state["page_table"], pos, ps, N)}
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            positions: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full forward (scoring). Returns (logits f32, aux) — aux is the
+def _embed(params: Params, cfg: ModelConfig, tokens, embeds
+           ) -> torch.Tensor:
+    """The first hidden states: ``embeds`` (B, T, d) as given (an
+    embedding-input model's frame or patch embeddings), else the token
+    embeddings of ``tokens`` (B, T)."""
+    if embeds is not None:
+        return embeds.to(cfg.compute_dtype)
+    return embed_tokens(params["embed"], tokens, cfg)
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, tokens=None,
+                   embeds=None, positions=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward up to the final norm, from ``tokens`` (B, T) or
+    ``embeds`` (B, T, d).  Returns (hidden (B, T, d), aux) — aux is the
     reference's MoE loss slot, zero for the dense stacks ported here."""
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x = _embed(params, cfg, tokens, embeds)
     B, T = x.shape[:2]
     if positions is None:
         positions = make_positions(cfg, B, T, device=x.device)
     x, _ = run_stack(params, cfg, x, "full", None, {"positions": positions})
-    x = apply_norm(params["final_norm"], x, cfg)
-    return (lm_logits(params["embed"], x, cfg),
+    return (apply_norm(params["final_norm"], x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
+            positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward (scoring) from ``tokens`` or ``embeds``.  Returns
+    (logits f32, aux)."""
+    x, aux = forward_hidden(params, cfg, tokens, embeds, positions)
+    return lm_logits(params["embed"], x, cfg), aux
 
 
 def prefill(params: Params, cfg: ModelConfig, state: State,
@@ -93,8 +128,8 @@ def prefill(params: Params, cfg: ModelConfig, state: State,
     if is_paged(state):
         # positions 0..T-1 of every row, through its page table (the pages
         # must be allocated already)
-        ctx.update(_paged_ctx(state, make_positions(cfg, B, T,
-                                                    device=x.device)))
+        ctx.update(_paged_ctx(state, _linear_positions(B, T,
+                                                       device=x.device)))
     x, _ = run_stack(params, cfg, x, "prefill", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     if last_only:
@@ -162,7 +197,8 @@ def verify(params: Params, cfg: ModelConfig, state: State,
     B, K, W1 = tokens.shape
     cur = state["cur_len"]
     positions = (make_positions(cfg, B, W1, offset=cur) if pos_off is None
-                 else pos_off[None, :] + cur[:, None].long())
+                 else _rope_positions(cfg, pos_off[None, :]
+                                      + cur[:, None].long()))
     ctx: Dict[str, Any] = {"positions": positions,
                            "tail_mask": tail_mask,
                            "k_rows": K}

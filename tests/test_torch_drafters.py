@@ -20,6 +20,7 @@ from repro.core.ngram_tables import build_unigram as j_build_unigram
 from repro.core.ngram_tables import NGramTables as JNGramTables
 from repro.core.ngram_tables import tables_from_counts
 from repro_torch.core import drafters as D
+from repro_torch.core import ngram_tables as NT
 from repro_torch.core import spec_engine as E
 from repro_torch.core.ngram_tables import (NGramTables, build_bigram,
                                            build_unigram)
@@ -211,6 +212,30 @@ def test_build_unigram_breaks_exact_ties_like_jax(appendix):
     head = np.repeat(head, 4, axis=1)                     # 4-way ties
     want = j_build_unigram(jnp.asarray(emb), jnp.asarray(head), k_max=10,
                            appendix_variant=appendix)
+    got = build_unigram(torch.from_numpy(emb), torch.from_numpy(head),
+                        k_max=10, appendix_variant=appendix)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("ties", [True, False])
+@pytest.mark.parametrize("appendix", [False, True])
+def test_build_unigram_over_several_chunks_matches_jax(monkeypatch,
+                                                       appendix, ties):
+    """The vocabulary read in uneven chunks (21, 21, 21, 1 of 64 tokens),
+    as every served vocabulary on the card is read: exact 4-way ties break
+    as JAX's do, and over normal embeddings the ranking is JAX's."""
+    V, d = 64, 4
+    rng = np.random.default_rng(2)
+    if ties:
+        emb = rng.integers(-1, 2, (V, d)).astype(np.float32)
+        head = np.repeat(rng.integers(-1, 2, (d, V // 4)), 4,
+                         axis=1).astype(np.float32)
+    else:
+        emb = rng.standard_normal((V, d)).astype(np.float32)
+        head = rng.standard_normal((d, V)).astype(np.float32)
+    want = j_build_unigram(jnp.asarray(emb), jnp.asarray(head), k_max=10,
+                           appendix_variant=appendix)
+    monkeypatch.setattr(NT, "UNIGRAM_CHUNK", V // 3)
     got = build_unigram(torch.from_numpy(emb), torch.from_numpy(head),
                         k_max=10, appendix_variant=appendix)
     _eq(got, want)

@@ -195,9 +195,14 @@ def test_port_and_smoke_script_import_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "archs = ('mistral_7b', 'gemma_2b', 'glm4_9b', 'nemotron_4_340b',\n"
+        "         'qwen2_vl_72b', 'hubert_xlarge')\n"
+        "missing = [a for a in archs\n"
+        "           if 'repro_torch.configs.' + a not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 26

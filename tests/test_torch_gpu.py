@@ -36,6 +36,10 @@ temperature-0 row equal to the greedy-only step's.  Adaptive arms:
 masked spec_steps (linear, paged, tree, sampled) choose the CPU's arms and
 serve its tokens, with its arm stats (rewards to 1e-6); an adaptive step
 makes no synchronising call, and launches K2 once per distinct arm depth.
+The registry's other architectures: K1 and K3 at Nemotron-4's (96 / 8 /
+192) and Gemma-2B's (8 / 1 / 256) full head shapes, verify and decode;
+the plain verify that a sliding-window config runs equals the CPU's
+within f32 1e-5 over a wrapped ring.
 """
 import numpy as np
 import pytest
@@ -804,3 +808,61 @@ def test_adaptive_step_launches_k2_once_per_arm_depth(cuda_device):
         s = E.spec_step(p, cfg, spec, s, t)
         assert ngram_draft_cuda.launches == before + depths
     assert torch.equal(s.stats["arm_pulls"].sum(1), s.stats["calls"])
+
+
+# ----------------------------------------------------------------------------
+# the registry's other architectures: K1/K3 at their full head shapes, and
+# the plain verify that a window config runs on the card
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,W1", [(10, 11), (1, 1)], ids=["verify", "decode"])
+@pytest.mark.parametrize("H,KV,hd", [(96, 8, 192), (8, 1, 256)],
+                         ids=["nemotron", "gemma"])
+def test_verify_kernels_at_full_arch_head_shapes(cuda_device, H, KV, hd, K,
+                                                 W1, dtype):
+    """K1 and K3 at Nemotron-4's (96 / 8 / 192: hd padded to the 256
+    instance) and Gemma-2B's (MQA 8 / 1 / 256) heads, at the main path's
+    B, S, ragged cur_len and 64-key pages; K3 bit for bit K1 on the
+    gathered view."""
+    g = torch.Generator(device=cuda_device).manual_seed(hd + K)
+    td = getattr(torch, dtype)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda_device).to(td)
+    ops = (rn(8, K, W1, H, hd), rn(8, 332, KV, hd), rn(8, 332, KV, hd),
+           rn(8, K, W1, KV, hd), rn(8, K, W1, KV, hd),
+           torch.tensor(MAIN_CUR, dtype=torch.int32, device=cuda_device))
+    _close(spec_attention_cuda(*ops, w1=W1),
+           spec_attention_plain(*ops, w1=W1), TOL[dtype])
+    pops = _paged_inputs(cuda_device, 8, K, W1, H, KV, hd, 64, MAIN_CUR,
+                         dtype, seed=hd)
+    got = paged_spec_attention_cuda(*pops, w1=W1)
+    _close(got, paged_spec_attention_plain(*pops, w1=W1), TOL[dtype])
+    q, kp, vp, pt, kt, vt, cur = pops
+    k_lin, v_lin = gather_pages(kp, vp, pt)
+    assert torch.equal(got, spec_attention_cuda(q, k_lin, v_lin, kt, vt, cur,
+                                                w1=W1))
+
+
+@pytest.mark.gpu
+def test_plain_window_verify_on_the_card_equals_the_cpu(cuda_device):
+    """A sliding-window config verifies through ``plain_verify`` on the
+    card, over a wrapped ring (cur_len past the 64 slots), and gives the
+    CPU's output within f32 1e-5."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.cache import key_positions
+    cfg = get_smoke_config("mistral-7b")             # window 64, f32
+    S, B, K, W1 = cfg.sliding_window, 2, 4, 5
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator().manual_seed(7)
+    rn = lambda *s: torch.randn(s, generator=g)
+    cur = torch.tensor([150, 40], dtype=torch.int32)
+    ops = (rn(B, K, W1, H, hd), rn(B, S, KV, hd), rn(B, S, KV, hd),
+           rn(B, K, W1, KV, hd), rn(B, K, W1, KV, hd),
+           key_positions(cfg, S, cur),
+           cur[:, None].long() + torch.arange(W1)[None])
+    want = A.plain_verify(*ops, cfg)
+    A.plain_verify.calls = 0
+    got = A.plain_verify(*(t.to(cuda_device) for t in ops), cfg)
+    assert A.plain_verify.calls == 1 and got.is_cuda
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
