@@ -135,6 +135,31 @@ Phases (any failure raises and the script exits non-zero):
                (64 / 8 / 128) heads, verify and decode, beside their
                bounds and SDPA, with their instance's registers and
                spills.
+ 11. train  — after phase 10: training on the card, then serving what it
+               trained.  11a: the reference's benchmark model
+               (``bench_config``: 2 layers, d_model 128, f32) by its own
+               recipe (``get_trained``: 120 AdamW steps, lr 1e-3, warmup
+               10, ``mixed_batches(8, 128, 120, seed=0)``, remat), its loss
+               curve, the first 5 losses held against the same steps on
+               the CPU (TRAIN_CPU_TOL), and K1-K5 0 launches while it
+               trains; 11b: StableLM-2-1.6B at full width (bf16 params,
+               f32 moments) 200 steps on the same mixture: ms a step,
+               training tokens/s, peak memory, no kernel launch, an npz
+               round trip (``train.checkpoint``) bit-equal leaf for leaf;
+               11c: each model's tables rebuilt from its trained weights,
+               phase 3's 8 requests served mixed (10, 10) and greedy (K1
+               steps x layers, K2 once a step), tokens/call and tokens/s
+               beside greedy and beside the seeded reading (the bench
+               model's own seeded weights; phase 3 for StableLM), and in
+               f32 the mixed outputs equal ``greedy_reference`` (StableLM's
+               trained weights upcast); then 11b's step under
+               torch.profiler and the AdamW update alone beside its bound;
+               11d: ``python -m repro_torch.launch.train`` (StableLM's
+               smoke config, 20 steps, ``--save``) and
+               ``launch.serve --ckpt --continuous --paged`` as
+               subprocesses, both exit 0, every request served, K3
+               launches; 11e: a train step of the hybrid on the card
+               raises K5's backward guard (only that error is caught).
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
 for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
@@ -149,8 +174,9 @@ The last two lines of stdout are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
 JSON record: each kernel's ``launches`` on its main path's run (phases 3, 5,
 6 and 7a), under ``launches_adaptive`` its launches on each adaptive
-run (9a, 9b, 9c's f32 tree runs, 7e) and under ``launches_archs`` on each
-bf16 run of phase 10, each counted from zero.
+run (9a, 9b, 9c's f32 tree runs, 7e), under ``launches_archs`` on each
+bf16 run of phase 10 and under ``launches_trained`` on each serving run of
+phase 11c, each counted from zero.
 """
 from __future__ import annotations
 
@@ -204,6 +230,17 @@ HYB_PERIODS = 1
 SAMPLE_T, SAMPLE_P, SAMPLE_SEED = 0.8, 0.95, 1000
 DIST_V, DIST_B, DIST_N = 17, 512, 4
 DIST_CASES = ((0.9, 1.0), (1.2, 0.8))
+# phase 11: training on the card; 11a is the reference's get_trained recipe
+# (benchmarks/common.py): bench_config, 120 AdamW steps at lr 1e-3 with 10
+# warmup steps over mixed_batches(8, 128, 120, seed=0)
+TRAIN_B, TRAIN_T, TRAIN_LR = 8, 128, 1e-3
+BENCH_STEPS, BENCH_WARMUP = 120, 10
+TRAIN_CHECK_STEPS = 5            # 11a's first steps, run again on the CPU
+# f32 losses of the card against the CPU's over those steps (relative):
+# the two run the same ops with other reduction orders, ~1e-6 per step
+TRAIN_CPU_TOL = 1e-4
+LM_TRAIN_STEPS = 200             # 11b: StableLM-2-1.6B at full width
+CLI_TRAIN_STEPS = 20             # 11d
 
 
 def card_line() -> str:
@@ -1341,6 +1378,21 @@ def top2_margin(params, cfg, ids, pos) -> float:
     return float(top[0] - top[1])
 
 
+def check_equals_greedy(params32, cfg32, done, ref, bucket: int) -> None:
+    """Phase 4's strict check: each request's f32 output equals its row of
+    ``greedy_reference`` (``ref``, prompts padded to ``bucket``) token for
+    token; a difference prints the oracle's top-2 margin there and fails."""
+    import numpy as np
+    for i, r in enumerate(done):
+        want = ref[i, bucket:]
+        if not np.array_equal(r.output_ids, want):
+            j = int(np.argmax(r.output_ids != want))
+            m = top2_margin(params32, cfg32, ref[i], bucket + j - 1)
+            print(f"  request {r.request_id}: mixed != greedy_reference at "
+                  f"new token {j} (f32 top-2 margin {m:.4g})")
+            raise AssertionError("f32 speculative output is not lossless")
+
+
 def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
                   bucket: int = SERVE_BUCKET, label: str = "",
                   focus: str = "", **state_kw):
@@ -1501,21 +1553,16 @@ def phase_serve() -> dict:
     toks = np.stack([eng32.scheduler.pad_to_bucket(eng32.tok.encode(p))
                      for p in lprompts])
     ref = greedy_reference(params32, cfg32, toks, LOSSLESS_NEW).cpu().numpy()
-    for i, r in enumerate(done32):
-        want = ref[i, SERVE_BUCKET:]
-        if not np.array_equal(r.output_ids, want):
-            j = int(np.argmax(r.output_ids != want))
-            m = top2_margin(params32, cfg32, ref[i], SERVE_BUCKET + j - 1)
-            print(f"  request {r.request_id}: mixed != greedy_reference at "
-                  f"new token {j} (f32 top-2 margin {m:.4g})")
-            raise AssertionError("f32 speculative output is not lossless")
+    check_equals_greedy(params32, cfg32, done32, ref, SERVE_BUCKET)
     calls32 = sum(r.stats["model_calls"] for r in done32)
     print(f"  f32 mixed == greedy_reference for {len(done32)} requests x "
           f"{LOSSLESS_NEW} tokens ({calls32} verify calls, {wall32:.2f} s)")
     lossless_continuous(params32, cfg32, spec, tables)
     del params32, eng32
     torch.cuda.empty_cache()
-    return launches, tables, [r.output_ids for r in done]
+    reading = {"mixed": (n_new / wall, n_new / max(calls, 1)),
+               "greedy": (g_new / g_wall, 1.0)}
+    return launches, tables, [r.output_ids for r in done], reading
 
 
 # ---------------------------------------------------------------------------
@@ -2969,13 +3016,15 @@ def arch_tables(params, cfg, batch: int = BIGRAM_BATCH):
 
 
 def arch_static(params, cfg, tables, prompts, label: str, runs: dict,
-                max_new: int = SERVE_NEW, bucket: int = SERVE_BUCKET):
+                max_new: int = SERVE_NEW, bucket: int = SERVE_BUCKET,
+                rates: dict = None):
     """Static mixed (10, 10) beside greedy on ``prompts``: tokens/s,
     tokens/call, launches and plain-verify calls; asserts each step went
     through the path the config's contract gives it (K1 steps x layers
     times, or the plain verify as often and K1 never) and K2 once a mixed
-    step.  Records each run's launches in ``runs``; returns the mixed
-    run's requests."""
+    step.  Records each run's launches in ``runs`` and, given ``rates``,
+    its (tokens/s, tokens/call) there; returns the mixed run's
+    requests."""
     import numpy as np
     import torch
     from repro_torch.core.spec_engine import SpecConfig
@@ -3016,10 +3065,13 @@ def arch_static(params, cfg, tables, prompts, label: str, runs: dict,
                                  f"{launches['ngram_match']} times in "
                                  f"{steps} drafting steps")
         runs[f"{label} {name}"] = launches
+        if rates is not None:
+            rates[name] = (n_new / wall, n_new / max(calls, 1))
         out[name] = done
     same = sum(bool(np.array_equal(a.output_ids, b.output_ids))
                for a, b in zip(out["mixed"], out["greedy"]))
-    print(f"  {label}: bf16 mixed == bf16 greedy for {same} of "
+    print(f"  {label}: {str(cfg.compute_dtype)[6:]} mixed == greedy for "
+          f"{same} of "
           f"{len(prompts)} requests")
     torch.cuda.synchronize()
     return out["mixed"]
@@ -3327,6 +3379,337 @@ def phase_long_context(tables, prompts, runs) -> None:
         A._blockwise_attention = real
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training on the card, then serving the weights it trained
+# ---------------------------------------------------------------------------
+def bench_config():
+    """The reference's benchmark model (``benchmarks/common.py``
+    ``bench_config``): 2 layers, d_model 128, d_ff 256, 4 heads and 2 KV
+    heads, the byte vocabulary (259), f32."""
+    import torch
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(name="bench-tiny-31m", num_layers=2, d_model=128,
+                       d_ff=256, num_heads=4, num_kv_heads=2, vocab_size=259,
+                       param_dtype=torch.float32,
+                       compute_dtype=torch.float32).validate()
+
+
+def train_run(ts, cfg, batches, warmup: int, label: str):
+    """AdamW steps (remat) of ``ts``, one a batch, on the device ``ts``
+    lives on.  Returns (train state, per-step losses, seconds per step
+    after the first, the first step's seconds)."""
+    import torch
+    from repro_torch.train import AdamWConfig, make_train_step
+    steps = len(batches)
+    step = make_train_step(cfg, AdamWConfig(
+        lr=TRAIN_LR, total_steps=steps, warmup_steps=warmup), remat=True)
+    card = ts["params"]["final_norm"]["scale"].is_cuda
+    losses = []
+    t0 = t1 = time.perf_counter()
+    for i, b in enumerate(batches):
+        ts, m = step(ts, b)
+        losses.append(m["loss"])
+        if i == 0:
+            if card:
+                sync()
+            t1 = time.perf_counter()
+    if card:
+        sync()
+    per_step = (time.perf_counter() - t1) / max(steps - 1, 1)
+    losses = torch.stack(losses).cpu().tolist()
+    print(f"  {label}: {steps} steps, loss " + " ".join(
+        f"{i}:{losses[i]:.4f}" for i in sorted({*range(0, steps, 10),
+                                               steps - 1})))
+    return ts, losses, per_step, t1 - t0
+
+
+def check_no_launch(label: str) -> None:
+    """Training runs no kernel of ``kernels/``: every count still 0."""
+    counts = read_launches()
+    print(f"  {label}: kernel launches while training {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"{label}: a kernel launched while training: "
+                             f"{counts}")
+
+
+def serve_trained(params, cfg, label: str, runs: dict, seeded=None) -> dict:
+    """11c: tables from the trained model, phase 3's 8 requests statically
+    mixed (10, 10) and greedy (``arch_static``: K1 steps x layers, K2 once
+    a step), tokens/call and tokens/s beside greedy and, given ``seeded``,
+    beside phase 3's seeded reading of the same model.  Returns the
+    rates."""
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.serving.engine import ServingEngine
+    t0 = time.perf_counter()
+    tables = ServingEngine(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W),
+                           buckets=(SERVE_BUCKET,)).tables
+    sync()
+    print(f"  {label}: n-gram tables from the trained weights "
+          f"{time.perf_counter() - t0:.2f} s")
+    rates: dict = {}
+    arch_static(params, cfg, tables, smoke_prompts(), label, runs,
+                rates=rates)
+    (mix_s, mix_c), (gr_s, _) = rates["mixed"], rates["greedy"]
+    print(f"  {label}: trained mixed {mix_c:.3f} tokens/call, {mix_s:.1f} "
+          f"tokens/s = {mix_s / gr_s:.2f}x greedy's {gr_s:.1f}"
+          + ("" if seeded is None else
+             f"; seeded {seeded['mixed'][1]:.3f} tokens/call, "
+             f"{seeded['mixed'][0]:.1f} tokens/s, greedy "
+             f"{seeded['greedy'][0]:.1f}"))
+    return {"tables": tables, **rates}
+
+
+def trained_lossless(params32, cfg32, tables, n: int, max_new: int,
+                     label: str) -> None:
+    """f32 (TF32 off) static mixed (10, 10) on the first ``n`` of phase 3's
+    requests equals ``greedy_reference`` token for token (phase 4's
+    check)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spec_engine import SpecConfig, greedy_reference
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    eng = ServingEngine(params32, cfg32, SpecConfig(k=SERVE_K, w=SERVE_W),
+                        tables=tables, buckets=(SERVE_BUCKET,))
+    prompts = smoke_prompts()[:n]
+    done, wall = serve(eng, prompts, max_new)
+    toks = np.stack([eng.scheduler.pad_to_bucket(eng.tok.encode(p))
+                     for p in prompts])
+    ref = greedy_reference(params32, cfg32, toks, max_new).cpu().numpy()
+    check_equals_greedy(params32, cfg32, done, ref, SERVE_BUCKET)
+    calls = sum(r.stats["model_calls"] for r in done)
+    print(f"  {label}: f32 mixed == greedy_reference for {n} requests x "
+          f"{max_new} tokens ({calls} verify calls, {n * max_new / calls:.3f}"
+          f" tokens/call, {wall:.2f} s)")
+
+
+def mixture(steps: int) -> list:
+    """The reference's training batches: ``mixed_batches(8, 128, steps,
+    seed=0)``."""
+    from repro_torch.data.pipeline import mixed_batches
+    return list(mixed_batches(TRAIN_B, TRAIN_T, steps, seed=0))
+
+
+def phase_train_bench(runs: dict) -> None:
+    """11a and 11c on the reference's benchmark model; its seeded weights
+    are served first, as the trained ones' yardstick."""
+    import torch
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import tree_map
+    cfg = bench_config()
+    # seeded on the CPU and copied, so that the CPU's steps start from the
+    # same weights (a CUDA generator draws other numbers)
+    cpu_ts = init_train_state(cfg, seed=0, device="cpu")
+    ts = tree_map(lambda t: t.to("cuda"), cpu_ts)
+    print(f"  {cfg.name}: {cfg.param_count():,} params, f32, "
+          f"B {TRAIN_B} x T {TRAIN_T}, lr {TRAIN_LR}, warmup {BENCH_WARMUP}")
+    seeded = serve_trained(ts["params"], cfg, "11c bench seeded", runs)
+    batches = mixture(BENCH_STEPS)
+    reset_launches()
+    ts, losses, per_step, first = train_run(ts, cfg, batches, BENCH_WARMUP,
+                                            "11a card")
+    check_no_launch("11a")
+    print(f"  11a: {per_step * 1e3:.2f} ms a step after the first "
+          f"({first:.2f} s), {TRAIN_B * TRAIN_T / per_step:.0f} training "
+          f"tokens/s")
+    step = make_train_step(cfg, AdamWConfig(
+        lr=TRAIN_LR, total_steps=BENCH_STEPS, warmup_steps=BENCH_WARMUP))
+    cpu = []
+    for b in batches[:TRAIN_CHECK_STEPS]:
+        cpu_ts, m = step(cpu_ts, b)
+        cpu.append(float(m["loss"]))
+    err = max(abs(a - b) / abs(b) for a, b in
+              zip(losses[:TRAIN_CHECK_STEPS], cpu))
+    print(f"  11a: card losses of steps 0-{TRAIN_CHECK_STEPS - 1} against "
+          f"the CPU's: max relative difference {err:.3g} (limit "
+          f"{TRAIN_CPU_TOL})")
+    if err > TRAIN_CPU_TOL:
+        raise AssertionError(f"11a: card {losses[:TRAIN_CHECK_STEPS]} != "
+                             f"CPU {cpu}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"11a: the loss did not fall: {losses}")
+    print("phase 11c: serving the bench model's trained weights")
+    served = serve_trained(ts["params"], cfg, "11c bench", runs, seeded)
+    trained_lossless(ts["params"], cfg, served["tables"], len(
+        smoke_prompts()), SERVE_NEW, "11c bench")
+    del ts, cpu_ts
+    torch.cuda.empty_cache()
+
+
+def phase_train_lm(runs: dict, seeded) -> None:
+    """11b and 11c on StableLM-2-1.6B at full width (bf16 params, f32
+    moments), then its trained weights in f32; last, where a train step's
+    time goes (after the serving readings: a profiler run slows the
+    process's host path afterwards)."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.train import checkpoint, init_train_state
+    from repro_torch.train.optimizer import tree_map
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("stablelm-1.6b")
+    t0 = time.perf_counter()
+    ts = init_train_state(cfg, seed=0, device="cuda")
+    sync()
+    print(f"  {cfg.name}: {cfg.param_count() / 1e9:.3f}B params bf16, "
+          f"moments f32, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+          f"init {time.perf_counter() - t0:.1f} s; B {TRAIN_B} x T "
+          f"{TRAIN_T}, lr {TRAIN_LR}, remat")
+    reset_launches()
+    warm = max(LM_TRAIN_STEPS // 10, 1)
+    batches = mixture(LM_TRAIN_STEPS)
+    ts, losses, per_step, first = train_run(ts, cfg, batches, warm,
+                                            "11b card")
+    check_no_launch("11b")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  11b: {per_step * 1e3:.2f} ms a step after the first "
+          f"({first:.2f} s), {TRAIN_B * TRAIN_T / per_step:.0f} training "
+          f"tokens/s, peak memory {peak:.2f} GiB")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"11b: the loss did not fall: {losses}")
+    params = ts["params"]
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".ckpt-") as tmp:
+        path = os.path.join(tmp, "stablelm.npz")
+        t0 = time.perf_counter()
+        checkpoint.save(path, params)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.load(path, cfg, device="cuda")
+        sync()
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(path) / 2**30
+    flat, flat_back = [], []
+    tree_map(flat.append, params)
+    tree_map(flat_back.append, back)
+    same = sum(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(flat, flat_back))
+    print(f"  11b checkpoint: {size:.2f} GiB saved in {t_save:.1f} s, "
+          f"loaded in {t_load:.1f} s; {same} of {len(flat)} leaves "
+          f"bit-equal")
+    if same != len(flat):
+        raise AssertionError("11b: the checkpoint round trip changed a leaf")
+    del back, flat, flat_back
+    print("phase 11c: serving StableLM-2-1.6B's trained weights")
+    served = serve_trained(params, cfg, "11c stablelm-1.6b", runs, seeded)
+    params32 = tree_map(lambda t: t.float(), params)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    trained_lossless(params32, cfg32, served["tables"], LOSSLESS_REQUESTS,
+                     LOSSLESS_NEW, "11c stablelm-1.6b trained, upcast")
+    del params32, served, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_step_breakdown(ts, cfg, batches[0], warm)
+    del ts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_step_breakdown(ts, cfg, batch, warm: int) -> None:
+    """11b's step under torch.profiler (its results discarded), and the
+    AdamW update alone by CUDA events beside its bound: each parameter's
+    bf16 value and gradient read and value written, its f32 moments read
+    and written, 22 bytes."""
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.optimizer import adamw_update, tree_leaves
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=LM_TRAIN_STEPS,
+                      warmup_steps=warm)
+    step = make_train_step(cfg, opt, remat=True)
+    print("phase 11b: where a train step's time goes (torch.profiler)")
+    profile_window("11b train step", lambda: step(ts, batch), steps=3)
+    params = ts["params"]
+    n = sum(p.numel() for p in tree_leaves(params))
+    ms = time_ms(lambda: adamw_update(opt, params, params, ts["opt"]),
+                 iters=5, warmup=1)
+    bound = 22 * n / HBM_BYTES_PER_S * 1e3
+    print(f"  11b AdamW update alone: {ms:.2f} ms (CUDA events), bound "
+          f"{bound:.2f} ms (22 bytes a parameter, bytes)")
+
+
+def phase_cli() -> None:
+    """11d: the port's two entry points as subprocesses: ``launch.train``
+    saves StableLM's smoke model, ``launch.serve`` serves it from that file
+    continuously over a paged cache (K3 launches)."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".ckpt-") as tmp:
+        path = os.path.join(tmp, "smoke.npz")
+        runs = {
+            "train": [sys.executable, "-m", "repro_torch.launch.train",
+                      "--arch", "stablelm-1.6b", "--steps",
+                      str(CLI_TRAIN_STEPS), "--save", path],
+            # launch.serve's main, and K3's count after it
+            "serve": [sys.executable, "-c",
+                      "import sys\n"
+                      "from repro_torch.launch import serve\n"
+                      "from repro_torch.kernels.spec_attention import "
+                      "paged_spec_attention_cuda as k3\n"
+                      "serve.main(sys.argv[1:])\n"
+                      "print('K3 launches', k3.launches)\n",
+                      "--arch", "stablelm-1.6b", "--ckpt", path,
+                      "--continuous", "--paged"]}
+        for name, cmd in runs.items():
+            t0 = time.perf_counter()
+            out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=600)
+            lines = out.stdout.strip().splitlines()
+            print(f"  11d {name}: exit {out.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for line in lines:
+                print(f"    {line}")
+            if out.returncode != 0:
+                raise AssertionError(f"11d {name} failed:\n{out.stderr}")
+    # the serve run's lines: one a request (4 by default), then K3's count
+    reqs = [ln for ln in lines if ln.startswith("[req ")]
+    k3 = int(lines[-1].split()[-1])
+    if len(reqs) != 4 or "REJECTED" in out.stdout or k3 <= 0:
+        raise AssertionError(f"11d serve: {len(reqs)} request lines, K3 "
+                             f"{k3} launches")
+
+
+def phase_guard() -> None:
+    """11e: a train step of the hybrid on the card raises K5's guard (K5
+    has no backward); only that error is caught."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.jamba_1_5_large_398b import no_experts
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    cfg = no_experts(get_smoke_config("jamba-1.5-large-398b"))
+    ts = init_train_state(cfg, seed=0, device="cuda")
+    batch = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33))
+    try:
+        make_train_step(cfg, AdamWConfig())(ts, batch)
+    except NotImplementedError as e:
+        if "K5" not in str(e):
+            raise
+        print(f"  11e: {cfg.name} train step on the card raised: {e}")
+        return
+    raise AssertionError("11e: a Mamba train step on the card did not "
+                         "raise K5's guard")
+
+
+def phase_train(seeded) -> dict:
+    """Phase 11 (see the module docstring).  Returns each serving run's
+    kernel launches."""
+    t_phase = time.perf_counter()
+    runs: dict = {}
+    for label, fn in (("11a", lambda: phase_train_bench(runs)),
+                      ("11b", lambda: phase_train_lm(runs, seeded)),
+                      ("11d", phase_cli), ("11e", phase_guard)):
+        t0 = time.perf_counter()
+        print(f"phase {label}")
+        fn()
+        print(f"  phase {label} took {time.perf_counter() - t0:.1f} s")
+    print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def template_args(mangled: str) -> list:
     """The template arguments of a mangled name's ``I...E`` list: integers
     and bools as numbers, builtin types by name, named types as named."""
@@ -3428,7 +3811,7 @@ def main() -> int:
     phase_arch_kernels(S_main, cur_main, cont_cur)
 
     print("phase 3: serve")
-    launches, tables, serve_out = phase_serve()
+    launches, tables, serve_out, seeded = phase_serve()
 
     print(f"phase 5: continuous batching over a {CONT_PAGES}-page pool "
           f"(bf16, {CONT_N} requests, {CONT_SLOTS} slots)")
@@ -3460,6 +3843,10 @@ def main() -> int:
           "long-context variant)")
     archs = phase_archs(S_main, cur_main, tables)
 
+    print("phase 11: training on the card (the reference's bench recipe, "
+          "StableLM-2-1.6B at full width), then serving the trained weights")
+    trained = phase_train(seeded)
+
     cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
                    cu, "src/repro/kernels/spec_attention.py:137"),
@@ -3481,6 +3868,8 @@ def main() -> int:
                                        adaptive.items() if ls.get(n)},
                     launches_archs={run: ls[n] for run, ls in archs.items()
                                     if ls.get(n)},
+                    launches_trained={run: ls[n] for run, ls in
+                                      trained.items() if ls.get(n)},
                     **rec[n])
                for n in sources]
     print(json.dumps({"kernels": kernels}))

@@ -136,7 +136,21 @@ def selective_scan(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
     ``n_commit`` (Bt,) int32, the final state is the one after
     ``n_commit[b]`` steps (row b's h0 where it is 0): the replay's commit.
     ``steps`` is the plain version's alone: K5 raises on it.
+
+    K5 has no backward, so on the card a call that autograd would have to
+    differentiate (grad enabled and an input requiring grad) raises rather
+    than hand back a result cut off from the Mamba parameters' gradients:
+    the hybrid trains on the CPU only, through the plain version.
     """
-    fn = mamba_scan_cuda if on_card(u) else mamba_scan_plain
+    if on_card(u):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (u, dt, A, B, C, D, h0)):
+            raise NotImplementedError(
+                "K5 (the Mamba selective scan) has no backward kernel: a "
+                "Mamba layer cannot be trained on the card; train the "
+                "hybrid with device='cpu'")
+        fn = mamba_scan_cuda
+    else:
+        fn = mamba_scan_plain
     return fn(u, dt, A, B, C, D, h0, h0_rep=h0_rep, final=final, steps=steps,
               n_commit=n_commit)

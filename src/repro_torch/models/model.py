@@ -92,16 +92,18 @@ def _embed(params: Params, cfg: ModelConfig, tokens, embeds
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, tokens=None,
-                   embeds=None, positions=None
+                   embeds=None, positions=None, remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward up to the final norm, from ``tokens`` (B, T) or
     ``embeds`` (B, T, d).  Returns (hidden (B, T, d), aux) — aux is the
-    reference's MoE loss slot, zero for the dense stacks ported here."""
+    reference's MoE loss slot, zero for the dense stacks ported here.
+    ``remat`` checkpoints each block for backward (training)."""
     x = _embed(params, cfg, tokens, embeds)
     B, T = x.shape[:2]
     if positions is None:
         positions = make_positions(cfg, B, T, device=x.device)
-    x, _ = run_stack(params, cfg, x, "full", None, {"positions": positions})
+    x, _ = run_stack(params, cfg, x, "full", None, {"positions": positions},
+                     remat=remat)
     return (apply_norm(params["final_norm"], x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import attn_full, attn_verify
@@ -223,6 +224,16 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _unbind(tree):
+    """Each (R, ...) leaf as the tuple of its R layers' views.  One unbind a
+    leaf: under autograd its backward stacks the R layers' gradients in one
+    op, where indexing each layer's slice would add R zero-padded (R, ...)
+    gradients into the leaf's."""
+    if isinstance(tree, dict):
+        return {k: _unbind(v) for k, v in tree.items()}
+    return tree.unbind(0)
+
+
 def _layers(cfg: ModelConfig):
     """(gid, spec, r) per layer, in execution order."""
     out = [(f"pre{i}", b, 0) for i, b in enumerate(cfg.prefix_blocks)]
@@ -235,16 +246,30 @@ def _layers(cfg: ModelConfig):
 # full stack
 # ----------------------------------------------------------------------------
 def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
-              state: Optional[Dict], ctx: Dict
+              state: Optional[Dict], ctx: Dict, remat: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
     """Apply every layer. Returns (x, kv tails per attention gid stacked
-    over R — verify mode only, else {})."""
+    over R — verify mode only, else {}).  ``remat`` (``"full"`` mode, the
+    training forward) checkpoints each block: backward recomputes its
+    activations instead of keeping them (the reference's
+    ``jax.checkpoint(body)``)."""
+    if remat and mode != "full":
+        raise ValueError(f"remat applies to the full forward, not {mode!r}")
     tails: Dict[str, Dict[str, list]] = {}
-    for gid, spec, r in _layers(cfg):
+    layers = _layers(cfg)
+    views = {gid: _unbind(params[gid]) for gid in {g for g, _, _ in layers}}
+    for gid, spec, r in layers:
         gst = (None if state is None
                else _index(state["groups"][gid], r))
-        x, t = _apply_block(_index(params[gid], r), x, cfg, spec, mode, gst,
-                            ctx)
+        bp = _index(views[gid], r)
+        if remat:
+            # bp and spec bound now: backward calls the block again after
+            # the loop has moved on
+            x = checkpoint(lambda xc, bp=bp, spec=spec: _apply_block(
+                bp, xc, cfg, spec, mode, None, ctx)[0], x,
+                use_reentrant=False)
+            continue
+        x, t = _apply_block(bp, x, cfg, spec, mode, gst, ctx)
         if t is not None:
             g = tails.setdefault(gid, {"k_tail": [], "v_tail": []})
             g["k_tail"].append(t["k_tail"])

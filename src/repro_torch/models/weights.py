@@ -1,4 +1,5 @@
-"""Parameters from the reference package's checkpoints.
+"""Parameters from npz checkpoints, the reference package's or the port's
+(``train/checkpoint.py`` writes the same layout).
 
 The reference saves parameters flattened with '/'-joined key paths
 (``embed/embedding``, ``final_norm/scale``, ``p0/mixer/wq``, ...), group
@@ -19,9 +20,12 @@ from .transformer import param_shapes
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A leaf as a tensor.  bfloat16 comes as ml_dtypes' in-memory array or
+    as the raw 2-byte records (``|V2``) that ``np.savez`` writes for one
+    and ``np.load`` reads back: both are bf16 bits."""
     arr = np.asarray(arr)
-    if arr.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: same bits
-        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    if arr.dtype.name == "bfloat16" or arr.dtype == np.dtype("V2"):
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(arr.copy())
 
 

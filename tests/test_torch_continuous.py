@@ -25,6 +25,17 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import from_jax_flat
 from repro_torch.serving.engine import ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BUCKETS = (16, 32)
 PS = 8
 K, W = 4, 3

@@ -26,6 +26,16 @@ from repro_torch.core.ngram_tables import (NGramTables, build_bigram,
                                            build_unigram)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tables(V, seed, k_max=8, w_max=6):
     rng = np.random.default_rng(seed)
     counts = rng.integers(0, 3, (V, V)).astype(np.float32)   # many ties

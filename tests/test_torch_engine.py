@@ -30,6 +30,17 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import from_jax_flat
 from repro_torch.serving.engine import ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STRATEGIES = ["mixed", "bigram", "unigram", "context", "greedy"]
 MAX_NEW = 14
@@ -197,12 +208,14 @@ def test_port_and_smoke_script_import_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "archs = ('mistral_7b', 'gemma_2b', 'glm4_9b', 'nemotron_4_340b',\n"
         "         'qwen2_vl_72b', 'hubert_xlarge')\n"
-        "missing = [a for a in archs\n"
-        "           if 'repro_torch.configs.' + a not in sys.modules]\n"
+        "mods = ['configs.' + a for a in archs] + [\n"
+        "    'data.pipeline', 'train', 'train.optimizer', 'train.train_loop',\n"
+        "    'train.checkpoint', 'launch', 'launch.train', 'launch.serve']\n"
+        "missing = [m for m in mods if 'repro_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 26
+    assert int(out.stdout.strip()) >= 52

@@ -866,3 +866,67 @@ def test_plain_window_verify_on_the_card_equals_the_cpu(cuda_device):
     assert A.plain_verify.calls == 1 and got.is_cuda
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_mamba_training_on_the_card_raises(cuda_device):
+    """K5 has no backward: a train step of the hybrid on the card raises
+    the selective scan's guard, while a scan without gradients still runs
+    K5."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.jamba_1_5_large_398b import no_experts
+    from repro_torch.kernels import dispatch
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    cfg = no_experts(get_smoke_config("jamba-1.5-large-398b"))
+    ts = init_train_state(cfg, seed=0, device=cuda_device)
+    batch = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 17))
+    step = make_train_step(cfg, AdamWConfig(total_steps=2, warmup_steps=1))
+    with pytest.raises(NotImplementedError, match="K5"):
+        step(ts, batch)
+    ops = _scan_inputs(cuda_device, 2, 5, 64, 8, 1, 8, "float32", seed=0)
+    ops[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        dispatch.selective_scan(*ops)
+    n = mamba_scan_cuda.launches
+    with torch.no_grad():
+        dispatch.selective_scan(*ops)
+    assert mamba_scan_cuda.launches == n + 1
+
+
+@pytest.mark.gpu
+def test_dense_train_steps_on_the_card_equal_the_cpu(cuda_device):
+    """Three f32 steps of StableLM's smoke config (TF32 off) on the card
+    give the CPU's losses and grad norms within 1e-5 and launch no kernel
+    of ``kernels/``: training runs plain torch ops."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import mixed_batches
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    cfg = get_smoke_config("stablelm-1.6b")
+    opt = AdamWConfig(lr=1e-3, total_steps=3, warmup_steps=1)
+    batches = list(mixed_batches(4, 64, 3))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ("cpu", cuda_device):
+            ts = init_train_state(cfg, seed=0, device="cpu")
+            ts = _to(ts, dev)
+            step = make_train_step(cfg, opt, remat=True)
+            counts = (spec_attention_cuda.launches, ngram_draft_cuda.launches,
+                      paged_spec_attention_cuda.launches,
+                      mamba_scan_cuda.launches)
+            mets = []
+            for b in batches:
+                ts, m = step(ts, b)
+                mets.append([float(m["loss"]), float(m["grad_norm"])])
+            assert counts == (spec_attention_cuda.launches,
+                              ngram_draft_cuda.launches,
+                              paged_spec_attention_cuda.launches,
+                              mamba_scan_cuda.launches)
+            runs[str(dev)] = np.array(mets)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-5,
+                               atol=1e-5)

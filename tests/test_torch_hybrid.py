@@ -34,6 +34,17 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import from_jax_flat
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 # the reference's entry points, compiled once per shape (op-by-op dispatch
 # of the eager reference is the slowest part of these tests)

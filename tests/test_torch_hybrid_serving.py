@@ -34,6 +34,16 @@ from repro_torch.models.weights import from_jax_flat
 from repro_torch.serving.engine import ServingEngine
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dense_ffn(jcfg, name):
     """The reference config with every MoE FFN made the dense SwiGLU."""
     pattern = tuple(JBlockSpec(b.mixer, "swiglu" if b.mlp == "moe"

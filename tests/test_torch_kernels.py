@@ -23,6 +23,17 @@ from repro_torch.kernels.spec_attention import (copy_width,
                                                 spec_attention_cuda,
                                                 spec_attention_plain)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 # the reference's kernel sweep (tests/test_kernels.py) plus decode rows

@@ -33,6 +33,17 @@ from repro_torch.models import cache as C
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import from_jax_flat
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 STRATEGIES = ["mixed", "bigram", "unigram", "context", "greedy"]
 MAX_NEW = 14

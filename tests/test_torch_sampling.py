@@ -54,6 +54,17 @@ from repro_torch.models.weights import from_jax_flat
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.sampling import temperature_sample
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MAX_NEW = 14
 MARGIN = 1e-5          # a sampled token may differ only below this margin
 SEED = 2**31 + 11      # above 2**31: a sign error in the key shows

@@ -45,6 +45,17 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import from_jax_flat
 from repro_torch.serving.engine import ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side in one thread: these models are tiny, and the suite
+    runs its files in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOPOLOGIES = [(1, 1, 1), (2, 3, 1), (3, 2, 2), (2, 5, 2), (4, 5, 2),
               (3, 4, 3)]
 STATS = ("calls", "tokens", "accept_hist", "rank_hist", "alloc_ctx",
