@@ -24,7 +24,9 @@ Phases (any failure raises and the script exits non-zero):
                K2 (a step's context and mixed drafts in one launch) bit for
                bit against its plain version on the main path's real bytes
                (B=8, L=332), real text at L 4096 and 32768, q 2 and 4, w 16,
-               k = the tables' k_max, StableLM's and Jamba's vocabularies
+               k = the tables' k_max, the bigram tables of every served
+               vocabulary (phases 10 and 12's: DeepSeek's 102,400 and
+               xLSTM's 50,304 too)
                and adversarial rows (matches everywhere at L 32768, the
                SENTINEL-hashed continuation, buf_len < q+1, fewer than k
                representatives, a bigram fill past the non-duplicates),
@@ -100,7 +102,8 @@ Phases (any failure raises and the script exits non-zero):
                ``adaptive_stats()`` beside phase 5's runs; K2 launches
                exactly once per arm depth a step); 9d every other request
                sampled, twice (bit-equal replay); 9e an adaptive step
-               profiled beside a mixed one; 9c in f32 (TF32 off): adaptive
+               profiled beside a mixed one; 9c in f32 (TF32 off, StableLM
+               at ADAPTIVE_F32_DEPTH layers): adaptive
                static and continuous paged and linear on the mix's first 8
                requests, and tree arms ((1, 0), (2, 2), (4, 5)) on phase
                6's mix, static and continuous paged (K4), equal
@@ -108,8 +111,10 @@ Phases (any failure raises and the script exits non-zero):
                adaptive step's shapes (K1 and K3 at 25 x 11 inputs, K2 at
                k 25 and w 2, 4, 10, K5 at 200 verify rows from 8 states).
  10. archs  — the registry's other attention-only architectures, after
-               phase 7, one model at a time (seeded, bf16, full width;
-               Nemotron-4 and Qwen2-VL cut to 4 layers), each freed
+               phase 7, one model at a time (seeded, bf16, full width,
+               cut by depth: Mistral-7B to 4 layers, Gemma-2B to 4,
+               GLM-4-9B to 5, Nemotron-4 to 2, Qwen2-VL to 2, StableLM's
+               long-context variant to 4), each freed
                after, with its peak memory: 10a Mistral-7B (its 4096-token
                window keeps it outside K1's contract: every verify layer
                runs the plain verify, counted, K1 never; K2 drafts) serves
@@ -131,8 +136,9 @@ Phases (any failure raises and the script exits non-zero):
                blockwise attention (timed), 64 new tokens wrap the ring,
                and at depth 2 in f32 the outputs are greedy decoding.
                Phase 2f holds K1 and K3 at Gemma's (8 / 1 / 256), GLM's
-               (32 / 2 / 128), Nemotron's (96 / 8 / 192) and Qwen's
-               (64 / 8 / 128) heads, verify and decode, beside their
+               (32 / 2 / 128), Nemotron's (96 / 8 / 192), Qwen's
+               (64 / 8 / 128) and DeepSeek-MoE's (16 / 16 / 128) heads,
+               verify and decode, beside their
                bounds and SDPA, with their instance's registers and
                spills.
  11. train  — after phase 10: training on the card, then serving what it
@@ -142,17 +148,21 @@ Phases (any failure raises and the script exits non-zero):
                10, ``mixed_batches(8, 128, 120, seed=0)``, remat), its loss
                curve, the first 5 losses held against the same steps on
                the CPU (TRAIN_CPU_TOL), and K1-K5 0 launches while it
-               trains; 11b: StableLM-2-1.6B at full width (bf16 params,
-               f32 moments) 200 steps on the same mixture: ms a step,
+               trains; 11b: StableLM-2-1.6B at full width cut to 12 of
+               its 24 layers (bf16 params, f32 moments), its seeded
+               weights served first (11c's yardstick), then 200 steps on
+               the same mixture: ms a step,
                training tokens/s, peak memory, no kernel launch, an npz
                round trip (``train.checkpoint``) bit-equal leaf for leaf;
-               11c: each model's tables rebuilt from its trained weights,
-               phase 3's 8 requests served mixed (10, 10) and greedy (K1
-               steps x layers, K2 once a step), tokens/call and tokens/s
-               beside greedy and beside the seeded reading (the bench
-               model's own seeded weights; phase 3 for StableLM), and in
+               11c: each model's tables rebuilt from its trained weights
+               by the engine's own build (256 tokens a forward), phase
+               3's 8 requests served mixed (10, 10) and greedy (K1 steps
+               x layers, K2 once a step), tokens/call and tokens/s beside
+               greedy and beside the same model's seeded reading, and in
                f32 the mixed outputs equal ``greedy_reference`` (StableLM's
-               trained weights upcast); then 11b's step under
+               trained weights upcast); trained StableLM's mixed run again
+               over tables swept at BIGRAM_BATCH tokens a forward (the
+               build phases 10 and 12 use); then 11b's step under
                torch.profiler and the AdamW update alone beside its bound;
                11d: ``python -m repro_torch.launch.train`` (StableLM's
                smoke config, 20 steps, ``--save``) and
@@ -160,6 +170,33 @@ Phases (any failure raises and the script exits non-zero):
                subprocesses, both exit 0, every request served, K3
                launches; 11e: a train step of the hybrid on the card
                raises K5's backward guard (only that error is caught).
+ 12. moe    — after phase 11: the MoE FFN and the xLSTM mixers, one model
+               at a time (seeded, full width, each freed after), phase 3's
+               8 requests statically mixed (10, 10) and greedy, with the
+               token-slots ``moe_scatter`` drops at the default capacity
+               (mean and max a MoE-layer call) and the peak memory: 12a
+               DeepSeek-MoE-16B at full depth (K1 steps x 28), the first 8
+               requests of phase 5's mix continuously paged (K3), a mixed
+               step profiled (the MoE FFN's device ms); 12b Mixtral-8x7B
+               cut to 4 of 32 layers with all 8 experts (the window's
+               plain verify steps x 8, K1 never), continuous linear; 12c
+               Jamba with experts (``with_experts(config(), 5)``: 4 Mamba
+               layers, 2 of them with 16-expert MoE FFNs, 1 attention; K5
+               4 x (1 + 2 x steps), K1 2 x steps); 12d xLSTM-125M at full
+               size, continuous linear, a mixed step profiled (the mLSTM
+               and sLSTM loops' device ms; K1/K3/K5 never).  12e in f32
+               (TF32 off): DeepSeek and Mixtral at 2 layers on 8 x 64,
+               at the default capacity against ``greedy_reference`` (rows
+               equal, first differences, drops: printed, not asserted,
+               the reference's capacity fault) and at capacity E / K (no
+               drop, every row equal); Jamba with one MoE FFN
+               (``with_experts(config(), 3, start=2)``) at E / K, 4 x 32
+               greedy decoding up to measured ties; xLSTM-125M's f32
+               spread at the reference's init (its sLSTM amplifies
+               rounding) and, with sLSTM's r at fan-in dh, 8 x 64 equal to
+               ``greedy_reference``.  12f: 5 AdamW steps of deepseek-smoke
+               and xlstm-smoke (f32) on the card: loss and aux_loss equal
+               the CPU's (TRAIN_CPU_TOL), DeepSeek's aux > 0, no launch.
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
 for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
@@ -175,11 +212,12 @@ The last two lines of stdout are the card's name and power limit and
 JSON record: each kernel's ``launches`` on its main path's run (phases 3, 5,
 6 and 7a), under ``launches_adaptive`` its launches on each adaptive
 run (9a, 9b, 9c's f32 tree runs, 7e), under ``launches_archs`` on each
-bf16 run of phase 10 and under ``launches_trained`` on each serving run of
-phase 11c, each counted from zero.
+bf16 run of phases 10 and 12 and under ``launches_trained`` on each
+serving run of phase 11c, each counted from zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -239,8 +277,10 @@ TRAIN_CHECK_STEPS = 5            # 11a's first steps, run again on the CPU
 # f32 losses of the card against the CPU's over those steps (relative):
 # the two run the same ops with other reduction orders, ~1e-6 per step
 TRAIN_CPU_TOL = 1e-4
-LM_TRAIN_STEPS = 200             # 11b: StableLM-2-1.6B at full width
+LM_TRAIN_STEPS = 200             # 11b: StableLM-2-1.6B at full width,
+LM_TRAIN_DEPTH = 12              # cut to 12 of its 24 layers
 CLI_TRAIN_STEPS = 20             # 11d
+ADAPTIVE_F32_DEPTH = 2           # 9c: StableLM's f32 checks, of 24 layers
 
 
 def card_line() -> str:
@@ -1172,8 +1212,9 @@ def phase_kernels(S_main: int, cur_main: list) -> dict:
 # phase 2: K2, a step's context-strategy drafts in one launch
 # ---------------------------------------------------------------------------
 SENTINEL_TOKEN = 1097884494     # 0x4170634E: its w=1 hash is 0xFFFFFFFF
-K2_VOCABS = {"stablelm": 100352, "jamba": 65536, "mistral": 32000,
-             "glm": 151552, "qwen": 152064, "gemma/nemotron": 256000}
+K2_VOCABS = {"stablelm": 100352, "jamba": 65536, "mistral/mixtral": 32000,
+             "glm": 151552, "qwen": 152064, "gemma/nemotron": 256000,
+             "deepseek": 102400, "xlstm": 50304}
 K2_TABLES = (25, 16)            # the engine's (k_max, w_max) at k=w=10
 
 
@@ -1281,7 +1322,7 @@ def k2_bound_ms(buf, buf_len, q, k, w, mixed: bool) -> tuple:
 def phase_k2(S_main: int, cur_main: list) -> dict:
     """K2 against its plain version, bit for bit, in both strategies over
     the main path's rows, long rows, q, w, k, the main shape over the
-    bigram tables of every served vocabulary (phase 10's included) and the
+    bigram tables of every served vocabulary (phases 10 and 12's) and the
     adversarial rows; then its times at the three real-text shapes beside
     its bound, its plain version and one launch's floor."""
     import torch
@@ -1395,7 +1436,7 @@ def check_equals_greedy(params32, cfg32, done, ref, bucket: int) -> None:
 
 def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
                   bucket: int = SERVE_BUCKET, label: str = "",
-                  focus: str = "", **state_kw):
+                  focus: str = "", ranges: tuple = (), **state_kw):
     """Where a static step's time goes: spec_steps of a fresh batch of the
     served prompts under torch.profiler (``profile_window``).
     ``state_kw``: the sampling controls of ``init_decode_state``."""
@@ -1412,15 +1453,18 @@ def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
     def one_step():
         box[0] = spec_step(params, cfg, spec, box[0], tables)
     return profile_window(label or f"{spec.strategy} step", one_step, steps,
-                          focus)
+                          focus, ranges)
 
 
-def profile_window(label: str, one_step, steps: int = 4, focus: str = ""):
+def profile_window(label: str, one_step, steps: int = 4, focus: str = "",
+                   ranges: tuple = ()):
     """``steps`` calls of ``one_step`` under torch.profiler after two warm
     ones: wall ms per step, the device-busy share (kernel time / wall),
     device ops per step and the kernels with the most device time; with
     ``focus``, also the device ms per step of the kernels whose name holds
-    it.  Returns those numbers."""
+    it; for each name in ``ranges`` (a ``named_ranges`` range), the device
+    ms per step of the kernels launched inside it.  Returns those
+    numbers."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         one_step()
@@ -1432,10 +1476,18 @@ def profile_window(label: str, one_step, steps: int = 4, focus: str = ""):
             one_step()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    events = prof.key_averages()
+    # a named range also shows as a device-side annotation span: not a
+    # kernel, so it stays out of the busy time
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and e.key not in ranges]
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
+    inside = lambda e: getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0))
+    range_ms = {name: sum(inside(e) for e in events if e.key == name and
+                          not str(e.device_type).endswith("CUDA"))
+                / 1e3 / steps for name in ranges}
     busy_ms = sum(dev(e) for e in kernels) / 1e3 / steps
     n_launch = sum(e.count for e in kernels) / steps
     focus_ms = (sum(dev(e) for e in kernels if focus in e.key) / 1e3 / steps
@@ -1443,7 +1495,9 @@ def profile_window(label: str, one_step, steps: int = 4, focus: str = ""):
     print(f"  {label}: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms device busy "
           f"({busy_ms / max(wall_ms, 1e-9):.1%}), {n_launch:.0f} device ops "
           f"per step" + (f", {focus} {focus_ms:.3f} ms per step"
-                         if focus else ""))
+                         if focus else "")
+          + "".join(f", {n} {ms:.3f} device ms per step"
+                    for n, ms in range_ms.items()))
     # the kinds of kernel the eager drafter launched before K2 took it in;
     # torch.gather runs the scatter-gather kernel too, and any left come
     # from elsewhere in the step (acceptance's cumprod, the commit, the
@@ -1457,7 +1511,7 @@ def profile_window(label: str, one_step, steps: int = 4, focus: str = ""):
         print(f"    {dev(e) / 1e3 / steps:8.3f} ms/step  x{e.count // steps:4d}"
               f"  {e.key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, ops=n_launch,
-                focus_ms=focus_ms)
+                focus_ms=focus_ms, range_ms=range_ms)
 
 
 def phase_serve() -> dict:
@@ -1560,9 +1614,7 @@ def phase_serve() -> dict:
     lossless_continuous(params32, cfg32, spec, tables)
     del params32, eng32
     torch.cuda.empty_cache()
-    reading = {"mixed": (n_new / wall, n_new / max(calls, 1)),
-               "greedy": (g_new / g_wall, 1.0)}
-    return launches, tables, [r.output_ids for r in done], reading
+    return launches, tables, [r.output_ids for r in done]
 
 
 # ---------------------------------------------------------------------------
@@ -1634,16 +1686,17 @@ def read_launches() -> dict:
                 paged_spec_attention_cuda.tree_launches}
 
 
-def check_paged_run(engine, done, work):
-    """The paged run's pool: no leaked page, deferrals, no rejection, the
-    page books intact; every request reached its budget."""
+def check_paged_run(engine, done, work, deferrals: bool = True):
+    """The paged run's pool: no leaked page, deferrals (unless
+    ``deferrals`` is False), no rejection, the page books intact; every
+    request reached its budget."""
     from repro_torch.models.cache import check_page_invariants
     st = engine.pool_stats()
     inv = check_page_invariants(engine._cont_state.model)
     print(f"    pool: {st}; invariants after the drain: {inv}")
     if st["free_pages"] != st["num_pages"] or inv["allocated"] != 0:
         raise AssertionError(f"pages leaked: {st}, {inv}")
-    if st["deferrals"] <= 0 or st["rejected"] != 0:
+    if (deferrals and st["deferrals"] <= 0) or st["rejected"] != 0:
         raise AssertionError(f"expected deferrals and no rejection: {st}")
     check_budgets(done, work)
     return st
@@ -2461,11 +2514,13 @@ def phase_adaptive(tables, cont_rates: dict) -> dict:
     torch.cuda.empty_cache()
 
     # ---- 9c: lossless in f32 ----
-    print("phase 9c: lossless (f32, TF32 off): adaptive static, continuous "
+    print(f"phase 9c: lossless (f32, TF32 off, {ADAPTIVE_F32_DEPTH} "
+          f"layers): adaptive static, continuous "
           "paged and linear; tree arms")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+    cfg32 = dataclasses.replace(cfg, num_layers=ADAPTIVE_F32_DEPTH,
+                                param_dtype=torch.float32,
                                 compute_dtype=torch.float32)
     params32 = M.init_params(cfg32, seed=0, device="cuda")
     lwork = work[:CONT_LOSSLESS]
@@ -2845,7 +2900,8 @@ def hybrid_adaptive(params, cfg, tables, prompts, work, rates) -> dict:
 # ---------------------------------------------------------------------------
 ARCH_HEADS = (  # arch, H, KV, hd
     ("gemma-2b", 8, 1, 256), ("glm4-9b", 32, 2, 128),
-    ("nemotron-4-340b", 96, 8, 192), ("qwen2-vl-72b", 64, 8, 128))
+    ("nemotron-4-340b", 96, 8, 192), ("qwen2-vl-72b", 64, 8, 128),
+    ("deepseek-moe-16b", 16, 16, 128))
 PTXAS = {}           # kernel instance -> its -Xptxas -v report (phase 1)
 
 
@@ -2880,9 +2936,10 @@ def phase_arch_kernels(S_main: int, cur_main: list, cont_cur: list) -> None:
     """Phase 2f: K1 and K3 against their plain versions (f32 2e-5, bf16
     2e-2 and phase 2's K1_SPLIT_ERR rule; K3 bit for bit K1 on the
     gathered view) at the verify (B 8, K 10, W1 11, S 332, ragged cur_len)
-    and decode (KW1 1) shapes of Gemma-2B, GLM-4-9B, Nemotron-4 and
-    Qwen2-VL's heads; the bf16 ones timed by events and device ms beside
-    their bound and SDPA, with their instance's registers and spills."""
+    and decode (KW1 1) shapes of Gemma-2B's, GLM-4-9B's, Nemotron-4's,
+    Qwen2-VL's and DeepSeek-MoE-16B's heads; the bf16 ones timed by events
+    and device ms beside their bound and SDPA, with their instance's
+    registers and spills."""
     import torch
     from repro_torch.kernels.ref import gather_pages
     from repro_torch.kernels.spec_attention import (
@@ -2942,8 +2999,11 @@ def phase_arch_kernels(S_main: int, cur_main: list, cont_cur: list) -> None:
 # ---------------------------------------------------------------------------
 ARCH_RUNS = (("10c", "gemma-2b"), ("10d", "glm4-9b"),
              ("10e", "nemotron-4-340b"), ("10e", "qwen2-vl-72b"))
-ARCH_DEPTH = {"nemotron-4-340b": 4, "qwen2-vl-72b": 4}   # of 96 and 80
+# of 18, 40, 96 and 80 layers
+ARCH_DEPTH = {"gemma-2b": 4, "glm4-9b": 5, "nemotron-4-340b": 2,
+              "qwen2-vl-72b": 2}
 ARCH_F32_DEPTH = {"nemotron-4-340b": 1}                  # others: 2
+MISTRAL_DEPTH, LONG_DEPTH = 4, 4     # 10a-10b of 32 layers, 10g of 24
 BIGRAM_BATCH = 2048          # the tables' sweep batch for vocabularies
 RING_CHARS, RING_BUCKET, RING_NEW = 4200, 4224, 64      # 10b: 4096-slot ring
 LONG_BUCKET, LONG_NEW = 8192, 64                        # 10g: 8192-slot ring
@@ -3015,23 +3075,73 @@ def arch_tables(params, cfg, batch: int = BIGRAM_BATCH):
     return tables
 
 
+def mixer_counts(cfg) -> tuple:
+    """(attention layers, Mamba layers) of ``cfg``."""
+    from repro_torch.models.config import ATTN, MAMBA, layer_blocks
+    blocks = layer_blocks(cfg)
+    return (sum(b.mixer == ATTN for b in blocks),
+            sum(b.mixer == MAMBA for b in blocks))
+
+
+def expected_launches(cfg, steps: int, calls_a_step: int, paged: bool,
+                      prefills: int = 0) -> dict:
+    """What ``steps`` steps of ``calls_a_step`` model calls each (2 for a
+    recurrent stack's verify + gated replay, else 1) launch: each attention
+    layer's call K3 (paged), K1 (linear, inside K1's contract) or the plain
+    verify, never the other two; each Mamba layer's K5, also in each of
+    ``prefills`` prefills."""
+    from repro_torch.kernels.dispatch import verify_kernel_supported
+    n_attn, n_mamba = mixer_counts(cfg)
+    per = steps * calls_a_step * n_attn
+    kernel = verify_kernel_supported(cfg)
+    return {"spec_attention": per if kernel and not paged else 0,
+            "paged_spec_attention": per if paged else 0,
+            "plain_verify": 0 if kernel else per,
+            "mamba_scan": n_mamba * (prefills + steps * calls_a_step)}
+
+
+def check_launches(label: str, launches: dict, plain: int,
+                   want: dict) -> None:
+    got = {k: launches[k] for k in want if k != "plain_verify"}
+    got["plain_verify"] = plain
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def drop_line(cfg, label: str, counts):
+    """The dropped token-slots ``counts`` (``moe.count_drops``) holds, for
+    a config with MoE layers (None otherwise), recorded in DROPS and
+    printed."""
+    from repro_torch.models.config import MOE, layer_blocks
+    calls, dropped, most = counts.read()
+    if not any(b.mlp == MOE for b in layer_blocks(cfg)):
+        return None
+    DROPS[label] = (calls, dropped, most)
+    print(f"    {label}: dropped token-slots {dropped} in {calls} MoE-layer "
+          f"calls (capacity factor {cfg.capacity_factor}): mean "
+          f"{dropped / max(calls, 1):.2f}, max {most} a call")
+    return calls, dropped, most
+
+
 def arch_static(params, cfg, tables, prompts, label: str, runs: dict,
                 max_new: int = SERVE_NEW, bucket: int = SERVE_BUCKET,
                 rates: dict = None):
     """Static mixed (10, 10) beside greedy on ``prompts``: tokens/s,
     tokens/call, launches and plain-verify calls; asserts each step went
-    through the path the config's contract gives it (K1 steps x layers
-    times, or the plain verify as often and K1 never) and K2 once a mixed
-    step.  Records each run's launches in ``runs`` and, given ``rates``,
-    its (tokens/s, tokens/call) there; returns the mixed run's
-    requests."""
+    through the path the config's contract gives it (``expected_launches``:
+    K1 or the plain verify in each attention layer, steps x layers times,
+    twice a mixed step for a recurrent stack, which replays its winner; K5
+    in each Mamba layer) and K2 once a mixed step.  An MoE config's dropped
+    token-slots are counted (``drop_line``).  Records each run's launches
+    in ``runs`` and, given ``rates``, its (tokens/s, tokens/call) there;
+    returns the mixed run's requests."""
     import numpy as np
     import torch
     from repro_torch.core.spec_engine import SpecConfig
-    from repro_torch.kernels.dispatch import verify_kernel_supported
     from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.serving.engine import ServingEngine
-    kernel = verify_kernel_supported(cfg)
     out = {}
     for name in ("mixed", "greedy"):
         spec = (SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
@@ -3040,7 +3150,8 @@ def arch_static(params, cfg, tables, prompts, label: str, runs: dict,
                             tables=tables if name == "mixed" else None)
         reset_launches()              # counts from zero just before the run
         A.plain_verify.calls = 0
-        done, wall = serve(eng, prompts, max_new)
+        with moe.count_drops() as drops:
+            done, wall = serve(eng, prompts, max_new)
         launches, plain = read_launches(), A.plain_verify.calls
         n_new = sum(r.stats["new_tokens"] for r in done)
         calls = sum(r.stats["model_calls"] for r in done)
@@ -3049,17 +3160,14 @@ def arch_static(params, cfg, tables, prompts, label: str, runs: dict,
               f"{n_new / wall:.1f} tokens/s, tokens/call "
               f"{n_new / max(calls, 1):.3f}, {steps} steps, launches "
               f"{launches}, plain-verify calls {plain}")
+        drop_line(cfg, f"{label} {name}", drops)
         if any(r.stats["new_tokens"] != max_new for r in done):
             raise AssertionError(f"{label} {name}: a request missed its "
                                  f"budget")
-        want = steps * cfg.num_layers
-        got = (launches["spec_attention"], plain) if kernel \
-            else (plain, launches["spec_attention"])
-        if got != (want, 0) or launches["paged_spec_attention"]:
-            raise AssertionError(
-                f"{label} {name}: {'K1' if kernel else 'plain verify'} ran "
-                f"{got[0]} times, the other path {got[1]}; want {want} "
-                f"({steps} steps x {cfg.num_layers} layers) and 0")
+        replays = 2 if name == "mixed" and M.has_recurrent(cfg) else 1
+        check_launches(f"{label} {name}", launches, plain,
+                       expected_launches(cfg, steps, replays, paged=False,
+                                         prefills=1))
         if name == "mixed" and launches["ngram_match"] != steps:
             raise AssertionError(f"{label}: K2 launched "
                                  f"{launches['ngram_match']} times in "
@@ -3077,26 +3185,43 @@ def arch_static(params, cfg, tables, prompts, label: str, runs: dict,
     return out["mixed"]
 
 
-def arch_continuous(params, cfg, tables, label: str, runs: dict) -> None:
-    """Phase 5's mix, continuous paged mixed (10, 10) over the 16-page
-    pool: K3 steps x layers times, K2 once a step, K1 never."""
+def arch_continuous(params, cfg, tables, label: str, runs: dict,
+                    paged: bool = True, n: int = CONT_N) -> None:
+    """The first ``n`` requests of phase 5's mix, continuous mixed (10, 10)
+    over the 16-page pool (``paged``) or the linear cache: each step's
+    verify layers on their path (``expected_launches``: K3 when paged),
+    K2 once a step; the pool drains (deferring when all 24 requests
+    come)."""
     from repro_torch.core.spec_engine import SpecConfig
-    work = cont_workload()
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    work = cont_workload()[:n]
     eng = cont_engine(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W,
-                                              strategy="mixed"), tables, True)
+                                              strategy="mixed"), tables,
+                      paged)
+    layout = "paged" if paged else "linear"
     reset_launches()
-    done, wall = serve_continuous(eng, work)
-    launches = read_launches()
-    print(f"  {label} continuous paged mixed: {cont_rate(done, wall)}, "
-          f"launches {launches}")
-    check_paged_run(eng, done, work)
+    A.plain_verify.calls = 0
+    with moe.count_drops() as drops:
+        done, wall = serve_continuous(eng, work)
+    launches, plain = read_launches(), A.plain_verify.calls
+    print(f"  {label} continuous {layout} mixed ({n} requests): "
+          f"{cont_rate(done, wall)}, launches {launches}, plain-verify "
+          f"calls {plain}")
+    drop_line(cfg, f"{label} continuous {layout}", drops)
+    if paged:
+        check_paged_run(eng, done, work, deferrals=n == CONT_N)
+    else:
+        check_budgets(done, work)
     steps = launches["ngram_match"]
-    if steps <= 0 or launches["spec_attention"] \
-            or launches["paged_spec_attention"] != steps * cfg.num_layers:
-        raise AssertionError(f"{label} continuous paged: want K3 = {steps} "
-                             f"steps x {cfg.num_layers} layers and no K1: "
-                             f"{launches}")
-    runs[f"{label} continuous paged"] = launches
+    if steps <= 0:
+        raise AssertionError(f"{label} continuous: K2 never launched")
+    check_launches(f"{label} continuous {layout}", launches, plain,
+                   expected_launches(cfg, steps,
+                                     2 if M.has_recurrent(cfg) else 1,
+                                     paged=paged, prefills=n))
+    runs[f"{label} continuous {layout}"] = launches
 
 
 def arch_lossless(arch: str, tables, prompts, max_new: int, label: str,
@@ -3180,10 +3305,10 @@ def phase_mistral(S_main: int, cur_main: list, prompts, runs) -> None:
     from repro_torch.core.spec_engine import SpecConfig
     from repro_torch.kernels.dispatch import verify_kernel_supported
     from repro_torch.models.cache import cache_buffer_len
-    cfg = arch_config("mistral-7b")
+    cfg = arch_config("mistral-7b", MISTRAL_DEPTH)
     assert not verify_kernel_supported(cfg), cfg.sliding_window
-    print("phase 10a: Mistral-7B (full width, bf16): the plain verify, "
-          "static serving")
+    print(f"phase 10a: Mistral-7B ({MISTRAL_DEPTH} of its 32 layers, full "
+          f"width, bf16): the plain verify, static serving")
     mistral_verify_times(cfg, S_main, cur_main)
     params = load_model(cfg)
     tables = arch_tables(params, cfg, batch=256)
@@ -3213,18 +3338,19 @@ def phase_mistral(S_main: int, cur_main: list, prompts, runs) -> None:
 
 def phase_archs(S_main: int, cur_main: list, lm_tables) -> dict:
     """Phase 10: the registry's other attention-only archs at full width
-    (Nemotron-4 and Qwen2-VL cut to 4 layers), bf16, seeded weights, one
-    model at a time, each freed after.
+    cut by depth (Mistral-7B to MISTRAL_DEPTH layers, the others as
+    ARCH_DEPTH says, StableLM's long-context variant to LONG_DEPTH), bf16,
+    seeded weights, one model at a time, each freed after.
 
     10a: Mistral-7B serves phase 3's 8 requests statically (mixed (10, 10)
     and greedy; profiled): its window keeps K1 off, so every verify layer
-    is the plain verify (steps x 32 calls) and K2 drafts; the plain
+    is the plain verify (steps x layers calls) and K2 drafts; the plain
     verify's device ms beside K1 and SDPA at its verify shape.  10b: two
     ~4,200-byte prompts and 64 new tokens wrap its 4,096-slot ring in
-    prefill and under speculation (bf16, full width), then in f32 at depth
+    prefill and under speculation (bf16), then in f32 at depth
     2 the same requests are greedy decoding (``check_lossless``'s tie
-    rule).  10c-10e: Gemma-2B, GLM-4-9B, Nemotron-4 (4 layers) and Qwen2-VL
-    (4 layers, M-RoPE) serve phase 3's requests statically (K1 steps x
+    rule).  10c-10e: Gemma-2B, GLM-4-9B, Nemotron-4 and Qwen2-VL (M-RoPE)
+    serve phase 3's requests statically (K1 steps x
     layers times), Gemma and GLM phase 5's mix continuously paged (K3),
     and in f32 (Nemotron at 1 layer, the others at 2) the static mixed
     outputs are greedy decoding.  10f: HuBERT-XLarge's encoder on 2 x 1024
@@ -3317,7 +3443,8 @@ def phase_hubert() -> None:
 
 def phase_long_context(tables, prompts, runs) -> None:
     """10g: ``long_context_variant`` of StableLM-2-1.6B (an 8,192-slot
-    ring) at full width, bf16: a prefill of two 8,192-token prompts through
+    ring) at full width and LONG_DEPTH layers, bf16: a prefill of two
+    8,192-token prompts through
     the blockwise attention (timed), then static mixed and greedy serving
     with 64 new tokens (the ring wraps; the plain verify carries every
     verify layer); in f32 at depth 2, 32 new tokens are greedy decoding
@@ -3329,9 +3456,11 @@ def phase_long_context(tables, prompts, runs) -> None:
     from repro_torch.models import attention as A
     from repro_torch.models import model as M
     from repro_torch.serving.scheduler import Scheduler
-    cfg = long_context_variant(get_config("stablelm-1.6b"))
-    print(f"phase 10g: {cfg.name} (window {cfg.sliding_window}, full width, "
-          f"bf16): 2 prompts of {LONG_BUCKET} tokens, {LONG_NEW} new")
+    cfg = dataclasses.replace(long_context_variant(
+        get_config("stablelm-1.6b")), num_layers=LONG_DEPTH)
+    print(f"phase 10g: {cfg.name} (window {cfg.sliding_window}, "
+          f"{LONG_DEPTH} of its 24 layers, full width, bf16): 2 prompts of "
+          f"{LONG_BUCKET} tokens, {LONG_NEW} new")
     texts = [long_text(LONG_BUCKET, 3), long_text(LONG_BUCKET, 4)]
     real = A._blockwise_attention
     calls = []
@@ -3433,19 +3562,20 @@ def check_no_launch(label: str) -> None:
 
 
 def serve_trained(params, cfg, label: str, runs: dict, seeded=None) -> dict:
-    """11c: tables from the trained model, phase 3's 8 requests statically
-    mixed (10, 10) and greedy (``arch_static``: K1 steps x layers, K2 once
-    a step), tokens/call and tokens/s beside greedy and, given ``seeded``,
-    beside phase 3's seeded reading of the same model.  Returns the
-    rates."""
+    """11c: tables from the model's weights by the engine's own build (a
+    default ServingEngine's: 256 tokens a forward), phase 3's 8 requests
+    statically mixed (10, 10) and greedy (``arch_static``: K1 steps x
+    layers, K2 once a step), tokens/call and tokens/s beside greedy and,
+    given ``seeded``, beside the same model's seeded reading.  Returns the
+    tables and rates."""
     from repro_torch.core.spec_engine import SpecConfig
     from repro_torch.serving.engine import ServingEngine
     t0 = time.perf_counter()
     tables = ServingEngine(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W),
                            buckets=(SERVE_BUCKET,)).tables
     sync()
-    print(f"  {label}: n-gram tables from the trained weights "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"  {label}: n-gram tables from the weights (the engine's own "
+          f"build) {time.perf_counter() - t0:.2f} s")
     rates: dict = {}
     arch_static(params, cfg, tables, smoke_prompts(), label, runs,
                 rates=rates)
@@ -3457,6 +3587,24 @@ def serve_trained(params, cfg, label: str, runs: dict, seeded=None) -> dict:
              f"{seeded['mixed'][0]:.1f} tokens/s, greedy "
              f"{seeded['greedy'][0]:.1f}"))
     return {"tables": tables, **rates}
+
+
+def wide_tables_reading(params, cfg, own: float) -> None:
+    """Trained StableLM's mixed (10, 10) run on phase 3's 8 requests again,
+    over tables swept at BIGRAM_BATCH tokens a forward (``arch_tables``,
+    the build of phases 10 and 12) in place of the engine's 256: how far
+    the table build alone moves tokens/call on the same weights."""
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W,
+                                                strategy="mixed"),
+                        tables=arch_tables(params, cfg),
+                        buckets=(SERVE_BUCKET,))
+    done, wall = serve(eng, smoke_prompts(), SERVE_NEW)
+    calls = sum(r.stats["model_calls"] for r in done)
+    print(f"  11c stablelm-1.6b trained, tables at batch {BIGRAM_BATCH}: "
+          f"mixed {len(done) * SERVE_NEW / calls:.3f} tokens/call in "
+          f"{wall:.2f} s (the engine's own build: {own:.3f})")
 
 
 def trained_lossless(params32, cfg32, tables, n: int, max_new: int,
@@ -3538,11 +3686,13 @@ def phase_train_bench(runs: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train_lm(runs: dict, seeded) -> None:
-    """11b and 11c on StableLM-2-1.6B at full width (bf16 params, f32
-    moments), then its trained weights in f32; last, where a train step's
-    time goes (after the serving readings: a profiler run slows the
-    process's host path afterwards)."""
+def phase_train_lm(runs: dict) -> None:
+    """11b and 11c on StableLM-2-1.6B at full width and LM_TRAIN_DEPTH
+    layers (bf16 params, f32 moments): its seeded weights served, then
+    trained and served, then its trained weights in f32 and over tables
+    swept at BIGRAM_BATCH; last, where a train step's time goes (after the
+    serving readings: a profiler run slows the process's host path
+    afterwards)."""
     import gc
     import tempfile
     import torch
@@ -3552,14 +3702,22 @@ def phase_train_lm(runs: dict, seeded) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("stablelm-1.6b")
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              num_layers=LM_TRAIN_DEPTH)
     t0 = time.perf_counter()
     ts = init_train_state(cfg, seed=0, device="cuda")
     sync()
-    print(f"  {cfg.name}: {cfg.param_count() / 1e9:.3f}B params bf16, "
-          f"moments f32, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
-          f"init {time.perf_counter() - t0:.1f} s; B {TRAIN_B} x T "
-          f"{TRAIN_T}, lr {TRAIN_LR}, remat")
+    print(f"  {cfg.name}: {LM_TRAIN_DEPTH} of its 24 layers, "
+          f"{cfg.param_count() / 1e9:.3f}B params bf16, moments f32, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init "
+          f"{time.perf_counter() - t0:.1f} s; B {TRAIN_B} x T {TRAIN_T}, "
+          f"lr {TRAIN_LR}, remat")
+    seeded = serve_trained(ts["params"], cfg, "11c stablelm-1.6b seeded",
+                           runs)
+    del seeded["tables"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     warm = max(LM_TRAIN_STEPS // 10, 1)
     batches = mixture(LM_TRAIN_STEPS)
@@ -3596,6 +3754,7 @@ def phase_train_lm(runs: dict, seeded) -> None:
     del back, flat, flat_back
     print("phase 11c: serving StableLM-2-1.6B's trained weights")
     served = serve_trained(params, cfg, "11c stablelm-1.6b", runs, seeded)
+    wide_tables_reading(params, cfg, served["mixed"][1])
     params32 = tree_map(lambda t: t.float(), params)
     cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
                                 compute_dtype=torch.float32)
@@ -3694,13 +3853,13 @@ def phase_guard() -> None:
                          "raise K5's guard")
 
 
-def phase_train(seeded) -> dict:
+def phase_train() -> dict:
     """Phase 11 (see the module docstring).  Returns each serving run's
     kernel launches."""
     t_phase = time.perf_counter()
     runs: dict = {}
     for label, fn in (("11a", lambda: phase_train_bench(runs)),
-                      ("11b", lambda: phase_train_lm(runs, seeded)),
+                      ("11b", lambda: phase_train_lm(runs)),
                       ("11d", phase_cli), ("11e", phase_guard)):
         t0 = time.perf_counter()
         print(f"phase {label}")
@@ -3708,6 +3867,384 @@ def phase_train(seeded) -> dict:
         print(f"  phase {label} took {time.perf_counter() - t0:.1f} s")
     print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the MoE FFN and the xLSTM mixers
+# ---------------------------------------------------------------------------
+MIXTRAL_DEPTH = 4              # of 32 layers; full width, all 8 experts
+JAMBA_EXPERTS = (5, 0)         # with_experts(config(), 5): two MoE FFNs
+JAMBA_EXPERTS_F32 = (3, 2)     # offsets 2-4: one MoE FFN, ~52 GB in f32
+MOE_CONT_N = 8                 # the first 8 requests of phase 5's mix
+MOE_F32_DEPTH = 2              # DeepSeek: dense layer 0 + one MoE layer
+RANGES = ("moe_ffn", "mlstm_mix", "slstm_mix")
+DROPS: dict = {}               # run -> (MoE-layer calls, dropped, max a call)
+
+
+def no_drop(cfg):
+    """``cfg`` at capacity_factor E / K: C >= N at every N of a call, so
+    no token-slot drops and a row's output is its own."""
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    return dataclasses.replace(cfg, name=f"{cfg.name}-cf{E}/{K}",
+                               capacity_factor=E / K)
+
+
+@contextlib.contextmanager
+def named_ranges():
+    """While active, the MoE FFN and the two xLSTM mixers run inside
+    torch.profiler ranges named as in RANGES, so that a profile reads the
+    device ms of the kernels each launches (``profile_window``)."""
+    from torch.profiler import record_function
+    from repro_torch.models import transformer as TR
+    patched = ((TR.moe_lib, "apply_moe", "moe_ffn"),
+               (TR.X, "mlstm_mix", "mlstm_mix"),
+               (TR.X, "slstm_mix", "slstm_mix"))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patched]
+
+    def ranged(fn, name):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+    for (mod, attr, fn), (_, _, name) in zip(saved, patched):
+        setattr(mod, attr, ranged(fn, name))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def moe_serve(label: str, cfg, runs: dict, continuous=None,
+              profile: bool = False):
+    """One bf16 model of phase 12: seeded weights, its n-gram tables,
+    static mixed and greedy (``arch_static``), continuous serving of
+    MOE_CONT_N requests (``continuous``: True paged, False linear), a
+    profiled mixed step; freed after.  Returns its tables."""
+    import torch
+    from repro_torch.core.spec_engine import SpecConfig
+    t0 = time.perf_counter()
+    params = load_model(cfg)
+    tables = arch_tables(params, cfg)
+    prompts = smoke_prompts()
+    arch_static(params, cfg, tables, prompts, label, runs)
+    if continuous is not None:
+        arch_continuous(params, cfg, tables, label, runs, paged=continuous,
+                        n=MOE_CONT_N)
+    if profile:
+        with named_ranges():
+            profile_steps(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W,
+                                                  strategy="mixed"),
+                          tables, prompts, steps=3,
+                          label=f"{label} mixed step", ranges=RANGES)
+    peak_line(f"{label} bf16")
+    del params
+    torch.cuda.empty_cache()
+    print(f"  phase {label} took {time.perf_counter() - t0:.1f} s")
+    return tables
+
+
+def moe_capacity(arch: str, tables, label: str) -> None:
+    """12e for a routed attention model at MOE_F32_DEPTH layers, full
+    width, f32 (TF32 off): phase 3's 8 requests x SERVE_NEW static
+    mixed (10, 10), against ``greedy_reference``, at the default capacity
+    (printed:
+    the rows equal to it, each other row's first difference, the drops;
+    nothing asserted, the reference's fault) and at capacity E / K (no
+    drop, and every row equal to it: ``check_equals_greedy``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spec_engine import SpecConfig, greedy_reference
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = arch_config(arch, MOE_F32_DEPTH, f32=True)
+    params = load_model(cfg)
+    prompts = smoke_prompts()
+    for c in (cfg, no_drop(cfg)):
+        eng = ServingEngine(params, c, SpecConfig(k=SERVE_K, w=SERVE_W,
+                                                  strategy="mixed"),
+                            tables=tables, buckets=(SERVE_BUCKET,))
+        with moe.count_drops() as drops:
+            done, wall = serve(eng, prompts, SERVE_NEW)
+        served = drop_line(c, f"{label} f32 {c.name} served", drops)
+        toks = np.stack([eng.scheduler.pad_to_bucket(eng.tok.encode(p))
+                         for p in prompts])
+        with moe.count_drops() as drops:
+            ref = greedy_reference(params, c, toks, SERVE_NEW).cpu().numpy()
+        oracle = drop_line(c, f"{label} f32 {c.name} greedy_reference",
+                           drops)
+        equal = [bool(np.array_equal(r.output_ids, ref[i, SERVE_BUCKET:]))
+                 for i, r in enumerate(done)]
+        first = {i: int(np.argmax(r.output_ids != ref[i, SERVE_BUCKET:]))
+                 for i, r in enumerate(done) if not equal[i]}
+        calls = sum(r.stats["model_calls"] for r in done)
+        print(f"  {label} f32 capacity factor {c.capacity_factor:.4g}: "
+              f"{sum(equal)} of {len(done)} rows x {SERVE_NEW} == "
+              f"greedy_reference; first differing new token per other row "
+              f"{first}; tokens/call {len(done) * SERVE_NEW / calls:.3f},"
+              f" {wall:.2f} s")
+        if c is not cfg:
+            if served[1] or oracle[1]:
+                raise AssertionError(f"{label}: slots dropped at capacity "
+                                     f"E / K: {served}, {oracle}")
+            check_equals_greedy(params, c, done, ref, SERVE_BUCKET)
+    peak_line(f"{label} f32")
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+def jamba_experts_f32(tables) -> None:
+    """12e: Jamba with one MoE FFN (``with_experts(config(), 3, start=2)``,
+    full width, f32, TF32 off) at capacity E / K: 4 requests x 32 static
+    mixed are greedy decoding up to measured f32 ties (phase 7d's rule,
+    ``check_lossless``), with no dropped slot."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import with_experts
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers, start = JAMBA_EXPERTS_F32
+    cfg = with_experts(get_config("jamba-1.5-large-398b"), layers, start)
+    cfg = no_drop(dataclasses.replace(cfg, param_dtype=torch.float32,
+                                      compute_dtype=torch.float32))
+    params = load_model(cfg)
+    prompts = smoke_prompts()[:LOSSLESS_REQUESTS]
+    eng = ServingEngine(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W,
+                                                strategy="mixed"),
+                        tables=tables, buckets=(SERVE_BUCKET,))
+    tok_fn = lambda p: eng.scheduler.pad_to_bucket(eng.tok.encode(p))
+    with moe.count_drops() as counts:      # the served run and its oracle
+        done, _ = serve(eng, prompts, LOSSLESS_NEW)
+        check_lossless(params, cfg, done, prompts, tok_fn, LOSSLESS_NEW,
+                       "12e jamba with experts static mixed")
+    drops = drop_line(cfg, "12e jamba with experts f32", counts)
+    if drops[1]:
+        raise AssertionError(f"12e jamba: slots dropped at E / K: {drops}")
+    peak_line("12e jamba with experts f32")
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+def f32_spread(params, cfg, toks) -> float:
+    """Largest |logit| difference at the last position of ``toks`` (B, T)
+    between one forward of all rows and one forward a row: how far apart
+    two f32 evaluations of the same sequences land (their GEMMs differ in
+    shape, so in rounding)."""
+    import torch
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        a = M.forward(params, cfg, tokens=toks)[0][:, -1]
+        b = torch.cat([M.forward(params, cfg, tokens=toks[i:i + 1])[0][:, -1]
+                       for i in range(toks.shape[0])])
+    return float((a - b).abs().max())
+
+
+def graphed_greedy_reference(params, cfg, toks, max_new: int):
+    """``greedy_reference`` (one full forward over the fixed (B, P +
+    max_new) buffer a new token, the argmax at the last filled position)
+    with that forward captured once in a CUDA graph and replayed for each
+    token: the same kernels on the same buffer, without the host's time
+    loop in every call.  The graph's first logits must equal an eager
+    forward's bit for bit, or the eager ``greedy_reference`` runs instead.
+    Returns the buffer as numpy."""
+    import torch
+    from repro_torch.core.spec_engine import greedy_reference
+    from repro_torch.models import model as M
+    B, P = toks.shape
+    buf = torch.zeros((B, P + max_new), dtype=torch.int32, device="cuda")
+    buf[:, :P] = toks
+    with torch.no_grad():
+        eager = M.forward(params, cfg, tokens=buf)[0]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):           # warm-up, as capture asks
+            M.forward(params, cfg, tokens=buf)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                logits = M.forward(params, cfg, tokens=buf)[0]
+            graph.replay()
+            sync()
+            same = torch.equal(logits, eager)
+        except RuntimeError as e:       # the forward would not capture
+            print(f"    graphed greedy_reference: capture failed ({e})")
+            same = logits = None
+        print(f"    graphed greedy_reference: captured in "
+              f"{time.perf_counter() - t0:.1f} s; first logits == an eager "
+              f"forward's: {same}")
+        if not same:
+            del graph, logits
+            return greedy_reference(params, cfg, toks, max_new).cpu().numpy()
+        for i in range(max_new):
+            if i:
+                graph.replay()
+            buf[:, P + i] = torch.argmax(logits[:, P + i - 1], dim=-1).to(
+                torch.int32)
+    out = buf.cpu().numpy()
+    del graph, logits
+    return out
+
+
+def xlstm_f32(tables) -> None:
+    """12e: xLSTM-125M at full size in f32 (TF32 off).  With the
+    reference's init (sLSTM's ``r`` at fan-in 4, std 0.5) the sLSTM
+    recurrence amplifies rounding: the run reads the spread of two f32
+    evaluations of phase 3's first 2 prompts (``f32_spread``), and no
+    output can be held to an oracle whose GEMMs round otherwise.  With ``r`` drawn at
+    the fan-in of its dh x dh blocks (std dh^-0.5; every other weight as
+    seeded), the spread is f32 noise, and phase 3's 8 requests x
+    SERVE_NEW static mixed equal ``greedy_reference`` token for token
+    (hard; its oracle's forward is a host-bound time loop, ~1.5 s a
+    forward of 8 x 320 tokens on the card, so it runs as
+    ``graphed_greedy_reference``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spec_engine import SpecConfig
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = arch_config("xlstm-125m", f32=True)
+    params = load_model(cfg)
+    prompts = smoke_prompts()
+    eng = ServingEngine(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W,
+                                                strategy="mixed"),
+                        tables=tables, buckets=(SERVE_BUCKET,))
+    toks = torch.as_tensor(np.stack([eng.scheduler.pad_to_bucket(
+        eng.tok.encode(p)) for p in prompts]), device="cuda")
+    spread = f32_spread(params, cfg, toks[:2])
+    dh = cfg.d_model // cfg.num_heads
+    for gid, g in params.items():
+        if "r" in g.get("mixer", {}):
+            g["mixer"]["r"].mul_((4 / dh) ** 0.5)     # fan-in 4 -> dh
+    tamed = f32_spread(params, cfg, toks[:2])
+    print(f"  12e xlstm-125m f32: logit spread of two evaluations at the "
+          f"last prompt position {spread:.4g} with the reference's init "
+          f"(sLSTM r std 0.5), {tamed:.4g} with r at fan-in {dh}")
+    done, wall = serve(eng, prompts, SERVE_NEW)
+    t0 = time.perf_counter()
+    ref = graphed_greedy_reference(params, cfg, toks, SERVE_NEW)
+    check_equals_greedy(params, cfg, done, ref, SERVE_BUCKET)
+    calls = sum(r.stats["model_calls"] for r in done)
+    print(f"  12e xlstm-125m (r at fan-in {dh}): f32 mixed == "
+          f"greedy_reference for {len(done)} requests x {SERVE_NEW} "
+          f"tokens ({calls} verify calls, "
+          f"{len(done) * SERVE_NEW / calls:.3f} tokens/call, served in "
+          f"{wall:.2f} s; greedy_reference "
+          f"{time.perf_counter() - t0:.1f} s)")
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+def moe_train() -> None:
+    """12f: TRAIN_CHECK_STEPS AdamW steps (remat) of deepseek-smoke and
+    xlstm-smoke (f32) on the card from CPU-seeded weights, on the
+    reference's mixture: loss and aux_loss equal the CPU's same steps to
+    TRAIN_CPU_TOL (relative), DeepSeek's aux_loss > 0, no kernel
+    launches."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import tree_map
+    batches = mixture(TRAIN_CHECK_STEPS)
+    for arch in ("deepseek-moe-16b", "xlstm-125m"):
+        cfg = get_smoke_config(arch)
+        step = make_train_step(cfg, AdamWConfig(
+            lr=TRAIN_LR, total_steps=TRAIN_CHECK_STEPS, warmup_steps=1),
+            remat=True)
+        cpu_ts = init_train_state(cfg, seed=0, device="cpu")
+        ts = tree_map(lambda t: t.to("cuda"), cpu_ts)
+        reads = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        for dev, state in (("card", ts), ("cpu", cpu_ts)):
+            mets = []
+            for b in batches:
+                state, m = step(state, b)
+                mets.append((m["loss"], m["aux_loss"]))
+            reads[dev] = [(float(a), float(x)) for a, x in mets]
+            if dev == "card":
+                sync()
+                secs = time.perf_counter() - t0
+                check_no_launch(f"12f {cfg.name}")
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+        err = max(max(rel(c[0], p[0]), rel(c[1], p[1]) if p[1] else c[1])
+                  for c, p in zip(reads["card"], reads["cpu"]))
+        print(f"  12f {cfg.name}: card (loss, aux_loss) " + " ".join(
+            f"({a:.5f}, {x:.5f})" for a, x in reads["card"])
+            + f"; max relative difference from the CPU's {err:.3g} (limit "
+            f"{TRAIN_CPU_TOL}); {secs:.2f} s on the card")
+        if err > TRAIN_CPU_TOL:
+            raise AssertionError(f"12f {cfg.name}: card {reads['card']} != "
+                                 f"CPU {reads['cpu']}")
+        if arch == "deepseek-moe-16b" and not all(
+                x > 0 for _, x in reads["card"]):
+            raise AssertionError(f"12f: DeepSeek's aux_loss is not > 0: "
+                                 f"{reads['card']}")
+
+
+def phase_moe() -> dict:
+    """Phase 12 (see the module docstring).  Returns each bf16 serving
+    run's kernel launches."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import with_experts
+    t_phase = time.perf_counter()
+    runs: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 12a: DeepSeek-MoE-16B (full depth and width, bf16): "
+          "static, continuous paged, profiled")
+    tables = {"deepseek": moe_serve("12a deepseek-moe-16b",
+                                    arch_config("deepseek-moe-16b"), runs,
+                                    continuous=True, profile=True)}
+    print(f"phase 12b: Mixtral-8x7B ({MIXTRAL_DEPTH} of 32 layers, full "
+          f"width, all 8 experts, bf16): static (the window's plain "
+          f"verify), continuous linear")
+    tables["mixtral"] = moe_serve("12b mixtral-8x7b",
+                                  arch_config("mixtral-8x7b", MIXTRAL_DEPTH),
+                                  runs, continuous=False)
+    layers, start = JAMBA_EXPERTS
+    print(f"phase 12c: Jamba-1.5-Large with experts (offsets {start}-"
+          f"{start + layers - 1} of its period, full width, 16 experts, "
+          f"bf16): static")
+    tables["jamba"] = moe_serve("12c jamba with experts", with_experts(
+        get_config("jamba-1.5-large-398b"), layers, start), runs)
+    print("phase 12d: xLSTM-125M (full size, bf16): static, continuous "
+          "linear, profiled")
+    tables["xlstm"] = moe_serve("12d xlstm-125m", arch_config("xlstm-125m"),
+                                runs, continuous=False, profile=True)
+    for label, fn in (
+            ("12e deepseek", lambda: moe_capacity(
+                "deepseek-moe-16b", tables["deepseek"], "12e deepseek")),
+            ("12e mixtral", lambda: moe_capacity(
+                "mixtral-8x7b", tables["mixtral"], "12e mixtral")),
+            ("12e jamba", lambda: jamba_experts_f32(tables["jamba"])),
+            ("12e xlstm", lambda: xlstm_f32(tables["xlstm"])),
+            ("12f", moe_train)):
+        t0 = time.perf_counter()
+        print(f"phase {label}")
+        fn()
+        print(f"  phase {label} took {time.perf_counter() - t0:.1f} s")
+    print(f"  dropped token-slots (MoE-layer calls, dropped, most in one "
+          f"call): {DROPS}")
+    print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+def took(label: str, t0: float) -> float:
+    """Prints the seconds since ``t0`` and returns the time now."""
+    now = time.perf_counter()
+    print(f"  {label} took {now - t0:.1f} s")
+    return now
 
 
 def template_args(mangled: str) -> list:
@@ -3781,8 +4318,10 @@ def main() -> int:
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}")
 
+    t_script = t0
     S_main = SERVE_BUCKET + SERVE_NEW + SERVE_W + 2
     cur_main = [SERVE_BUCKET + (SERVE_NEW - 1) * i // 7 for i in range(8)]
+    t0 = time.perf_counter()
     print(f"phase 2: kernels against their plain versions (main-path cache "
           f"S={S_main}, ragged cur_len={cur_main})")
     rec = phase_kernels(S_main, cur_main)
@@ -3806,22 +4345,26 @@ def main() -> int:
           "k = 25 and w 2, 4, 10)")
     phase_adaptive_kernels(S_main, cur_main, cont_cur)
 
-    print("phase 2f: K1 and K3 at Gemma-2B's, GLM-4-9B's, Nemotron-4's and "
-          "Qwen2-VL's heads (verify and decode)")
+    print("phase 2f: K1 and K3 at Gemma-2B's, GLM-4-9B's, Nemotron-4's, "
+          "Qwen2-VL's and DeepSeek-MoE-16B's heads (verify and decode)")
     phase_arch_kernels(S_main, cur_main, cont_cur)
+    t0 = took("phases 2-2f", t0)
 
     print("phase 3: serve")
-    launches, tables, serve_out, seeded = phase_serve()
+    launches, tables, serve_out = phase_serve()
+    t0 = took("phases 3-4", t0)
 
     print(f"phase 5: continuous batching over a {CONT_PAGES}-page pool "
           f"(bf16, {CONT_N} requests, {CONT_SLOTS} slots)")
     launches["paged_spec_attention"], cont_rates = phase_continuous(tables)
+    t0 = took("phase 5", t0)
 
     print(f"phase 6: tree speculation (bf16, {TREE_N} requests of the tree "
           f"mix, {TREE_SLOTS} slots, bucket {TREE_BUCKET}, {TREE_NEW} new "
           f"tokens)")
     k4, tree_out = phase_tree(tables)
     launches.update(k4)
+    took("phase 6", t0)
 
     print(f"phase 8: sampled serving (bf16, temperature {SAMPLE_T}, top_p "
           f"{SAMPLE_P}, beside greedy rows)")
@@ -3833,7 +4376,9 @@ def main() -> int:
 
     print(f"phase 7: the hybrid (Jamba-1.5-Large, {HYB_PERIODS} period, no "
           f"experts, full width)")
+    t0 = time.perf_counter()
     hyb, hyb_adaptive = phase_hybrid()
+    took("phase 7", t0)
     launches["mamba_scan"] = hyb["mamba_scan"]
     # each adaptive run's own launches (9a-9c, 7e), beside the main path's
     adaptive.update(hyb_adaptive)
@@ -3845,7 +4390,11 @@ def main() -> int:
 
     print("phase 11: training on the card (the reference's bench recipe, "
           "StableLM-2-1.6B at full width), then serving the trained weights")
-    trained = phase_train(seeded)
+    trained = phase_train()
+
+    print("phase 12: the MoE FFN and the xLSTM mixers (DeepSeek-MoE-16B, "
+          "Mixtral-8x7B, Jamba with its experts, xLSTM-125M)")
+    archs.update(phase_moe())
 
     cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
@@ -3872,6 +4421,7 @@ def main() -> int:
                                       trained.items() if ls.get(n)},
                     **rec[n])
                for n in sources]
+    took("the script", t_script)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,11 @@
-"""Architecture registry of the port: the configs ported so far.
+"""Architecture registry of the port: the reference's eleven
+architectures (its ten assigned ones and the paper's own Mistral-7B), in
+the reference's order.
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` mirror the reference's
-``repro/configs`` entry points for the architectures listed here.
-``long_context_variant`` applies the sliding-window KV-cache variant that
-turns a full-attention dense config into a ring of ``LONG_CONTEXT_WINDOW``
-positions.
-
-Still missing against the reference's registry: ``deepseek-moe-16b`` and
-``mixtral-8x7b`` (MoE FFNs) and ``xlstm-125m`` (mLSTM/sLSTM mixers), which
-wait for those mixers' port.
+``repro/configs`` entry points.  ``long_context_variant`` applies the
+sliding-window KV-cache variant that turns a full-attention dense config
+into a ring of ``LONG_CONTEXT_WINDOW`` positions.
 """
 from __future__ import annotations
 
@@ -16,17 +13,21 @@ import dataclasses
 from typing import List
 
 from ..models.config import ATTN, ModelConfig
-from . import (gemma_2b, glm4_9b, hubert_xlarge, jamba_1_5_large_398b,
-               mistral_7b, nemotron_4_340b, qwen2_vl_72b, stablelm_1_6b)
+from . import (deepseek_moe_16b, gemma_2b, glm4_9b, hubert_xlarge,
+               jamba_1_5_large_398b, mistral_7b, mixtral_8x7b,
+               nemotron_4_340b, qwen2_vl_72b, stablelm_1_6b, xlstm_125m)
 
 _MODULES = {
     "jamba-1.5-large-398b": jamba_1_5_large_398b,
+    "xlstm-125m": xlstm_125m,
     "qwen2-vl-72b": qwen2_vl_72b,
     "stablelm-1.6b": stablelm_1_6b,
     "gemma-2b": gemma_2b,
     "hubert-xlarge": hubert_xlarge,
+    "mixtral-8x7b": mixtral_8x7b,
     "nemotron-4-340b": nemotron_4_340b,
     "glm4-9b": glm4_9b,
+    "deepseek-moe-16b": deepseek_moe_16b,
     "mistral-7b": mistral_7b,            # the paper's own model
 }
 

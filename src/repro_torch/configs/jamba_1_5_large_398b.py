@@ -51,8 +51,9 @@ def no_experts(cfg: ModelConfig, periods: int = 1) -> ModelConfig:
     = 9.66 B parameters, 19.3 GB in bf16, and a period has four of them
     (77 GB), more than one card holds beside anything else; Jamba's non-MoE
     layers already use this dense SwiGLU, so the cut keeps every mixer and
-    every FFN shape the model has, at about 9.0 B parameters (18 GB bf16)
-    for one period.  The experts wait for the MoE port.
+    every dense FFN shape the model has, at about 9.0 B parameters (18 GB
+    bf16) for one period.  ``with_experts`` keeps the experts instead and
+    cuts the period.
     """
     pattern = tuple(BlockSpec(b.mixer, SWIGLU if b.mlp == MOE else b.mlp)
                     for b in cfg.block_pattern)
@@ -60,3 +61,24 @@ def no_experts(cfg: ModelConfig, periods: int = 1) -> ModelConfig:
         cfg, name=f"{cfg.name}-dense-{periods}p",
         num_layers=len(cfg.prefix_blocks) + periods * len(pattern),
         block_pattern=pattern, num_experts=0).validate()
+
+
+def with_experts(cfg: ModelConfig, layers: int = 5,
+                 start: int = 0) -> ModelConfig:
+    """``cfg`` cut to ONE period of ``layers`` blocks of its pattern, from
+    offset ``start``, every MoE FFN kept with all its experts.
+
+    Widths stay the published config's.  The default, offsets 0-4 of
+    ``config()``, is Mamba/SwiGLU, Mamba/MoE, Mamba/SwiGLU, Mamba/MoE,
+    attention/SwiGLU: every mixer and FFN kind of the model, two 16-expert
+    MoE FFNs (9.66 B parameters each) among about 24 B parameters, 48 GB
+    in bf16.  ``start=2, layers=3`` (Mamba/SwiGLU, Mamba/MoE,
+    attention/SwiGLU) holds one MoE FFN in about 12 B parameters.
+    """
+    pattern = tuple(cfg.block_pattern[start:start + layers])
+    if len(pattern) != layers or cfg.prefix_blocks:
+        raise ValueError(f"{cfg.name}: no {layers} blocks from offset "
+                         f"{start} in a period of {cfg.pattern_period}")
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-experts-{start}+{layers}", num_layers=layers,
+        block_pattern=pattern).validate()

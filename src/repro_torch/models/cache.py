@@ -8,12 +8,18 @@ of the layer pattern):
     "cur_len": (B,) int32   — #positions committed per sequence,
     "groups": {gid: {"k": (R, B, S, KV, hd), "v": ...}        # attention
                gid: {"conv": (R, B, dc-1, di) compute dtype,  # Mamba
-                     "ssm": (R, B, di, ds) float32}},
+                     "ssm": (R, B, di, ds) float32},
+               gid: {"C": (R, B, H, dh, dh), "n": (R, B, H, dh), # mLSTM
+                     "m": (R, B, H) float32 (-1e9 empty),
+                     "conv": (R, B, dc-1, di) compute dtype},
+               gid: {"c", "n", "h": (R, B, H, dh),             # sLSTM
+                     "m": (R, B, H, dh) float32 (-1e9 empty)}},
   }
   paged = {
     "cur_len": (B,) int32,
     "groups": {gid: {"k": (R, NP + 1, ps, KV, hd), "v": ...}, # shared pool
-               gid: {"conv": ..., "ssm": ...}},   # per slot, as linear
+               gid: {"conv": ..., "ssm": ...}},   # recurrent: per slot,
+                                                  # as linear
     "page_table": (B, PPS) int32   — physical page of each logical page,
                                      -1 = unallocated,
     "n_pages": (B,) int32,
@@ -42,7 +48,8 @@ from ..device import resolve_device
 # select_step_state (the gated replay's commit of a recurrent state) lives
 # beside K5's plain version, whose n_commit selection it defines
 from ..kernels.ref import gather_pages, select_step_state  # noqa: F401
-from .config import ATTN, MAMBA, BlockSpec, ModelConfig
+from .config import ATTN, MAMBA, MLSTM, SLSTM, BlockSpec, ModelConfig
+from .xlstm import M_EMPTY, mlstm_inner
 
 __all__ = ["gather_pages"]   # re-exported: the plain paged read path
 
@@ -67,19 +74,33 @@ def group_ids(cfg: ModelConfig):
 def _init_group(cfg: ModelConfig, spec: BlockSpec, R: int, batch: int,
                 S: int, device) -> Dict:
     """Empty decode-state group for one layer position (linear ATTN
-    layout; Mamba's per-slot conv and ssm states)."""
+    layout; the recurrent mixers' per-slot states, each leaf its own
+    buffer)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    cd = dict(dtype=cfg.compute_dtype, device=device)
     if spec.mixer == MAMBA:
         di = cfg.mamba_d_inner
         return {"conv": torch.zeros((R, batch, cfg.mamba_d_conv - 1, di),
-                                    dtype=cfg.compute_dtype, device=device),
-                "ssm": torch.zeros((R, batch, di, cfg.mamba_d_state),
-                                   dtype=torch.float32, device=device)}
+                                    **cd),
+                "ssm": torch.zeros((R, batch, di, cfg.mamba_d_state), **f32)}
+    if spec.mixer == MLSTM:
+        di, nh = mlstm_inner(cfg), cfg.num_heads
+        dh = di // nh
+        return {"C": torch.zeros((R, batch, nh, dh, dh), **f32),
+                "n": torch.zeros((R, batch, nh, dh), **f32),
+                "m": torch.full((R, batch, nh), M_EMPTY, **f32),
+                "conv": torch.zeros((R, batch, cfg.xlstm_conv_kernel - 1,
+                                     di), **cd)}
+    if spec.mixer == SLSTM:
+        nh = cfg.num_heads
+        shape = (R, batch, nh, cfg.d_model // nh)
+        return {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
+                "h": torch.zeros(shape, **f32),
+                "m": torch.full(shape, M_EMPTY, **f32)}
     if spec.mixer != ATTN:
-        raise NotImplementedError(
-            f"{cfg.name}: {spec.mixer} state is not ported yet")
+        raise ValueError(spec.mixer)
     shape = (R, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+    return {"k": torch.zeros(shape, **cd), "v": torch.zeros(shape, **cd)}
 
 
 def attn_groups(state: Dict) -> Dict[str, Dict]:
@@ -134,13 +155,14 @@ def zero_slot_stats(stats: Dict[str, torch.Tensor], slot: int) -> Dict:
 def reset_slot(cfg: ModelConfig, state: Dict, slot: int) -> Dict:
     """Reset slot ``slot`` to the empty state, IN PLACE.  Paged states free
     the slot's pages instead of zeroing KV (a freed page is never read:
-    ``phys_slots`` maps unallocated positions to the trash page) and zero
-    the slot's recurrent state."""
+    ``phys_slots`` maps unallocated positions to the trash page) and reset
+    the slot's recurrent state to the empty one (zeros; the xLSTM
+    stabilisers' -1e9)."""
     if is_paged(state):
         free_slot_pages(state, slot)
         for g in _recurrent_groups(state).values():
-            for leaf in g.values():
-                leaf[:, slot] = 0
+            for name, leaf in g.items():     # "m": an xLSTM stabiliser
+                leaf[:, slot] = M_EMPTY if name == "m" else 0
         state["cur_len"][slot] = 0
         return state
     S = next((g["k"].shape[2] for g in attn_groups(state).values()), 1)

@@ -197,8 +197,8 @@ class ModelConfig:
         return self
 
     def param_count(self) -> int:
-        """Parameters of the attention and Mamba stacks with dense MLPs
-        (embeddings included), counted as the reference counts them."""
+        """Parameters (embeddings included, every expert of an MoE FFN),
+        counted as the reference counts them."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for b in layer_blocks(self):
@@ -212,10 +212,20 @@ class ModelConfig:
                 total += di * (dtr + 2 * self.mamba_d_state)   # x_proj
                 total += dtr * di + di * self.mamba_d_state    # dt_proj, A
                 total += di * d                          # out_proj
+            elif b.mixer == MLSTM:
+                di = int(d * self.xlstm_mlstm_proj_factor)
+                total += d * di * 2 + di * di * 3 + 3 * di + di * d
+            elif b.mixer == SLSTM:
+                total += 4 * d * d + d * int(
+                    d * self.xlstm_slstm_proj_factor) * 2
             if b.mlp in (SWIGLU, GEGLU):
                 total += 3 * d * self.d_ff
             elif b.mlp in (RELU2, GELU):
                 total += 2 * d * self.d_ff
+            elif b.mlp == MOE:
+                n_exp = self.num_experts + self.num_shared_experts
+                total += n_exp * 3 * d * self.expert_d_ff
+                total += d * self.num_experts            # router
         return total
 
 

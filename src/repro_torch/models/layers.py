@@ -21,11 +21,12 @@ Params = Dict[str, torch.Tensor]
 # init helpers (the reference's distributions; numbers differ, as the RNGs do)
 # ----------------------------------------------------------------------------
 def dense_init(shape, dtype, generator: torch.Generator, device,
-               scale: float = 1.0) -> torch.Tensor:
+               scale: float = 1.0, fan_in: int = 0) -> torch.Tensor:
     """Truncated-normal fan-in init: std * N(0, 1) cut to [-2, 2], with the
-    fan-in taken from the second-to-last dim (stacked (R, in, out) weights
-    get each layer's own fan-in, as the reference's vmapped init does)."""
-    std = scale / (shape[-2] ** 0.5)
+    fan-in taken from the second-to-last dim unless given (stacked (R, in,
+    out) weights get each layer's own fan-in, as the reference's vmapped
+    init does)."""
+    std = scale / ((fan_in or shape[-2]) ** 0.5)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(std).to(dtype)      # in place: one f32 copy at a time

@@ -1,6 +1,6 @@
 """Top-level language-model API: forward / prefill / decode / verify /
 commit (port of ``repro/models/model.py``), over a linear or a paged KV
-cache and the per-slot Mamba states (``models/cache.py``).
+cache and the per-slot Mamba and xLSTM states (``models/cache.py``).
 
 The reference's functions are pure and return new states; here ``prefill``,
 ``decode`` and ``commit_kv_tails`` update the state's cache IN PLACE and
@@ -96,16 +96,15 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens=None,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward up to the final norm, from ``tokens`` (B, T) or
     ``embeds`` (B, T, d).  Returns (hidden (B, T, d), aux) — aux is the
-    reference's MoE loss slot, zero for the dense stacks ported here.
-    ``remat`` checkpoints each block for backward (training)."""
+    MoE layers' mean router load-balance loss (0 for a stack without MoE
+    layers).  ``remat`` checkpoints each block for backward (training)."""
     x = _embed(params, cfg, tokens, embeds)
     B, T = x.shape[:2]
     if positions is None:
         positions = make_positions(cfg, B, T, device=x.device)
-    x, _ = run_stack(params, cfg, x, "full", None, {"positions": positions},
-                     remat=remat)
-    return (apply_norm(params["final_norm"], x, cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    x, _, aux = run_stack(params, cfg, x, "full", None,
+                          {"positions": positions}, remat=remat)
+    return apply_norm(params["final_norm"], x, cfg), aux
 
 
 def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
@@ -132,7 +131,7 @@ def prefill(params: Params, cfg: ModelConfig, state: State,
         # must be allocated already)
         ctx.update(_paged_ctx(state, _linear_positions(B, T,
                                                        device=x.device)))
-    x, _ = run_stack(params, cfg, x, "prefill", state, ctx)
+    x, _, _ = run_stack(params, cfg, x, "prefill", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     if last_only:
         x = x[:, -1:]
@@ -170,7 +169,7 @@ def decode(params: Params, cfg: ModelConfig, state: State,
         ctx["gate"] = (torch.arange(T, device=cur.device)[None, :]
                        < n_commit[:, None])
     x = embed_tokens(params["embed"], tokens, cfg)
-    x, _ = run_stack(params, cfg, x, mode, state, ctx)
+    x, _, _ = run_stack(params, cfg, x, mode, state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)
     state["cur_len"] = cur + (T if n_commit is None
@@ -186,7 +185,7 @@ def verify(params: Params, cfg: ModelConfig, state: State,
     tokens: (B, k, w+1) — row i is [last_token, draft_i(0..w-1)].
     Returns (logits (B, k, w+1, V) f32, kv tails of the attention groups
     {gid: {"k_tail", "v_tail": (R, B, k, w+1, KV, hd)}}).  The state is only
-    read; Mamba layers run every row from its slot's state.
+    read; recurrent layers run every row from its slot's state.
 
     Tree mode passes the whole token tree as the single row k == 1 with two
     per-topology constants (``core/tree.device_constants``):
@@ -210,7 +209,7 @@ def verify(params: Params, cfg: ModelConfig, state: State,
         if is_paged(state):
             ctx["page_table"] = state["page_table"]
     x = embed_tokens(params["embed"], tokens.reshape(B * K, W1), cfg)
-    x, kv_tails = run_stack(params, cfg, x, "verify", state, ctx)
+    x, kv_tails, _ = run_stack(params, cfg, x, "verify", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)
     return logits.reshape(B, K, W1, -1), kv_tails

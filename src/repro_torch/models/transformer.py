@@ -1,5 +1,5 @@
-"""Transformer assembly: a stack of attention and Mamba blocks with dense
-MLPs (port of ``repro/models/transformer.py``).
+"""Transformer assembly: a stack of attention, Mamba, mLSTM and sLSTM
+blocks with dense or MoE FFNs (port of ``repro/models/transformer.py``).
 
 Parameters keep the reference's layout: the layers at one position of the
 repeating ``block_pattern`` form a group ``p{j}`` (``pre{i}`` for prefix
@@ -16,9 +16,14 @@ Execution modes:
               positions update the KV cache and the recurrent state (the
               speculative commit of the winning row for recurrent stacks).
   "verify"  — the paper's batched speculation: (B, k, w+1) rows attend the
-              shared cache bifurcated-ly and run Mamba from their slot's
-              state; nothing is written and the attention layers' per-row
-              KV tails are returned for the attention-only commit.
+              shared cache bifurcated-ly and run the recurrent mixers from
+              their slot's state; nothing is written and the attention
+              layers' per-row KV tails are returned for the attention-only
+              commit.
+
+Every mode computes the MoE layers' router aux loss (the mean over MoE
+layers, as the reference's ``run_stack`` returns it); only training reads
+it.
 """
 from __future__ import annotations
 
@@ -30,8 +35,10 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from .attention import attn_full, attn_verify
 from .cache import group_ids, kv_write, paged_kv_write, prefill_write
-from .config import (ATTN, GEGLU, GELU, MAMBA, MOE, NO_MLP, RELU2, SWIGLU,
-                     BlockSpec, ModelConfig)
+from . import moe as moe_lib
+from . import xlstm as X
+from .config import (ATTN, GEGLU, GELU, MAMBA, MLSTM, MOE, NO_MLP, RELU2,
+                     SLSTM, SWIGLU, BlockSpec, ModelConfig, layer_blocks)
 from .layers import apply_mlp, apply_norm, dense_init, embed_init
 from .mamba import (a_log_init, dt_bias_init, init_mamba_state, mamba_mix,
                     mamba_mix_commit)
@@ -43,18 +50,13 @@ Params = Dict[str, Any]
 # ----------------------------------------------------------------------------
 # parameter shapes and init
 # ----------------------------------------------------------------------------
-def _check_block(cfg: ModelConfig, spec: BlockSpec) -> None:
-    if spec.mixer not in (ATTN, MAMBA) or spec.mlp == MOE:
-        raise NotImplementedError(
-            f"{cfg.name}: {spec} blocks are not ported yet (attention and "
-            f"Mamba blocks with dense MLPs only)")
-
-
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """Nested dict of (shape, init, dtype) leaves in the reference's
-    layout, with init one of "dense", "embed", "ones", "zeros", "a_log",
-    "dt_bias"; dtype is ``cfg.param_dtype`` except for the float32 leaves
-    of a Mamba mixer."""
+    layout, with init one of "dense", "dense_lead" (fan-in from the
+    per-layer leading dim), "embed", "ones", "zeros", "const:<value>",
+    "a_log", "dt_bias", "slstm_b"; dtype is ``cfg.param_dtype`` except for
+    the float32 leaves of the Mamba, mLSTM and sLSTM mixers and the MoE
+    router."""
     d, hd, pd = cfg.d_model, cfg.resolved_head_dim, cfg.param_dtype
     H, KV = cfg.num_heads, cfg.num_kv_heads
 
@@ -70,9 +72,12 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         embed["lm_head"] = ((d, cfg.vocab_size), "dense", pd)
     shapes: Dict[str, Any] = {"embed": embed, "final_norm": norm()}
     for gid, spec, R in group_ids(cfg):
-        _check_block(cfg, spec)
         if spec.mixer == MAMBA:
             mixer = mamba_param_shapes(cfg, R)
+        elif spec.mixer == MLSTM:
+            mixer = X.mlstm_param_shapes(cfg, R)
+        elif spec.mixer == SLSTM:
+            mixer = X.slstm_param_shapes(cfg, R)
         else:
             mixer = {"wq": ((R, d, H * hd), "dense", pd),
                      "wk": ((R, d, KV * hd), "dense", pd),
@@ -81,7 +86,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         block = {"norm1": norm(R), "mixer": mixer}
         if spec.mlp != NO_MLP:
             block["norm2"] = norm(R)
-            if spec.mlp in (SWIGLU, GEGLU):
+            if spec.mlp == MOE:
+                block["mlp"] = moe_lib.param_shapes(cfg, R)
+            elif spec.mlp in (SWIGLU, GEGLU):
                 block["mlp"] = {"w_gate": ((R, d, cfg.d_ff), "dense", pd),
                                 "w_up": ((R, d, cfg.d_ff), "dense", pd),
                                 "w_down": ((R, cfg.d_ff, d), "dense", pd)}
@@ -107,12 +114,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         shape, init, dtype = tree
         if init == "dense":
             return dense_init(shape, dtype, gen, dev)
+        if init == "dense_lead":
+            # the reference draws each layer's (E, ...) or (4, ...) leaf
+            # with its leading dim as the fan-in (scale 1)
+            return dense_init(shape, dtype, gen, dev, fan_in=shape[1])
         if init == "embed":
             return embed_init(shape, dtype, gen, dev)
         if init == "a_log":
             return a_log_init(shape, dev)
         if init == "dt_bias":
             return dt_bias_init(shape, gen, dev)
+        if init == "slstm_b":
+            return X.slstm_bias_init(shape, dev)
+        if init.startswith("const:"):
+            return torch.full(shape, float(init[6:]), dtype=dtype,
+                              device=dev)
         fill = torch.ones if init == "ones" else torch.zeros
         return fill(shape, dtype=dtype, device=dev)
 
@@ -164,6 +180,14 @@ def _attn_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
     raise ValueError(mode)
 
 
+def _conv_after(ext: torch.Tensor, n_commit: torch.Tensor, dc: int
+                ) -> torch.Tensor:
+    """The conv state after n steps, ext[:, n : n+dc-1], per row."""
+    idx = n_commit.long()[:, None] + torch.arange(dc - 1,
+                                                  device=ext.device)[None]
+    return ext.gather(1, idx[..., None].expand(-1, -1, ext.shape[-1]))
+
+
 def _mamba_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
                  gst: Optional[Dict], ctx: Dict) -> torch.Tensor:
     """Mamba sublayer.  ``gst`` holds the layer's (B, dc-1, di) conv and
@@ -185,12 +209,7 @@ def _mamba_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
     if mode == "replay":
         y, ext, ssm = mamba_mix_commit(bp, h, cfg, gst["conv"], gst["ssm"],
                                        ctx["n_commit"])
-        n = ctx["n_commit"].long()
-        # conv state after n steps = ext[:, n : n+dc-1]
-        idx = n[:, None] + torch.arange(cfg.mamba_d_conv - 1,
-                                        device=h.device)[None]
-        conv = ext.gather(1, idx[..., None].expand(-1, -1, ext.shape[-1]))
-        gst["conv"].copy_(conv)
+        gst["conv"].copy_(_conv_after(ext, ctx["n_commit"], cfg.mamba_d_conv))
         gst["ssm"].copy_(ssm)
         return y
     if mode == "verify":
@@ -201,21 +220,74 @@ def _mamba_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
     raise ValueError(mode)
 
 
+def _mlstm_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
+                 gst: Optional[Dict], ctx: Dict) -> torch.Tensor:
+    """mLSTM sublayer.  ``gst`` holds the layer's (B, H, dh, dh) C, (B, H,
+    dh) n, (B, H) m (f32) and (B, dc-1, di) conv state views;
+    prefill/decode/replay write them in place."""
+    if mode in ("full", "prefill"):
+        st, conv = X.init_mlstm_state(cfg, h.shape[0], h.device)
+    else:
+        st, conv = (gst["C"], gst["n"], gst["m"]), gst["conv"]
+    if mode == "verify":
+        return X.mlstm_mix(bp, h, cfg, st, conv, rep=ctx["k_rows"])[0]
+    n = ctx.get("n_commit")
+    # the chunkwise form is the prefill's option alone, as in the reference
+    chunkwise = mode in ("full", "prefill") and ctx.get("chunkwise", False)
+    y, st, ext = X.mlstm_mix(bp, h, cfg, st, conv, n_commit=n,
+                             chunkwise=chunkwise)
+    if mode != "full":
+        T = h.shape[1]
+        conv = (ext[:, T:] if n is None
+                else _conv_after(ext, n, cfg.xlstm_conv_kernel))
+        for name, a in zip(("C", "n", "m", "conv"), st + (conv,)):
+            gst[name].copy_(a)
+    return y
+
+
+def _slstm_mixer(bp: Params, h: torch.Tensor, cfg: ModelConfig, mode: str,
+                 gst: Optional[Dict], ctx: Dict) -> torch.Tensor:
+    """sLSTM sublayer.  ``gst`` holds the layer's (B, H, dh) f32 c, n, h, m
+    views; prefill/decode/replay write them in place."""
+    names = ("c", "n", "h", "m")
+    if mode in ("full", "prefill"):
+        st = X.init_slstm_state(cfg, h.shape[0], h.device)
+    else:
+        st = tuple(gst[k] for k in names)
+    if mode == "verify":
+        return X.slstm_mix(bp, h, cfg, st, rep=ctx["k_rows"])[0]
+    y, st = X.slstm_mix(bp, h, cfg, st, n_commit=ctx.get("n_commit"))
+    if mode != "full":
+        for name, a in zip(names, st):
+            gst[name].copy_(a)
+    return y
+
+
+_RECURRENT = {MAMBA: _mamba_mixer, MLSTM: _mlstm_mixer,
+              SLSTM: _slstm_mixer}
+
+
 def _apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
                  spec: BlockSpec, mode: str, gst: Optional[Dict],
-                 ctx: Dict) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x_out, kv tails (attention in verify mode) or None)."""
+                 ctx: Dict) -> Tuple[torch.Tensor, Optional[Dict],
+                                     Optional[torch.Tensor]]:
+    """Returns (x_out, kv tails (attention in verify mode) or None, the
+    MoE aux loss (MoE FFN) or None)."""
     h = apply_norm(bp["norm1"], x, cfg)
-    tails = None
-    if spec.mixer == MAMBA:
-        y = _mamba_mixer(bp["mixer"], h, cfg, mode, gst, ctx)
-    else:
+    tails = aux = None
+    if spec.mixer == ATTN:
         y, tails = _attn_mixer(bp["mixer"], h, cfg, mode, gst, ctx)
+    else:
+        y = _RECURRENT[spec.mixer](bp["mixer"], h, cfg, mode, gst, ctx)
     x = x + y.to(x.dtype)
     if spec.mlp != NO_MLP:
         h2 = apply_norm(bp["norm2"], x, cfg)
-        x = x + apply_mlp(bp["mlp"], h2, cfg, spec.mlp).to(x.dtype)
-    return x, tails
+        if spec.mlp == MOE:
+            y2, aux = moe_lib.apply_moe(bp["mlp"], h2, cfg)
+        else:
+            y2 = apply_mlp(bp["mlp"], h2, cfg, spec.mlp)
+        x = x + y2.to(x.dtype)
+    return x, tails, aux
 
 
 def _index(tree, r: int):
@@ -247,15 +319,18 @@ def _layers(cfg: ModelConfig):
 # ----------------------------------------------------------------------------
 def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
               state: Optional[Dict], ctx: Dict, remat: bool = False
-              ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
+              ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]],
+                         torch.Tensor]:
     """Apply every layer. Returns (x, kv tails per attention gid stacked
-    over R — verify mode only, else {}).  ``remat`` (``"full"`` mode, the
-    training forward) checkpoints each block: backward recomputes its
-    activations instead of keeping them (the reference's
-    ``jax.checkpoint(body)``)."""
+    over R — verify mode only, else {} —, the MoE aux loss summed over the
+    MoE layers in layer order and divided by their number (0 without
+    one)).  ``remat`` (``"full"`` mode, the training forward) checkpoints
+    each block: backward recomputes its activations instead of keeping
+    them (the reference's ``jax.checkpoint(body)``)."""
     if remat and mode != "full":
         raise ValueError(f"remat applies to the full forward, not {mode!r}")
     tails: Dict[str, Dict[str, list]] = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _layers(cfg)
     views = {gid: _unbind(params[gid]) for gid in {g for g, _, _ in layers}}
     for gid, spec, r in layers:
@@ -265,14 +340,18 @@ def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
         if remat:
             # bp and spec bound now: backward calls the block again after
             # the loop has moved on
-            x = checkpoint(lambda xc, bp=bp, spec=spec: _apply_block(
-                bp, xc, cfg, spec, mode, None, ctx)[0], x,
+            x, a = checkpoint(lambda xc, bp=bp, spec=spec: _apply_block(
+                bp, xc, cfg, spec, mode, None, ctx)[::2], x,
                 use_reentrant=False)
-            continue
-        x, t = _apply_block(bp, x, cfg, spec, mode, gst, ctx)
+            t = None
+        else:
+            x, t, a = _apply_block(bp, x, cfg, spec, mode, gst, ctx)
+        if a is not None:
+            aux = aux + a
         if t is not None:
             g = tails.setdefault(gid, {"k_tail": [], "v_tail": []})
             g["k_tail"].append(t["k_tail"])
             g["v_tail"].append(t["v_tail"])
+    n_moe = max(sum(b.mlp == MOE for b in layer_blocks(cfg)), 1)
     return x, {gid: {k: torch.stack(v) for k, v in g.items()}
-               for gid, g in tails.items()}
+               for gid, g in tails.items()}, aux / n_moe

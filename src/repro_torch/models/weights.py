@@ -35,7 +35,8 @@ def from_jax_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
     (``{'embed/embedding': array, 'p0/mixer/wq': (R, d, H*hd) array, ...}``),
     each leaf in its dtype in ``transformer.param_shapes`` (the config's
     ``param_dtype``; float32 for Mamba's ``A_log``, ``D`` and ``dt_bias``,
-    as the reference keeps them) on ``device``.  Raises on a missing, extra
+    the xLSTM gate biases and sLSTM's ``r``, and the MoE router, as the
+    reference keeps them) on ``device``.  Raises on a missing, extra
     or misshapen leaf."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}

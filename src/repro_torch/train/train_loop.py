@@ -1,5 +1,7 @@
-"""Training step: next-token cross entropy (+ the MoE aux-loss slot), remat
-and the train-step factory (port of ``repro/train/train_loop.py``).
+"""Training step: next-token cross entropy plus ``router_aux_loss_coef``
+times the MoE layers' load-balance loss (0 for a stack without MoE
+layers), remat and the train-step factory (port of
+``repro/train/train_loop.py``).
 
 The step runs the full forward (``models.model.forward_hidden``, attention
 through ``attention.masked_attention``), autograd and AdamW in plain torch

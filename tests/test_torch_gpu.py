@@ -39,7 +39,13 @@ makes no synchronising call, and launches K2 once per distinct arm depth.
 The registry's other architectures: K1 and K3 at Nemotron-4's (96 / 8 /
 192) and Gemma-2B's (8 / 1 / 256) full head shapes, verify and decode;
 the plain verify that a sliding-window config runs equals the CPU's
-within f32 1e-5 over a wrapped ring.
+within f32 1e-5 over a wrapped ring.  The MoE FFN and the xLSTM mixers
+(torch ops, no kernel): ``moe_scatter`` on the card drops the CPU's
+token-slots and gives its output within f32 1e-5, the same bits on a
+second call; the mLSTM and sLSTM cells within f32 1e-5 of the CPU's, the
+replay's kept state bit-equal to per-step states then
+``select_step_state``; deepseek-smoke and xlstm-smoke served on the card
+equal ``greedy_reference``.
 """
 import numpy as np
 import pytest
@@ -930,3 +936,110 @@ def test_dense_train_steps_on_the_card_equal_the_cpu(cuda_device):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-5,
                                atol=1e-5)
+
+
+# ----------------------------------------------------------------------------
+# the MoE FFN and the xLSTM mixers (torch ops on the card, no kernel)
+# ----------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [0.5, 2.0], ids=["drops", "no-drops"])
+def test_moe_scatter_on_the_card_equals_the_cpu(cuda_device, cf):
+    """deepseek-smoke's MoE layer at 3 x 13 tokens: the card drops the
+    CPU's token-slots and gives its output (f32 1e-5 of the largest
+    magnitude), the same bits on a second call (the packing does not
+    accumulate)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
+                              capacity_factor=cf)
+    p = {k: v[0] for k, v in M.init_params(cfg, seed=0, device="cpu")[
+        "p0"]["mlp"].items()}
+    x = torch.randn(3, 13, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    reads = {}
+    for dev in ("cpu", cuda_device):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        with moe.count_drops() as drops:
+            y, aux = moe.apply_moe(pd, x.to(dev), cfg)
+        reads[str(dev)] = (y.cpu(), float(aux), drops.read())
+        if str(dev) == "cuda":
+            assert torch.equal(moe.apply_moe(pd, x.to(dev), cfg)[0], y)
+    (yc, ac, dc), (yg, ag, dg) = reads["cpu"], reads["cuda"]
+    assert dc == dg and (dc[1] > 0) == (cf < 1)
+    scale = float(yc.abs().max())
+    np.testing.assert_allclose(yg.numpy(), yc.numpy(), rtol=1e-5,
+                               atol=1e-5 * scale)
+    assert abs(ag - ac) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_xlstm_cells_on_the_card_equal_the_cpu(cuda_device):
+    """The mLSTM and sLSTM cells on the card: f32 1e-5 of the CPU's, and
+    the replay's kept state equal, bit for bit, to the per-step states
+    then ``select_step_state``."""
+    from repro_torch.kernels.ref import select_step_state
+    from repro_torch.models import xlstm as X
+    g = torch.Generator().manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=g)
+    B, T, H, dh = 3, 7, 2, 16
+    mins = (r(B, T, H, dh), r(B, T, H, dh), r(B, T, H, dh), r(B, T, H) - 1,
+            torch.nn.functional.logsigmoid(r(B, T, H) + 2),
+            0.3 * r(B, H, dh, dh), 0.3 * r(B, H, dh), r(B, H))
+    sins = (r(B, T, 4, H, dh), 0.3 * r(4, H, dh, dh),
+            r(B, H, dh), r(B, H, dh).abs() + 1, r(B, H, dh), r(B, H, dh))
+    cells = ((X._mlstm_cell_scan, mins, lambda a: a[5:]),
+             (lambda *a, **kw: X._slstm_cell(a[0], a[1], a[2:], **kw), sins,
+              lambda a: a[2:]))
+    nc = torch.tensor([0, 3, 7], dtype=torch.int32)
+    for cell, ins, start in cells:
+        h, st = cell(*ins)
+        gins = [a.to(cuda_device) for a in ins]
+        gh, gst = cell(*gins)
+        for a, b in zip((h,) + tuple(st), (gh,) + tuple(gst)):
+            _close(b, a, 1e-5)
+        gnc = nc.to(cuda_device)
+        _, kept = cell(*gins, n_commit=gnc)
+        _, steps = cell(*gins, per_step=True)
+        for got, per, old in zip(kept, steps, start(gins)):
+            assert torch.equal(got, select_step_state(per, old, gnc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-125m"])
+def test_moe_and_xlstm_serving_is_lossless_on_the_card(cuda_device, arch):
+    """The smoke configs (f32) served speculatively on the card, static
+    and continuous (DeepSeek over a small paged pool, xLSTM linear): every
+    output equals greedy_reference; DeepSeek's attention verifies through
+    K1 and K3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.spec_engine import SpecConfig, greedy_reference
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    paged = not M.has_recurrent(cfg)
+    for static in (True, False):
+        eng = ServingEngine(params, cfg, SpecConfig(k=4, w=3), max_batch=3,
+                            buckets=(16, 32), max_new_cap=14,
+                            paged=paged and not static,
+                            num_pages=9 if paged and not static else None,
+                            page_size=8)
+        for i in range(5):
+            text = f"def f{i}(x): return x * {i} + 1"
+            eng.submit((text * 2)[:30] if i % 3 == 1 else text[:14],
+                       max_new_tokens=(6, 10, 14)[i % 3])
+        spec_attention_cuda.launches = 0
+        paged_spec_attention_cuda.launches = 0
+        done = eng.serve_all() if static else eng.serve_continuous()
+        if arch == "deepseek-moe-16b":
+            assert (spec_attention_cuda.launches if static
+                    else paged_spec_attention_cuda.launches) > 0
+        for r in done:
+            toks = eng.scheduler.pad_to_bucket(eng.tok.encode(r.prompt))
+            ref = greedy_reference(params, cfg, toks[None],
+                                   r.stats["new_tokens"])
+            np.testing.assert_array_equal(r.output_ids,
+                                          ref[0, len(toks):].cpu().numpy())

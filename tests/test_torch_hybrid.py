@@ -32,6 +32,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.jamba_1_5_large_398b import no_experts
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import param_shapes
 from repro_torch.models.weights import from_jax_flat
 
 
@@ -155,15 +156,17 @@ def test_entry_points_match_jax(pair):
 # configs
 # ----------------------------------------------------------------------------
 def test_jamba_configs_and_the_no_experts_cut():
-    """The published config and its smoke config carry experts and raise
-    until MoE is ported; ``no_experts`` keeps widths, cuts depth to whole
+    """The published config and its smoke config carry experts (the smoke
+    config initialises with them; the published one's MoE leaves take the
+    reference's layout); ``no_experts`` keeps widths, cuts depth to whole
     periods and makes every FFN the dense SwiGLU."""
     full, smoke = get_config(JAMBA), get_smoke_config(JAMBA)
     assert full == ModelConfig.from_reference(j_config(JAMBA))
     assert smoke == ModelConfig.from_reference(j_smoke(JAMBA))
-    for cfg in (full, smoke):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            M.init_params(cfg, device="cpu")
+    assert M.init_params(smoke, device="cpu")["p0"]["mlp"]["w_up"].shape \
+        == (1, 4, 128, 256)
+    assert param_shapes(full)["p1"]["mlp"]["w_gate"][0] == (9, 16, 8192,
+                                                            24576)
     cut = no_experts(full)
     assert (cut.num_layers, cut.d_model, cut.num_heads, cut.num_kv_heads,
             cut.mamba_d_inner, cut.mamba_d_state, cut.vocab_size) == \
