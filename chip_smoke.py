@@ -197,6 +197,21 @@ Phases (any failure raises and the script exits non-zero):
                ``greedy_reference``.  12f: 5 AdamW steps of deepseek-smoke
                and xlstm-smoke (f32) on the card: loss and aux_loss equal
                the CPU's (TRAIN_CPU_TOL), DeepSeek's aux > 0, no launch.
+ 13. contract — after phase 12: the contract checker and the examples.
+               13a: where phases 3, 7, 10 and 12 hold a model (bf16, full
+               width), the checker's level 1 ran on it
+               (``contract_check``: ``analysis.runtime_rules.check_case``,
+               the step under ``set_sync_debug_mode("error")`` and the
+               dispatch-mode detector, an admission and a release; every
+               leaf in place, a fixed state signature): StableLM-2-1.6B in
+               the reference's six cases, the hybrid, Mistral-7B's ring,
+               Qwen2-VL's M-RoPE, DeepSeek-MoE-16B, xLSTM-125M; phase 13
+               prints each check's findings (0 asserted) and the kernels
+               its checked step launched (``CONTRACT_KERNELS`` asserted).
+               13b: the four ``examples/torch_*.py`` at their default
+               flags (wall s, tokens/call, K1/K2 launched, K3 by the
+               serving example).  13c: ``python -m repro_torch.analysis
+               --strict`` (both levels, level 1 on the card) exits 0.
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
 for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
@@ -212,8 +227,9 @@ The last two lines of stdout are the card's name and power limit and
 JSON record: each kernel's ``launches`` on its main path's run (phases 3, 5,
 6 and 7a), under ``launches_adaptive`` its launches on each adaptive
 run (9a, 9b, 9c's f32 tree runs, 7e), under ``launches_archs`` on each
-bf16 run of phases 10 and 12 and under ``launches_trained`` on each
-serving run of phase 11c, each counted from zero.
+bf16 run of phases 10 and 12, under ``launches_trained`` on each
+serving run of phase 11c and under ``launches_contract`` in each of 13a's
+checked steps and each of 13b's examples, each counted from zero.
 """
 from __future__ import annotations
 
@@ -1590,6 +1606,8 @@ def phase_serve() -> dict:
                   f"token {j}, bf16 top-2 margin there "
                   f"{top2_margin(params, cfg, ids, pos):.4g}")
 
+    contract_check("13a stablelm-1.6b", REFERENCE_CASES, params, cfg)
+
     # ---- phase 4: lossless in f32 ----
     print("phase 4: lossless (f32, TF32 off)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2808,6 +2826,7 @@ def phase_hybrid() -> tuple:
     if not all(same):
         raise AssertionError("bf16 hybrid paged differs from linear")
     adaptive = hybrid_adaptive(params, cfg, tables, prompts, work, rates)
+    contract_check("13a hybrid", ("hybrid",), params, cfg)
     del eng, e, params
     torch.cuda.empty_cache()
 
@@ -3330,6 +3349,7 @@ def phase_mistral(S_main: int, cur_main: list, prompts, runs) -> None:
     arch_static(params, cfg, tables, ring, "10b mistral-7b ring", runs,
                 max_new=RING_NEW, bucket=RING_BUCKET)
     peak_line("mistral-7b bf16 ring")
+    contract_check("13a mistral-7b", ("window",), params, cfg)
     del params
     torch.cuda.empty_cache()
     arch_lossless("mistral-7b", tables, ring, RING_NEW, "10b mistral-7b ring",
@@ -3385,6 +3405,8 @@ def phase_archs(S_main: int, cur_main: list, lm_tables) -> dict:
         arch_static(params, cfg, tables, prompts, f"{label} {arch}", runs)
         if arch in ("gemma-2b", "glm4-9b"):
             arch_continuous(params, cfg, tables, f"{label} {arch}", runs)
+        if arch == "qwen2-vl-72b":
+            contract_check(f"13a {arch}", ("mrope",), params, cfg)
         peak_line(f"{arch} bf16")
         del params
         torch.cuda.empty_cache()
@@ -3916,11 +3938,12 @@ def named_ranges():
 
 
 def moe_serve(label: str, cfg, runs: dict, continuous=None,
-              profile: bool = False):
+              profile: bool = False, contract: str = ""):
     """One bf16 model of phase 12: seeded weights, its n-gram tables,
     static mixed and greedy (``arch_static``), continuous serving of
     MOE_CONT_N requests (``continuous``: True paged, False linear), a
-    profiled mixed step; freed after.  Returns its tables."""
+    profiled mixed step, phase 13a's checks of the registry case
+    ``contract``; freed after.  Returns its tables."""
     import torch
     from repro_torch.core.spec_engine import SpecConfig
     t0 = time.perf_counter()
@@ -3937,6 +3960,8 @@ def moe_serve(label: str, cfg, runs: dict, continuous=None,
                                                   strategy="mixed"),
                           tables, prompts, steps=3,
                           label=f"{label} mixed step", ranges=RANGES)
+    if contract:
+        contract_check(f"13a {label.split()[1]}", (contract,), params, cfg)
     peak_line(f"{label} bf16")
     del params
     torch.cuda.empty_cache()
@@ -4205,7 +4230,8 @@ def phase_moe() -> dict:
           "static, continuous paged, profiled")
     tables = {"deepseek": moe_serve("12a deepseek-moe-16b",
                                     arch_config("deepseek-moe-16b"), runs,
-                                    continuous=True, profile=True)}
+                                    continuous=True, profile=True,
+                                    contract="moe")}
     print(f"phase 12b: Mixtral-8x7B ({MIXTRAL_DEPTH} of 32 layers, full "
           f"width, all 8 experts, bf16): static (the window's plain "
           f"verify), continuous linear")
@@ -4221,7 +4247,8 @@ def phase_moe() -> dict:
     print("phase 12d: xLSTM-125M (full size, bf16): static, continuous "
           "linear, profiled")
     tables["xlstm"] = moe_serve("12d xlstm-125m", arch_config("xlstm-125m"),
-                                runs, continuous=False, profile=True)
+                                runs, continuous=False, profile=True,
+                                contract="xlstm")
     for label, fn in (
             ("12e deepseek", lambda: moe_capacity(
                 "deepseek-moe-16b", tables["deepseek"], "12e deepseek")),
@@ -4237,6 +4264,170 @@ def phase_moe() -> dict:
     print(f"  dropped token-slots (MoE-layer calls, dropped, most in one "
           f"call): {DROPS}")
     print(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+# ---- phase 13: the contract checker and the examples ----
+REFERENCE_CASES = ("linear-greedy", "linear-mixed", "linear-sampled",
+                   "linear-adaptive", "tree", "paged-mixed")
+# the kernels each registry case's checked step launches on the card
+CONTRACT_KERNELS = {
+    "linear-greedy": ("spec_attention",),
+    "linear-mixed": ("spec_attention", "ngram_match"),
+    "linear-sampled": ("spec_attention", "ngram_match"),
+    "linear-adaptive": ("spec_attention", "ngram_match"),
+    "tree": ("tree_spec_attention", "ngram_match"),
+    "paged-mixed": ("paged_spec_attention", "ngram_match"),
+    "hybrid": ("mamba_scan", "spec_attention", "ngram_match"),
+    "moe": ("spec_attention", "ngram_match"),
+    "mrope": ("spec_attention", "ngram_match"),
+    "window": ("ngram_match",),        # the window's plain verify: no K1
+    "xlstm": ("ngram_match",),         # no attention layer
+}
+# every (model, case) 13a checks
+CONTRACT_WANT = ({("13a stablelm-1.6b", c) for c in REFERENCE_CASES}
+                 | {("13a hybrid", "hybrid"), ("13a mistral-7b", "window"),
+                    ("13a qwen2-vl-72b", "mrope"),
+                    ("13a deepseek-moe-16b", "moe"),
+                    ("13a xlstm-125m", "xlstm")})
+CONTRACT: list = []            # 13a's checks, as the phases that hold the
+#                                models run them
+EXAMPLES = ("torch_quickstart", "torch_train_tiny", "torch_serve_speculative",
+            "torch_phase_transition_demo")
+CLI_TIMEOUT_S = 600
+
+
+def contract_check(label: str, names, params, cfg) -> None:
+    """Phase 13a on a model an earlier phase holds (full width, bf16, on
+    the card): the level-1 contract checks of the registry cases ``names``
+    (``analysis.runtime_rules.check_case``: admissions and a warm step,
+    then a step under ``set_sync_debug_mode("error")`` and the dispatch-mode
+    detector, an admission and a release), with the kernels' launches in
+    the checked step.  Recorded in CONTRACT for phase 13's report."""
+    from repro_torch.analysis import registry, runtime_rules
+    for name in names:
+        launches: dict = {}
+
+        @contextlib.contextmanager
+        def count():
+            reset_launches()
+            try:
+                yield
+            finally:
+                sync()
+                launches.update(read_launches())
+        t0 = time.perf_counter()
+        built = registry.build_case(registry.case(name), device="cuda",
+                                    cfg=cfg, params=params)
+        findings = runtime_rules.check_case(built, step_hook=count)
+        sync()
+        rules: dict = {}
+        for f in findings:
+            rules[f.rule] = rules.get(f.rule, 0) + 1
+        CONTRACT.append(dict(label=label, case=name, rules=rules,
+                             findings=[f.format() for f in findings],
+                             launches={k: v for k, v in launches.items()
+                                       if v},
+                             seconds=time.perf_counter() - t0))
+        print(f"  {label} {name}: contract findings {rules or 0}, the "
+              f"checked step's launches {CONTRACT[-1]['launches']}")
+
+
+def run_example(name: str) -> dict:
+    """Phase 13b: one example's ``main`` at its default flags on the card;
+    its wall seconds, tokens/call and kernel launches."""
+    import importlib
+    import io
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    try:
+        mod = importlib.import_module(name)
+    finally:
+        sys.path.pop(0)
+    reset_launches()
+    out = io.StringIO()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        got = mod.main([])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    if name == "torch_quickstart":
+        tpc = {s: r["tokens_per_call"] for s, r in got.items()}
+    elif name == "torch_train_tiny":
+        tpc = {f"step {i}": t for i, _, t in got[1]}
+    elif name == "torch_serve_speculative":
+        tpc = {m: sum(r.stats["new_tokens"] for r in reqs)
+               / max(sum(r.stats["model_calls"] for r in reqs), 1)
+               for m, reqs in got.items()}
+    else:
+        tpc = {}
+    lines = out.getvalue().strip().splitlines()
+    print(f"  {name}: {wall:.1f} s, tokens/call "
+          + (", ".join(f"{k} {v:.3f}" for k, v in tpc.items()) or "none")
+          + f", launches {launches}; its last line: {lines[-1][:100]!r}")
+    return dict(wall=wall, tokens_per_call=tpc, launches=launches)
+
+
+def phase_contract() -> dict:
+    """Phase 13 (see the module docstring).  Returns each 13a check's and
+    each example's kernel launches."""
+    t_phase = time.perf_counter()
+    print("phase 13a: the contract checker's level-1 checks at full width "
+          "(run where phases 3, 7, 10 and 12 held each model)")
+    runs: dict = {}
+    totals: dict = {}
+    bad = []
+    for r in CONTRACT:
+        for rule, n in r["rules"].items():
+            totals[rule] = totals.get(rule, 0) + n
+        missing = [k for k in CONTRACT_KERNELS[r["case"]]
+                   if not r["launches"].get(k)]
+        print(f"  {r['label']} {r['case']}: {sum(r['rules'].values())} "
+              f"findings, launches {r['launches']}, {r['seconds']:.1f} s")
+        for f in r["findings"]:
+            print(f"    {f}")
+        if r["rules"] or missing:
+            bad.append((r["label"], r["case"], r["rules"], missing))
+        runs[f"{r['label']} {r['case']}"] = r["launches"]
+    checked = {(r["label"], r["case"]) for r in CONTRACT}
+    print(f"  findings per rule over {len(CONTRACT)} checks: {totals or 0}")
+    if checked != CONTRACT_WANT:
+        raise AssertionError(f"13a: checks missing "
+                             f"{sorted(CONTRACT_WANT - checked)}, unexpected "
+                             f"{sorted(checked - CONTRACT_WANT)}")
+    if bad:
+        raise AssertionError(f"13a: findings or kernels not launched: {bad}")
+    t0 = took("phase 13a's report", t_phase)
+
+    print(f"phase 13b: the examples at their default flags on the card "
+          f"({', '.join(EXAMPLES)})")
+    for name in EXAMPLES:
+        got = run_example(name)
+        runs[f"13b {name}"] = got["launches"]
+        need = {"torch_quickstart": ("spec_attention", "ngram_match"),
+                "torch_train_tiny": ("spec_attention", "ngram_match"),
+                "torch_serve_speculative": ("spec_attention", "ngram_match",
+                                            "paged_spec_attention")
+                }.get(name, ())
+        if any(not got["launches"].get(k) for k in need):
+            raise AssertionError(f"13b {name}: a kernel never launched: "
+                                 f"{got['launches']}")
+    t0 = took("phase 13b", t0)
+
+    print("phase 13c: python -m repro_torch.analysis --strict (both "
+          "levels, level 1 on the card)")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--strict"], cwd=ROOT, env=env,
+                         capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    for line in (out.stdout + out.stderr).strip().splitlines()[-12:]:
+        print(f"    {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"13c: the checker exited {out.returncode}")
+    took("phase 13c", t0)
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return runs
 
 
@@ -4396,6 +4587,10 @@ def main() -> int:
           "Mixtral-8x7B, Jamba with its experts, xLSTM-125M)")
     archs.update(phase_moe())
 
+    print("phase 13: the contract checker (13a's checks ran inside phases "
+          "3, 7, 10 and 12) and the examples")
+    contract = phase_contract()
+
     cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
                    cu, "src/repro/kernels/spec_attention.py:137"),
@@ -4419,6 +4614,8 @@ def main() -> int:
                                     if ls.get(n)},
                     launches_trained={run: ls[n] for run, ls in
                                       trained.items() if ls.get(n)},
+                    launches_contract={run: ls[n] for run, ls in
+                                       contract.items() if ls.get(n)},
                     **rec[n])
                for n in sources]
     took("the script", t_script)

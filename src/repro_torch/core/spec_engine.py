@@ -5,9 +5,10 @@ batching).
 
 The unit of work is ONE iteration, ``spec_step``: it drafts, runs the
 batched verification call and commits the winning tokens for every active
-row of a persistent ``DecodeState``.  The step is fixed-shape and reads
-nothing back to the host, so that a CUDA graph can capture it; ``generate``
-loops over it and reads one boolean per step to stop.
+row of a persistent ``DecodeState``.  The step is fixed-shape, reads
+nothing back to the host and writes every leaf of the state in place, so
+that a CUDA graph can capture it (``analysis``'s level 1 holds all three);
+``generate`` loops over it and reads one boolean per step to stop.
 
 Invariants (as in the reference):
   - output is bit-identical to greedy decoding (temperature-0 rows);
@@ -67,8 +68,9 @@ from ..models import cache as C
 from ..models import model as M
 from ..models.config import ModelConfig
 from . import tree as T
-from .controller import (arm_slowdowns, choose_arms, init_arm_stats,
-                         tree_arm_slowdowns, update_arm_stats)
+from .controller import (ARM_STAT_KEYS, arm_slowdowns, choose_arms,
+                         init_arm_stats, tree_arm_slowdowns,
+                         update_arm_stats)
 from .drafters import (bigram_draft, mixed_draft, multi_depth_draft,
                        unigram_draft)
 from . import prng
@@ -610,53 +612,63 @@ def _spec_body(params, cfg: ModelConfig, spec: SpecConfig,
         sel = tc.path_inputs[acc.winner.long()]                 # (B, w+1)
         tails = {g: {kk: tt[:, :, 0][:, b_idx[:, None], sel][:, :, None]
                      for kk, tt in d.items()} for g, d in tails.items()}
-        state_n = M.commit_kv_tails(cfg, state_c, tails,
-                                    torch.zeros_like(acc.winner), n_commit)
+        M.commit_kv_tails(cfg, state_c, tails, torch.zeros_like(acc.winner),
+                          n_commit)
     elif not M.has_recurrent(cfg):
-        state_n = M.commit_kv_tails(cfg, state_c, tails, acc.winner,
-                                    n_commit)
+        M.commit_kv_tails(cfg, state_c, tails, acc.winner, n_commit)
     else:
         # gated replay: the winning row's tokens through decode, which keeps
         # the first n_commit positions' KV and recurrent state
         row_tok = rows[b_idx, acc.winner.long()]                # (B, w+1)
-        _, state_n = M.decode(params, cfg, state_c, row_tok,
-                              n_commit=n_commit)
+        M.decode(params, cfg, state_c, row_tok, n_commit=n_commit)
     # write accepted tokens into the buffer (in place)
     pos = torch.arange(spec.w + 1, device=dev)[None, :]
     slots = (len_c[:, None].long() + pos).clamp(0, L - 1)
     gate = pos < n_commit[:, None]
     old = buf_c.gather(1, slots)
     buf_c.scatter_(1, slots, torch.where(gate, acc.tokens, old))
-    len_n = len_c + n_commit
-    done_n = done_c | (len_n - s.prompt_len >= s.budget)
-    # ---- stats ----
-    st = dict(s.stats)
+    # ---- stats (in place) ----
+    st = s.stats
     act = active.to(torch.int32)
-    st["calls"] = st["calls"] + act
-    st["tokens"] = st["tokens"] + n_commit
-    st["accept_hist"] = st["accept_hist"].index_put(
+    st["calls"].add_(act)
+    st["tokens"].add_(n_commit)
+    st["accept_hist"].index_put_(
         (b_idx, n_commit.long().clamp(0, spec.w + 1)), act, accumulate=True)
     n_win = acc.n_acc.gather(1, acc.winner[:, None].long())[:, 0]
-    st["rank_hist"] = st["rank_hist"].index_put(
+    st["rank_hist"].index_put_(
         (b_idx, acc.winner.long()), (active & (n_win > 0)).to(torch.int32),
         accumulate=True)
-    st["alloc_ctx"] = st["alloc_ctx"].index_put(
+    st["alloc_ctx"].index_put_(
         (b_idx, n_ctx.long().clamp(0, spec.k)), act, accumulate=True)
     # the winning path's origin: the drafter row its first branch tracks
     # (tree) or the winning row itself (linear)
     from_ctx = ((tc.path_first[acc.winner.long()] if spec.tree
                  else acc.winner) < n_ctx)
     acc_drafted = (n_commit - 1).clamp(min=0)
-    st["accepted_ctx"] = st["accepted_ctx"] + torch.where(
-        active & from_ctx, acc_drafted, 0)
-    st["accepted_bigram"] = st["accepted_bigram"] + torch.where(
-        active & ~from_ctx, acc_drafted, 0)
+    st["accepted_ctx"].add_(torch.where(active & from_ctx, acc_drafted, 0))
+    st["accepted_bigram"].add_(torch.where(active & ~from_ctx, acc_drafted,
+                                           0))
     if spec.arms is not None:
         # reward the pulled arm with the tokens its call committed (bonus
         # included: the tokens-per-call quantity AdaptiveKW tracks)
-        st = update_arm_stats(st, arm, n_commit, active)
-    return dataclasses.replace(s, buf=buf_c, buf_len=len_n, done=done_n,
-                               model=state_n, stats=st, rng_key=carry_keys)
+        for key, v in update_arm_stats(
+                {k: st[k] for k in ARM_STAT_KEYS}, arm, n_commit,
+                active).items():
+            st[key].copy_(v)
+    _advance(s, n_commit, done_c, carry_keys)
+    return s
+
+
+def _advance(s: DecodeState, n_commit: torch.Tensor, done: torch.Tensor,
+             carry_keys: torch.Tensor) -> None:
+    """The step's last writes, IN PLACE: ``n_commit`` more committed
+    tokens a row, the rows that finished (``done``, or out of budget) and
+    the carried keys.  Every leaf keeps its storage, as a CUDA graph of
+    the step needs."""
+    s.buf_len.add_(n_commit)
+    s.done.copy_(done | (s.buf_len - s.prompt_len >= s.budget))
+    if carry_keys is not s.rng_key:
+        s.rng_key.copy_(carry_keys)
 
 
 def _greedy_body(params, cfg: ModelConfig, spec: SpecConfig,
@@ -667,13 +679,12 @@ def _greedy_body(params, cfg: ModelConfig, spec: SpecConfig,
     if C.is_paged(s.model):
         C.grow_pages(s.model, s.model["cur_len"] + 1, active)
     buf_c, len_c, done_c, state_c = s.buf, s.buf_len, s.done, s.model
-    cur_c = state_c["cur_len"]
     last = buf_c.gather(1, torch.remainder(len_c - 1, L)[:, None].long())
-    logits, state_n = M.decode(params, cfg, state_c, last)
+    logits, _ = M.decode(params, cfg, state_c, last)
     # decode advances cur_len by 1 for every row; freeze inactive rows so
     # the cur_len == buf_len - 1 invariant holds for done rows too (their
     # cache writes are row-local and never read: only p < cur_len is)
-    state_n["cur_len"] = cur_c + active.to(torch.int32)
+    state_c["cur_len"].sub_((~active).to(torch.int32))
     if spec.sampling:
         nk = prng.split(s.rng_key)                             # (B, 2, 2)
         nxt = sample_token(logits[:, -1], nk[:, 0], s.temperature, s.top_p)
@@ -685,26 +696,25 @@ def _greedy_body(params, cfg: ModelConfig, spec: SpecConfig,
     b_idx = torch.arange(B, device=dev)
     buf_c.scatter_(1, slots, torch.where(active, nxt,
                                          buf_c.gather(1, slots)[:, 0])[:, None])
-    len_n = len_c + active.to(torch.int32)
-    done_n = done_c | (len_n - s.prompt_len >= s.budget)
-    done_n = done_n | ((nxt == s.eos_id) & (s.eos_id >= 0))
-    st = dict(s.stats)
+    st = s.stats
     act = active.to(torch.int32)
-    st["calls"] = st["calls"] + act
-    st["tokens"] = st["tokens"] + act
+    st["calls"].add_(act)
+    st["tokens"].add_(act)
     # a greedy call commits exactly one token: bin 1 of the histogram
-    st["accept_hist"] = st["accept_hist"].index_put(
+    st["accept_hist"].index_put_(
         (b_idx, torch.ones_like(b_idx)), act, accumulate=True)
-    return dataclasses.replace(s, buf=buf_c, buf_len=len_n, done=done_n,
-                               model=state_n, stats=st, rng_key=carry_keys)
+    _advance(s, act, done_c | ((nxt == s.eos_id) & (s.eos_id >= 0)),
+             carry_keys)
+    return s
 
 
 def spec_step(params, cfg: ModelConfig, spec: SpecConfig, state: DecodeState,
               tables: Optional[NGramTables] = None) -> DecodeState:
     """One draft -> verify -> commit iteration over every active row.  Rows
     that are inactive or done commit nothing and their stats are untouched.
-    The state's buffers are updated in place (the reference donates them);
-    callers rebind to the returned state."""
+    Every leaf of the state is updated in place (the reference donates
+    them) and the same state is returned; ``analysis``'s ``in-place`` rule
+    holds this."""
     body = _greedy_body if spec.strategy == "greedy" else _spec_body
     if body is _spec_body and tables is None:
         raise ValueError(f"strategy {spec.strategy!r} needs NGramTables")
@@ -734,6 +744,7 @@ def generate(params, cfg: ModelConfig, spec: SpecConfig, prompt,
                               paged=paged, temperature=temperature,
                               top_p=top_p, rng=rng)
     # the loop's one host read per step: is any row still running?
+    # repro-lint: allow(tensor-branch): generate's stop test, outside the step
     while bool(((~state.done)
                 & (state.buf_len - state.prompt_len < state.budget)).any()):
         state = spec_step(params, cfg, spec, state, tables)

@@ -180,6 +180,7 @@ def sample_predictions(logits: torch.Tensor, rng: torch.Tensor,
         lv, n_levels = torch.arange(W1, device=dev), W1
     else:
         if n_levels is None:
+            # repro-lint: allow(tensor-branch): host levels; the step passes n_levels
             n_levels = int(np.asarray(levels).max()) + 1
         lv = torch.as_tensor(levels, device=dev).long()
     pred_greedy = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -16,8 +16,10 @@ for those configs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels import dispatch
@@ -39,6 +41,19 @@ def _rope_inv_freq(cfg: ModelConfig, device) -> torch.Tensor:
     return 1.0 / (cfg.rope_theta ** ex)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_section_ids(cfg: ModelConfig, device: torch.device
+                       ) -> torch.Tensor:
+    """(rd/2,) int64: the position row (0 t, 1 h, 2 w) of each rotary
+    half-dim, ``cfg.mrope_sections`` half-dims each and any remainder on
+    w.  Built once per (config, device), so that a step copies nothing
+    from the host."""
+    half = len(range(0, cfg.rotary_dim, 2))
+    ids = np.repeat(np.arange(3), cfg.mrope_sections)
+    ids = np.concatenate([ids, np.full(max(half - ids.size, 0), 2)])[:half]
+    return torch.as_tensor(ids, dtype=torch.int64, device=device)
+
+
 def rope_freqs(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
     """positions: (B, T) int, or (3, B, T) t/h/w rows for M-RoPE.  Returns
     (B, T, rd/2) f32.  M-RoPE gives rotary half-dim i the position row of
@@ -47,11 +62,7 @@ def rope_freqs(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
     if cfg.rope == MROPE:
         if positions.dim() != 3:
             raise ValueError("M-RoPE needs (3, B, T) positions")
-        sec_id = torch.repeat_interleave(
-            torch.arange(3, device=positions.device),
-            torch.as_tensor(cfg.mrope_sections, device=positions.device))
-        sec_id = torch.cat([sec_id, sec_id.new_full(
-            (max(inv.shape[0] - sec_id.shape[0], 0),), 2)])[:inv.shape[0]]
+        sec_id = _mrope_section_ids(cfg, positions.device)
         pos = positions.float()[sec_id]                # (rd/2, B, T)
         return torch.movedim(pos, 0, -1) * inv
     return positions.float()[..., None] * inv

@@ -379,11 +379,11 @@ def check_page_invariants(state: Dict) -> Dict:
     together with it cover exactly {0..num_pages-1}; every page table row is
     n_pages valid entries followed by -1s.  Returns summary counts.
     """
-    pt = state["page_table"].cpu().numpy()
-    npg = state["n_pages"].cpu().numpy()
     N = state["free_list"].shape[0] - 1
-    fl = state["free_list"].cpu().numpy()[:N]
-    ft = int(state["free_top"])
+    # repro-lint: allow(tensor-branch): a host-side audit, outside the step
+    pt, npg, fl, ft = (state[k].cpu().numpy() for k in (
+        "page_table", "n_pages", "free_list", "free_top"))
+    fl, ft = fl[:N], int(ft)
     allocated = []
     for b in range(pt.shape[0]):
         row, n = pt[b], int(npg[b])

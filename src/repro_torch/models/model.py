@@ -4,10 +4,11 @@ cache and the per-slot Mamba and xLSTM states (``models/cache.py``).
 
 The reference's functions are pure and return new states; here ``prefill``,
 ``decode`` and ``commit_kv_tails`` update the state's cache IN PLACE and
-return the same state dict with ``cur_len`` advanced.  ``verify`` only
-reads the state.  On a paged state each call computes the physical slots
-of its writes once (``cache.phys_slots``) and hands them, with the page
-table, to every layer.
+return the same state dict, its ``cur_len`` advanced in place too (every
+leaf keeps its storage, as ``analysis``'s ``in-place`` rule holds).
+``verify`` only reads the state.  On a paged state each call computes the
+physical slots of its writes once (``cache.phys_slots``) and hands them,
+with the page table, to every layer.
 """
 from __future__ import annotations
 
@@ -136,7 +137,7 @@ def prefill(params: Params, cfg: ModelConfig, state: State,
     if last_only:
         x = x[:, -1:]
     logits = lm_logits(params["embed"], x, cfg)
-    state["cur_len"] = state["cur_len"] + T
+    state["cur_len"].add_(T)
     return logits, state
 
 
@@ -172,8 +173,7 @@ def decode(params: Params, cfg: ModelConfig, state: State,
     x, _, _ = run_stack(params, cfg, x, mode, state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)
-    state["cur_len"] = cur + (T if n_commit is None
-                              else n_commit.to(cur.dtype))
+    cur.add_(T if n_commit is None else n_commit.to(cur.dtype))
     return logits, state
 
 
@@ -244,5 +244,5 @@ def commit_kv_tails(cfg: ModelConfig, state: State, kv_tails: Dict,
         flat = lambda t: t.view((R * B,) + t.shape[2:])   # views: in place
         kv_write(flat(g["k"]), flat(g["v"]), flat(k_w), flat(v_w),
                  slots.repeat(R, 1), gate=gate.repeat(R, 1))
-    state["cur_len"] = cur + n_commit.to(cur.dtype)
+    cur.add_(n_commit.to(cur.dtype))
     return state

@@ -66,6 +66,15 @@ def _expert_ffn(wg, wu, wd, x: torch.Tensor, cd) -> torch.Tensor:
     return torch.bmm(g * u, wd.to(cd))
 
 
+def expert_counts(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """(E,) int64: how many entries of ``flat_e`` name each expert.  A
+    fixed-length scatter-add, exact in integers; ``torch.bincount`` would
+    read the input's extent back to the host on CUDA."""
+    return torch.zeros((E,), dtype=torch.int64,
+                       device=flat_e.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+
+
 def _router(params: Params, x2d: torch.Tensor, cfg: ModelConfig):
     """Returns (topk_idx (N, K) int64, topk_w (N, K) f32, aux_loss).
 
@@ -79,7 +88,7 @@ def _router(params: Params, x2d: torch.Tensor, cfg: ModelConfig):
     topk_w = topk_w / topk_w.sum(-1, keepdim=True).clamp(min=1e-9)
     # Switch-style load-balance loss
     me = probs.mean(dim=0)                                   # (E,)
-    ce = torch.bincount(topk_idx.reshape(-1), minlength=E).float()
+    ce = expert_counts(topk_idx.reshape(-1), E).float()
     ce = ce / ce.sum().clamp(min=1.0)
     aux = E * torch.sum(me * ce)
     return topk_idx, topk_w, aux
@@ -122,7 +131,7 @@ def moe_scatter(params: Params, x: torch.Tensor, cfg: ModelConfig):
     # integers: the same ranks)
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = expert_counts(flat_e, E)
     first = counts.cumsum(0) - counts
     pos_sorted = torch.arange(N * K, device=x.device) - first[e_sorted]
     ranks = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)

@@ -338,23 +338,25 @@ class ServingEngine:
         state = self._cont_state
         # the one structural host read per step: slot reuse is a host
         # decision, so the done flags come back every step
+        # repro-lint: allow(host-sync): slot reuse is decided on the host
         done = state.done.cpu().numpy()
         if not done[[s for s, _ in self._slots.occupied()]].any():
             return []
         if self.paged:
             # pool peak: occupancy only falls at release, so sampling here
             # (before this round's frees) sees every high-water mark
+            # repro-lint: allow(host-sync): retiring rounds only, after the done read
             in_use = self._pool_pages - int(state.model["free_top"])
             self._pool_peak = max(self._pool_peak, in_use)
-        # one device->host transfer per array, only on retiring rounds
-        blen = state.buf_len.cpu().numpy()
-        plen = state.prompt_len.cpu().numpy()
-        buf = state.buf.cpu().numpy()
-        calls_np = state.stats["calls"].cpu().numpy()
-        tokens_np = state.stats["tokens"].cpu().numpy()
-        accept_hist_np = state.stats["accept_hist"].cpu().numpy()
-        arm_pulls_np = (state.stats["arm_pulls"].cpu().numpy()
-                        if self._arms else None)
+        # one device->host transfer per array, only on retiring rounds:
+        # the retired rows' outputs and stats, before release zeroes them
+        # repro-lint: allow(host-sync): retiring rounds only, after the done read
+        blen, plen, buf, calls_np, tokens_np, accept_hist_np, arm_pulls_np = (
+            t.cpu().numpy() if t is not None else None for t in (
+                state.buf_len, state.prompt_len, state.buf,
+                state.stats["calls"], state.stats["tokens"],
+                state.stats["accept_hist"],
+                state.stats["arm_pulls"] if self._arms else None))
         retired: List[Request] = []
         for slot, req in self._slots.occupied():
             if not done[slot]:
@@ -534,6 +536,7 @@ class ServingEngine:
         pulls (adaptive continuous mode only; reads the device)."""
         if self._arms is None or self._cont_state is None:
             return {}
+        # repro-lint: allow(host-sync): telemetry, read outside the serving loop
         in_flight = self._cont_state.stats["arm_pulls"].cpu().numpy()
         return {"arms": [list(a) for a in self._arms],
                 "pulls_retired": self._arm_pulls_total.tolist(),

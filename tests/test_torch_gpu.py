@@ -45,7 +45,9 @@ token-slots and gives its output within f32 1e-5, the same bits on a
 second call; the mLSTM and sLSTM cells within f32 1e-5 of the CPU's, the
 replay's kept state bit-equal to per-step states then
 ``select_step_state``; deepseek-smoke and xlstm-smoke served on the card
-equal ``greedy_reference``.
+equal ``greedy_reference``.  The contract checker: deepseek-smoke's and
+qwen2-vl-smoke's mixed steps make no synchronising call, and the
+checker's level 1 finds nothing over its registry on the card.
 """
 import numpy as np
 import pytest
@@ -1043,3 +1045,51 @@ def test_moe_and_xlstm_serving_is_lossless_on_the_card(cuda_device, arch):
                                    r.stats["new_tokens"])
             np.testing.assert_array_equal(r.output_ids,
                                           ref[0, len(toks):].cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen2-vl-72b"])
+def test_moe_and_mrope_steps_do_not_synchronise(cuda_device, arch):
+    """A mixed spec_step of deepseek-smoke (the router's expert counts and
+    the capacity ranks: a fixed-length scatter-add, no bincount) and of
+    qwen2-vl-smoke (M-RoPE's section ids built once per device) makes no
+    call that waits for the device (torch's sync debug mode raises on
+    one), and K1 carries its verify."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import spec_engine as E
+    from repro_torch.core.ngram_tables import NGramTables
+    from repro_torch.models import model as M
+    cfg = get_smoke_config(arch)
+    spec = E.SpecConfig(k=4, w=3, strategy="mixed", max_new_tokens=16)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    V = cfg.vocab_size
+    tab = NGramTables(*(torch.as_tensor(a, dtype=torch.int32,
+                                        device=cuda_device) for a in (
+        np.arange(8), rng.integers(0, V, (V, 8)),
+        rng.integers(0, V, (V, 6)))))
+    prompt = torch.as_tensor(rng.integers(0, V, (2, 24)),
+                             dtype=torch.int32, device=cuda_device)
+    s = E.init_decode_state(params, cfg, spec, prompt)
+    s = E.spec_step(params, cfg, spec, s, tab)     # the per-device constants
+    torch.cuda.synchronize()
+    spec_attention_cuda.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            s = E.spec_step(params, cfg, spec, s, tab)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert spec_attention_cuda.launches == 2 * cfg.num_layers
+    assert int(s.buf_len.min()) >= 24 + 4
+
+
+@pytest.mark.gpu
+def test_contract_checker_is_clean_on_the_card(cuda_device):
+    """The checker's level 1 over its whole registry on the card (each
+    step under set_sync_debug_mode("error") and the dispatch-mode
+    detector): no finding."""
+    from repro_torch.analysis.runtime_rules import run_level1
+    found = run_level1(device="cuda")
+    assert found == [], "\n".join(f.format() for f in found)
