@@ -148,7 +148,7 @@ Phases (any failure raises and the script exits non-zero):
                10, ``mixed_batches(8, 128, 120, seed=0)``, remat), its loss
                curve, the first 5 losses held against the same steps on
                the CPU (TRAIN_CPU_TOL), and K1-K5 0 launches while it
-               trains; 11b: StableLM-2-1.6B at full width cut to 12 of
+               trains; 11b: StableLM-2-1.6B at full width cut to 6 of
                its 24 layers (bf16 params, f32 moments), its seeded
                weights served first (11c's yardstick), then 200 steps on
                the same mixture: ms a step,
@@ -212,6 +212,20 @@ Phases (any failure raises and the script exits non-zero):
                flags (wall s, tokens/call, K1/K2 launched, K3 by the
                serving example).  13c: ``python -m repro_torch.analysis
                --strict`` (both levels, level 1 on the card) exits 0.
+ 14. mesh    — after phase 13: ``ServingEngine(mesh=)`` on a (1, 1)
+               NCCL mesh (a one-rank process group in this process, torn
+               down at the phase's end; one card cannot hold two NCCL
+               ranks).  14a: StableLM-2-1.6B at full width and depth,
+               bf16, seeded weights, serves phase 5's first 8 requests
+               continuously, paged mixed, beside the same engine without
+               a mesh: tokens/s, tokens/call, wall ms a step and peak
+               memory of each, the mesh report, K1/K2/K3 0 launches under
+               the mesh and plain_verify once a layer a step (asserted);
+               a few steps of each profiled (wall against device-busy ms
+               a step: the gap is DTensor's dispatch on the card).  14b:
+               at 2 layers in f32 (TF32 off), 4 of the requests, greedy
+               and mixed, linear and paged: the meshed tokens equal the
+               unmeshed engine's and greedy_reference's.
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
 for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
@@ -294,7 +308,8 @@ TRAIN_CHECK_STEPS = 5            # 11a's first steps, run again on the CPU
 # the two run the same ops with other reduction orders, ~1e-6 per step
 TRAIN_CPU_TOL = 1e-4
 LM_TRAIN_STEPS = 200             # 11b: StableLM-2-1.6B at full width,
-LM_TRAIN_DEPTH = 12              # cut to 12 of its 24 layers
+LM_TRAIN_DEPTH = 6               # cut to 6 of its 24 layers (12 before
+#                                  phase 14 joined the script)
 CLI_TRAIN_STEPS = 20             # 11d
 ADAPTIVE_F32_DEPTH = 2           # 9c: StableLM's f32 checks, of 24 layers
 
@@ -4431,6 +4446,224 @@ def phase_contract() -> dict:
     return runs
 
 
+MESH_N = 8                     # phase 5's first 8 requests (two long)
+MESH_F32_N, MESH_F32_LAYERS = 4, 2
+MESH_PROFILE_STEPS = 3
+
+
+def mesh_group():
+    """A one-rank NCCL process group in this process and its (1, 1) mesh
+    (two ranks on one card is not an NCCL configuration)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    init = "file://" + os.path.join(tempfile.mkdtemp(prefix="mesh-"),
+                                    "init")
+    dist.init_process_group("nccl", init_method=init, rank=0, world_size=1)
+    return make_debug_mesh((1, 1), "cuda")
+
+
+def counted_steps(engine) -> list:
+    """Count the engine's continuous steps (a one-element list)."""
+    n = [0]
+    real = engine._run_step
+
+    def step(state):
+        n[0] += 1
+        return real(state)
+    engine._run_step = step
+    return n
+
+
+def mesh_run(params, cfg, spec, tables, work, mesh, paged: bool,
+             label: str) -> dict:
+    """One continuous run of ``work``, with a mesh or without: tokens/s,
+    tokens/call, steps, wall ms a step, peak memory, the kernels' launches
+    and plain_verify's calls (none for a config inside K1's contract)."""
+    import torch
+    from repro_torch.models.attention import plain_verify
+    eng = cont_engine(params, cfg, spec, tables, paged, mesh=mesh)
+    steps = counted_steps(eng)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                # counts from zero just before the run
+    pv = plain_verify.calls
+    done, wall = serve_continuous(eng, work)
+    launches = read_launches()
+    pv = plain_verify.calls - pv
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_budgets(done, work)
+    if paged:
+        check_paged_run(eng, done, work, deferrals=False)
+    new = sum(r.stats["new_tokens"] for r in done)
+    calls = sum(r.stats["model_calls"] for r in done)
+    out = dict(done=done, engine=eng, steps=steps[0], wall=wall,
+               tok_s=new / wall, tpc=new / max(calls, 1),
+               step_ms=wall * 1e3 / max(steps[0], 1), peak=peak,
+               launches=launches, plain_verify=pv)
+    print(f"  {label}: {len(done)} requests, {new} tokens in {wall:.2f} s "
+          f"= {out['tok_s']:.1f} tok/s, {out['tpc']:.2f} tokens/call, "
+          f"{steps[0]} steps, {out['step_ms']:.1f} ms wall a step, peak "
+          f"{peak:.2f} GiB, launches {launches}, plain_verify {pv}")
+    return out
+
+
+def mesh_busy(params, cfg, spec, tables, work, mesh, paged: bool,
+              label: str) -> dict:
+    """Wall against device-busy ms a continuous step (torch.profiler over
+    a few steps of a fresh engine once its slots are full)."""
+    eng = cont_engine(params, cfg, spec, tables, paged, mesh=mesh)
+    for text, mnt in work:
+        eng.submit(text, max_new_tokens=mnt)
+    eng.step()
+    return profile_window(label, eng.step, MESH_PROFILE_STEPS)
+
+
+def mesh_placement(host, cfg, spec, tables, mesh) -> dict:
+    """A meshed engine built from parameters on the host: the card's bytes
+    after it against the shard bytes its report gives (each rank copies
+    its shards alone: nothing whole passes through the card), and the
+    peak on the way."""
+    import torch
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = cont_engine(host, cfg, spec, tables, True, mesh=mesh)
+    sync()
+    placed = torch.cuda.memory_allocated() - before
+    peak = torch.cuda.max_memory_allocated() - before
+    rep = eng.mesh_report()
+    shards = rep["params_bytes"]["local"]
+    print(f"  14a: the meshed engine from host parameters placed "
+          f"{placed / 2**30:.3f} GiB on the card (peak "
+          f"{peak / 2**30:.3f}) for {shards / 2**30:.3f} GiB of shards "
+          f"({rep['params_bytes']['global'] / 2**30:.3f} GiB whole)")
+    # the caching allocator rounds each of the ~300 blocks up to 2 MiB at
+    # most; a second copy of the model would add its 3.11 GiB
+    slack = 2**20 * 2 * len(list(host_leaves(host)))
+    if not (shards <= placed <= shards + slack and peak <= placed + slack):
+        raise AssertionError(f"placement: {placed} bytes placed, peak "
+                             f"{peak}, for {shards} bytes of shards")
+    return dict(placed=placed, peak=peak, shards=shards)
+
+
+def host_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from host_leaves(v)
+    else:
+        yield tree
+
+
+def phase_mesh(tables) -> dict:
+    """Phase 14: the mesh (``ServingEngine(mesh=)``) on a (1, 1) NCCL mesh
+    in this process.  14a: StableLM-2-1.6B at full width and depth, bf16,
+    continuous paged mixed over phase 5's pool, beside the same engine
+    without a mesh: the gap is DTensor's dispatch on this card.  The
+    meshed engine is built from parameters on the host (its shards alone
+    reach the card) and its step launches the kernels on its local
+    tensors: K3 once a layer a step and K2 once a step, as without the
+    mesh, and no plain_verify.  14b: in f32 at 2 layers the meshed tokens
+    equal the unmeshed engine's and greedy_reference's, greedy and mixed,
+    linear and paged.  Returns 14a's meshed launches."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.spec_engine import SpecConfig, greedy_reference
+    from repro_torch.distributed import act_sharding
+    t0 = time.perf_counter()
+    mesh = mesh_group()
+    try:
+        cfg = get_config("stablelm-1.6b")
+        params = load_model(cfg)
+        spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+        work = cont_workload()[:MESH_N]
+        print(f"  14a: continuous paged mixed, {len(work)} requests, "
+              f"{CONT_SLOTS} slots, {CONT_PAGES}-page pool")
+        runs = {"no mesh": mesh_run(params, cfg, spec, tables, work, None,
+                                    True, "no mesh")}
+        mesh_busy(params, cfg, spec, tables, work, None, True,
+                  "14a no mesh paged mixed step")
+        # the meshed engines take the model from the host; the card keeps
+        # no copy of it (the engine without a mesh held one)
+        host = _to_host(params)
+        del params, runs["no mesh"]["engine"]
+        gc.collect()
+        placed = mesh_placement(host, cfg, spec, tables, mesh)
+        meshed = runs["mesh (1, 1)"] = mesh_run(host, cfg, spec, tables,
+                                                work, mesh, True,
+                                                "mesh (1, 1)")
+        ln, steps = meshed["launches"], meshed["steps"]
+        want = {"paged_spec_attention": steps * cfg.num_layers,
+                "ngram_match": steps}
+        if (any(ln[k] != n for k, n in want.items())
+                or meshed["plain_verify"]):
+            raise AssertionError(
+                f"under the mesh: launches {ln}, want {want}; "
+                f"plain_verify {meshed['plain_verify']}, want 0")
+        if act_sharding.installed():
+            raise AssertionError("the meshed engine left its mesh installed")
+        same = sum(np.array_equal(a.output_ids, b.output_ids) for a, b in
+                   zip(runs["no mesh"]["done"], meshed["done"]))
+        print(f"  14a: bf16 outputs equal without and with the mesh for "
+              f"{same}/{len(work)} requests; tok/s ratio mesh/no mesh "
+              f"{meshed['tok_s'] / runs['no mesh']['tok_s']:.3f}")
+        rep = meshed["engine"].mesh_report()
+        print(f"  mesh: {rep['mesh']} params sharded {rep['params_sharded']}"
+              f"/{rep['params_leaves']} params bytes {rep['params_bytes']} "
+              f"state leaves sharded {rep['state_sharded']} fallbacks "
+              f"{rep['replication_fallbacks']} kv bytes {rep['kv_bytes']} "
+              f"kernels {rep['backend']}")
+        t0 = took("phase 14a's runs", t0)
+        mesh_busy(host, cfg, spec, tables, work, mesh, True,
+                  "14a mesh (1, 1) paged mixed step")
+        launches = dict(ln)
+        del host, runs, meshed, placed
+        t0 = took("phase 14a's profile", t0)
+
+        cfg32 = arch_config("stablelm-1.6b", layers=MESH_F32_LAYERS,
+                            f32=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        params32 = load_model(cfg32)
+        tables32 = arch_tables(params32, cfg32)
+        work = cont_workload()[:MESH_F32_N]
+        for strategy in ("greedy", "mixed"):
+            sp = SpecConfig(k=SERVE_K, w=SERVE_W, strategy=strategy)
+            tb = tables32 if strategy == "mixed" else None
+            for paged in (False, True):
+                label = (f"14b f32 {'paged' if paged else 'linear'} "
+                         f"{strategy}")
+                outs = [mesh_run(params32, cfg32, sp, tb, work, m, paged,
+                                 f"{label} {'mesh' if m else 'no mesh'}")
+                        ["done"] for m in (None, mesh)]
+                for a, b, (_, mnt) in zip(*outs, work):
+                    toks = np.asarray(cont_engine_tokens(a.prompt))
+                    ref = greedy_reference(params32, cfg32, toks[None],
+                                           mnt)[0, len(toks):].cpu().numpy()
+                    if not (np.array_equal(a.output_ids, b.output_ids)
+                            and np.array_equal(b.output_ids, ref)):
+                        raise AssertionError(
+                            f"{label}: request {b.request_id}: meshed "
+                            f"{b.output_ids.tolist()} unmeshed "
+                            f"{a.output_ids.tolist()} greedy_reference "
+                            f"{ref.tolist()}")
+                print(f"  {label}: meshed == unmeshed == greedy_reference "
+                      f"for {len(work)} requests")
+        took("phase 14b", t0)
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def _to_host(tree):
+    """A parameter tree's copy on the host."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
 def took(label: str, t0: float) -> float:
     """Prints the seconds since ``t0`` and returns the time now."""
     now = time.perf_counter()
@@ -4591,6 +4824,13 @@ def main() -> int:
           "3, 7, 10 and 12) and the examples")
     contract = phase_contract()
 
+    print("phase 14: the mesh (ServingEngine(mesh=)) on a (1, 1) NCCL mesh: "
+          "StableLM-2-1.6B bf16 beside the engine without a mesh, then f32 "
+          "lossless")
+    t0 = time.perf_counter()
+    mesh_launches = phase_mesh(tables)
+    took("phase 14", t0)
+
     cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
                    cu, "src/repro/kernels/spec_attention.py:137"),
@@ -4616,6 +4856,7 @@ def main() -> int:
                                       trained.items() if ls.get(n)},
                     launches_contract={run: ls[n] for run, ls in
                                        contract.items() if ls.get(n)},
+                    launches_mesh=mesh_launches[n],
                     **rec[n])
                for n in sources]
     took("the script", t_script)

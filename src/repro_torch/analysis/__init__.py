@@ -8,7 +8,10 @@ Two levels:
     configurations and checks that every state leaf is written in place
     (``in-place``), that the state's signature is a fixed point
     (``state-signature``) and that the step reads nothing back to the host
-    (``host-sync``).  It runs on the card unless ``device="cpu"`` is given.
+    (``host-sync``), and that every state leaf has a sharding rule that
+    does not fall back to replication on the reference's three meshes
+    (``sharding-coverage``).  It runs on the card unless ``device="cpu"``
+    is given.
   - **Level 2 (AST)** lints ``src/repro_torch`` for source rules:
     kernel-scope, tensor-branch, hash-constants, global-state,
     time-in-step, plus the serving loop's host-sync inventory.
@@ -36,14 +39,19 @@ RULES: Dict[str, str] = {
     "host-sync": "no device->host read or host-data tensor in the step, no "
                  "device->host read in admit/release, no un-waived read "
                  "in the serving critical path",
+    "sharding-coverage": "every DecodeState leaf of every case has a "
+                         "sharding rule on the registry meshes, and none "
+                         "falls back to replication",
     # level 2 (AST)
     "kernel-scope": "ctypes/triton/cpp_extension and build.load only "
                     "inside kernels/",
     "tensor-branch": "no Python branch on, or host read of, a tensor in "
                      "core/ and models/",
     "hash-constants": "hash constants only in kernels/hashing.py",
-    "global-state": "no module-level process mutation; a rebound module "
-                    "global is restored by a context manager",
+    "global-state": "no module-level process mutation or mesh install; a "
+                    "rebound module global is restored by a context "
+                    "manager; act_sharding.install is paired with "
+                    "uninstall or activated",
     "time-in-step": "no wall clock or host RNG in the step functions",
 }
 

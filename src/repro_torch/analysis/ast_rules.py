@@ -24,7 +24,10 @@ Each rule mechanises a contract the port states in prose:
     ``set_default_device``/``manual_seed`` or assigns ``torch.backends.*``
     (an import would change its importer's process); a module global that
     a function rebinds is restored by a context manager (rebound in a
-    ``finally`` of a ``contextmanager``).
+    ``finally`` of a ``contextmanager``); no module installs a mesh
+    (``act_sharding.install``) at import, nor anywhere without an
+    ``uninstall``/``activated`` pairing in the same module: an installed
+    mesh outlives its owner and constrains every later caller's DTensors.
   - ``time-in-step``   (the reference's ``time-in-jit``) — inside
     ``spec_step``, ``admit_slot``, ``release_slot`` and the ``*_body``
     functions no wall clock and no host RNG (``time.*``, ``random.*``,
@@ -484,6 +487,47 @@ def global_state_findings(relpath: str, source: str,
                         "rebind it inside a contextlib.contextmanager and "
                         "restore it in the `finally`"))
                     restored.add(name)        # one finding a name
+    return out + _mesh_install_findings(relpath, source, tree, lines)
+
+
+def _is_install(node: ast.AST, source: str) -> bool:
+    if not isinstance(node, ast.Call):
+        return False
+    chain = _attr_chain(node.func)
+    return (chain.endswith("act_sharding.install")
+            or chain == "install" and "from .act_sharding import" in source
+            or chain == "install"
+            and "from ..distributed.act_sharding import" in source)
+
+
+def _mesh_install_findings(relpath: str, source: str, tree: ast.Module,
+                           lines: List[str]) -> List[Finding]:
+    """The mesh half of ``global-state`` (the reference's act_sharding
+    branches): a module-level install, and an install with no
+    uninstall/``activated`` pairing in its module."""
+    out: List[Finding] = []
+    for stmt in tree.body:
+        if _is_main_guard(stmt):
+            continue
+        for node in _walk_no_defs(stmt):
+            if _is_install(node, source):
+                out.append(_mk(
+                    "global-state", relpath, node, lines,
+                    "module-level act_sharding.install: the mesh leaks into "
+                    "every engine in the process",
+                    "use act_sharding.activated(mesh) scoped to the calls "
+                    "that need it"))
+    paired = "uninstall" in source or "activated(" in source
+    if not paired:
+        for node in ast.walk(tree):
+            if _is_install(node, source):
+                out.append(_mk(
+                    "global-state", relpath, node, lines,
+                    "act_sharding.install(...) with no uninstall/activated "
+                    "pairing in this module: an installed mesh outlives its "
+                    "owner and constrains every later caller's DTensors",
+                    "wrap the calls in act_sharding.activated(mesh), or "
+                    "pair install with uninstall in a finally block"))
     return out
 
 

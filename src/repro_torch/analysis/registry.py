@@ -43,6 +43,22 @@ TABLE_K, TABLE_W = 8, 8          # the stand-in tables' k_max, w_max
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh for the sharding rules alone: they read only its axis sizes
+    (``distributed.sharding.axis_sizes``), so coverage needs no devices."""
+    name: str
+    shape: Dict[str, int]
+
+
+# the reference's mesh axis of the registry matrix
+MESHES: Tuple[MeshShape, ...] = (
+    MeshShape("1dev", {"data": 1, "model": 1}),
+    MeshShape("2x2", {"data": 2, "model": 2}),
+    MeshShape("pod3d", {"pod": 2, "data": 2, "model": 2}),
+)
+
+
+@dataclasses.dataclass(frozen=True)
 class Case:
     name: str
     spec: SpecConfig

@@ -27,7 +27,12 @@ per-device constant caches.
     count.  On a CUDA state the step also runs under
     ``torch.cuda.set_sync_debug_mode("error")``.
 
-``sharding-coverage`` waits for the mesh.
+  - ``sharding-coverage`` — every ``DecodeState`` leaf of every case has
+    a rule (``decode_state_pspec(strict=True)`` on the reference's three
+    meshes ``registry.MESHES``) and none degrades to replication (a
+    ``ShardingFallbackWarning``): a leaf added without a
+    ``DECODE_STATE_LEAF_RULES`` entry is a finding, not a silently
+    replicated leaf.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import contextlib
 import dataclasses
 import os
 import sys
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -43,6 +49,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..core import prng
 from ..core.spec_engine import (DecodeState, admit_slot, release_slot,
                                 spec_step)
+from ..distributed import sharding as shd
 from . import registry
 from .findings import Finding
 
@@ -351,9 +358,54 @@ def check_case(built: registry.BuiltCase, step_hook=None,
     return findings
 
 
+def check_sharding_coverage(
+        state: DecodeState, name: str,
+        meshes: Sequence[registry.MeshShape] = registry.MESHES
+) -> List[Finding]:
+    """The ``sharding-coverage`` rule on one case's state: every leaf
+    resolved strictly on each mesh; a leaf with no rule, and a replication
+    fallback, are findings."""
+    findings: List[Finding] = []
+    paged = shd.is_paged_state(state)
+    shd.reset_fallback_warnings()
+    for mesh in meshes:
+        label = f"<case:{name}/mesh:{mesh.name}>"
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for path, leaf in shd.state_leaf_items(state):
+                leaf_name = "/".join(path)
+                try:
+                    shd.decode_state_pspec(mesh, path, leaf, paged=paged,
+                                           strict=True)
+                except KeyError as e:
+                    findings.append(Finding(
+                        rule="sharding-coverage", file=label, line=0,
+                        message=f"DecodeState leaf {leaf_name!r} has no "
+                                f"decode_state_pspec rule: {e.args[0]}",
+                        hint="add the leaf to distributed/sharding.py's "
+                             "DECODE_STATE_LEAF_RULES (and a pspec branch "
+                             "if it needs more than slot-row sharding)",
+                        context=f"sharding::{leaf_name}"))
+        for w in caught:
+            if issubclass(w.category, shd.ShardingFallbackWarning):
+                findings.append(Finding(
+                    rule="sharding-coverage", file=label, line=0,
+                    message="replication fallback during state resolution: "
+                            + str(w.message).splitlines()[0],
+                    hint="registry dims are sized to divide every registry "
+                         "mesh: a fallback here means a new leaf hit the "
+                         "loud resolve_axis chain; probe with warn=False "
+                         "or add a real rule",
+                    context=f"sharding-fallback::{mesh.name}"))
+    shd.reset_fallback_warnings()
+    return findings
+
+
 def run_level1(cases: Optional[Sequence[registry.Case]] = None,
                device="cpu") -> List[Finding]:
     findings: List[Finding] = []
     for c in (cases if cases is not None else registry.CASES):
-        findings += check_case(registry.build_case(c, device=device))
+        built = registry.build_case(c, device=device)
+        findings += check_sharding_coverage(built.state, built.name)
+        findings += check_case(built)
     return findings

@@ -45,29 +45,33 @@ UNIGRAM_CHUNK = 1 << 16        # tokens of the vocabulary read at a time
 
 
 def build_unigram(embedding: torch.Tensor, lm_head: torch.Tensor,
-                  k_max: int = 32, appendix_variant: bool = False
-                  ) -> torch.Tensor:
+                  k_max: int = 32, appendix_variant: bool = False,
+                  device=None) -> torch.Tensor:
     """embedding: (V, d) input embeddings; lm_head: (d, V) output embeds.
 
     Returns the k_max tokens with the smallest d(x) (main-text formula), or
     the appendix's topk(-(mu Cov u_x)) when ``appendix_variant``.  The
     vocabulary is read ``UNIGRAM_CHUNK`` tokens at a time in f32, so that
     no f32 copy of a whole table is made (one of Nemotron-4's
-    256000 x 18432 tables is 18.9 GB in f32).
+    256000 x 18432 tables is 18.9 GB in f32).  ``device``: where the
+    chunks are read into and the ranking computed (default: where the
+    tables lie; tables on the host go to the card a chunk at a time).
     """
+    dev = embedding.device if device is None else device
     V = embedding.shape[0]
     parts = [slice(i, i + UNIGRAM_CHUNK) for i in range(0, V, UNIGRAM_CHUNK)]
-    cov = sum(e.T @ e for e in (embedding[c].float() for c in parts)) / V
-    mu = sum(lm_head[:, c].float().sum(dim=1, keepdim=True)
+    cov = sum(e.T @ e for e in (embedding[c].to(dev).float()
+                                for c in parts)) / V
+    mu = sum(lm_head[:, c].to(dev).float().sum(dim=1, keepdim=True)
              for c in parts) / V                       # (d, 1)
     if appendix_variant:
         w = mu.T @ cov
-        dists = torch.cat([(w @ lm_head[:, c].float()).squeeze(0)
+        dists = torch.cat([(w @ lm_head[:, c].to(dev).float()).squeeze(0)
                            for c in parts])
         return _topk_indices(-dists, k_max).to(torch.int32)
     d2 = []
     for c in parts:
-        diff = lm_head[:, c].float() - mu
+        diff = lm_head[:, c].to(dev).float() - mu
         d2.append(torch.einsum("dv,de,ev->v", diff, cov, diff))
     return _topk_indices(-torch.cat(d2), k_max).to(torch.int32)
 

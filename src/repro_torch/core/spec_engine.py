@@ -63,6 +63,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import local as DL
+from ..distributed import sharding as shd
 from ..kernels import dispatch
 from ..models import cache as C
 from ..models import model as M
@@ -306,6 +308,21 @@ def _sampling_leaves(B: int, device) -> Dict[str, torch.Tensor]:
                 top_p=torch.ones((B,), dtype=torch.float32, device=device))
 
 
+def _local_kv_cfg(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` as this rank's cache shapes read it: under a mesh whose
+    cache splits the kv heads, this rank's share of them (allocation
+    only; the model math reads ``cfg``)."""
+    rows = DL.current()
+    if rows is None:
+        return cfg
+    n = 1
+    for a in DL.live(rows.mesh, rows.cache.kv):
+        n *= shd.axis_sizes(rows.mesh)[a]
+    if n == 1:
+        return cfg
+    return dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads // n)
+
+
 def _paged_model(cfg: ModelConfig, paged: PagedConfig, B: int,
                  buf_size: int, device) -> Tuple[Dict, int]:
     """An empty paged model state whose slots hold ``buf_size`` positions
@@ -384,12 +401,12 @@ def init_decode_state(params, cfg: ModelConfig, spec: SpecConfig,
            else torch.as_tensor(eos_id, dtype=torch.int32,
                                 device=dev).expand(B).clone())
     if paged is not None:
-        model, L = _paged_model(cfg, paged, B, L, dev)
+        model, L = _paged_model(_local_kv_cfg(cfg), paged, B, L, dev)
         C.grow_pages(model, torch.full((B,), P, dtype=torch.int32,
                                        device=dev),
                      torch.ones((B,), dtype=torch.bool, device=dev))
     else:
-        model = M.init_state(cfg, B, L, device=dev)
+        model = M.init_state(_local_kv_cfg(cfg), B, L, device=dev)
     buf = torch.zeros((B, L), dtype=torch.int32, device=dev)
     buf[:, :P] = prompt.to(torch.int32)
     logits_p, model = M.prefill(params, cfg, model, tokens=prompt,
@@ -457,6 +474,23 @@ def admit_slot(params, cfg: ModelConfig, state: DecodeState, slot: int,
     row_model = M.init_state(cfg, 1, P if paged else L, device=dev)
     logits, row_model = M.prefill(params, cfg, row_model, tokens=prompt[None],
                                   last_only=True)
+    first, k_carry = _first_token(logits, temperature, top_p, rng_key)
+    if paged:
+        ps = C.paged_dims(state.model)[1]
+        C.free_slot_pages(state.model, slot)
+        C.alloc_slot_pages(state.model, slot, C.pages_for_len(P, ps))
+        C.insert_slot_paged(state.model, row_model, slot, P)
+    else:
+        C.insert_slot(state.model, row_model, slot)
+    _write_slot(state, slot, prompt, first, max_new_tokens, eos_id,
+                temperature, top_p, k_carry)
+    return state
+
+
+def _first_token(logits: torch.Tensor, temperature: float, top_p: float,
+                 rng_key) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(first token, carried key) of an admission from its prompt's last
+    logits (1, 1, V)."""
     key = (torch.zeros((2,), dtype=torch.int64) if rng_key is None
            else prng.as_key(rng_key))
     k_use, k_carry = prng.split(key)
@@ -465,15 +499,16 @@ def admit_slot(params, cfg: ModelConfig, state: DecodeState, slot: int,
                              [top_p])[0]
     else:
         first = torch.argmax(logits[0, -1], dim=-1).to(torch.int32)
+    return first, k_carry
+
+
+def _write_slot(state: DecodeState, slot: int, prompt: torch.Tensor,
+                first: torch.Tensor, max_new_tokens: int, eos_id: int,
+                temperature: float, top_p: float, k_carry) -> None:
+    """An admission's per-slot rows, IN PLACE (slot: a row of ``state``)."""
+    P = prompt.shape[0]
     C.zero_slot_stats(state.stats, slot)
     state.stats["tokens"][slot] = 1
-    if paged:
-        ps = C.paged_dims(state.model)[1]
-        C.free_slot_pages(state.model, slot)
-        C.alloc_slot_pages(state.model, slot, C.pages_for_len(P, ps))
-        C.insert_slot_paged(state.model, row_model, slot, P)
-    else:
-        C.insert_slot(state.model, row_model, slot)
     state.buf[slot] = 0
     state.buf[slot, :P] = prompt
     state.buf[slot, P] = first
@@ -486,7 +521,6 @@ def admit_slot(params, cfg: ModelConfig, state: DecodeState, slot: int,
     state.rng_key[slot] = k_carry
     state.temperature[slot] = temperature
     state.top_p[slot] = top_p
-    return state
 
 
 def release_slot(state: DecodeState, slot: int) -> DecodeState:
@@ -496,13 +530,17 @@ def release_slot(state: DecodeState, slot: int) -> DecodeState:
     retiring slot's stats before releasing it."""
     if C.is_paged(state.model):
         C.free_slot_pages(state.model, slot)
+    _clear_slot(state, slot)
+    return state
+
+
+def _clear_slot(state: DecodeState, slot: int) -> None:
     C.zero_slot_stats(state.stats, slot)
     state.active[slot] = False
     state.done[slot] = True
     state.rng_key[slot] = 0
     state.temperature[slot] = 0.0
     state.top_p[slot] = 1.0
-    return state
 
 
 # ---------------------------------------------------------------------------
@@ -728,7 +766,7 @@ def generate(params, cfg: ModelConfig, spec: SpecConfig, prompt,
              tables: Optional[NGramTables] = None,
              eos_id: Optional[torch.Tensor] = None,
              paged: Optional[PagedConfig] = None, device="cuda",
-             temperature=None, top_p=None, rng=None
+             temperature=None, top_p=None, rng=None, mesh=None
              ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Generate up to max_new_tokens for every row of ``prompt`` (B, P) on
     ``device`` (where ``params`` and ``tables`` live).  ``eos_id``: optional
@@ -736,19 +774,221 @@ def generate(params, cfg: ModelConfig, spec: SpecConfig, prompt,
     paged KV layout (the same outputs).  ``temperature``/``top_p``/``rng``
     (scalar or per-row; need ``spec.sampling``) run the lossless sampled
     walk, see ``init_decode_state``.  Returns (buf (B, L), buf_len (B,),
-    stats)."""
+    stats).
+
+    ``mesh`` (params DTensors placed by ``distributed.sharding``, inside the
+    caller's ``act_sharding.activated(mesh)``): the rows are split over the
+    mesh's batch axes when they divide them, each rank runs the loop on
+    its own rows (``distributed/local.py``) and the outputs are gathered."""
     dev = resolve_device(device)
     prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt)
                              else prompt).to(device=dev, dtype=torch.int32)
+    if mesh is not None:
+        return _generate_mesh(params, cfg, spec, prompt, tables, eos_id,
+                              paged, temperature, top_p, rng, mesh)
     state = init_decode_state(params, cfg, spec, prompt, eos_id=eos_id,
                               paged=paged, temperature=temperature,
                               top_p=top_p, rng=rng)
-    # the loop's one host read per step: is any row still running?
-    # repro-lint: allow(tensor-branch): generate's stop test, outside the step
-    while bool(((~state.done)
-                & (state.buf_len - state.prompt_len < state.budget)).any()):
+    while _any_running(state):
         state = spec_step(params, cfg, spec, state, tables)
     return state.buf, state.buf_len, state.stats
+
+
+def _any_running(state: DecodeState) -> bool:
+    """The loop's one host read per step: is any row still running (on
+    any rank, under a mesh)?"""
+    run = (~state.done) & (state.buf_len - state.prompt_len < state.budget)
+    if DL.current() is not None:
+        run = DL.gather_rows(run)
+    # repro-lint: allow(tensor-branch): generate's stop test, outside the step
+    return bool(run.any())
+
+
+def _generate_mesh(params, cfg: ModelConfig, spec: SpecConfig,
+                   prompt: torch.Tensor, tables, eos_id, paged, temperature,
+                   top_p, rng, mesh):
+    """``generate`` over a mesh: this rank's rows of every per-row input,
+    a rank-private state (its caches' kv heads by the rule), the global
+    stop test, then every rank's rows gathered."""
+    B = prompt.shape[0]
+    # rows padded to a whole number a rank with copies of row 0 (rows are
+    # independent: a copy changes no other row), dropped at the end
+    Bp = DL.padded(mesh, B)
+    rows = DL.rows_for(mesh, Bp, DL.cache_layout(mesh, cfg))
+    pick = torch.arange(rows.lo, rows.hi, device=prompt.device)
+    pick = torch.where(pick < B, pick, 0)
+
+    def local(v):
+        if v is None:
+            return None
+        t = torch.as_tensor(v, device=prompt.device)
+        return t.expand(B)[pick] if t.dim() == 0 else t[pick]
+    keys = None
+    if rng is not None:
+        keys = per_row_keys(rng, B).to(prompt.device)[pick]
+    with DL.active(rows):
+        state = init_decode_state(params, cfg, spec, prompt[pick],
+                                  eos_id=local(eos_id), paged=paged,
+                                  temperature=local(temperature),
+                                  top_p=local(top_p), rng=keys)
+        while _any_running(state):
+            state = spec_step(params, cfg, spec, state, tables)
+        return (DL.gather_rows(state.buf)[:B],
+                DL.gather_rows(state.buf_len)[:B],
+                {k: DL.gather_rows(v)[:B] for k, v in state.stats.items()})
+
+
+# ---------------------------------------------------------------------------
+# the mesh: step, admit and release over a sharded DecodeState
+# ---------------------------------------------------------------------------
+def map_state(state: DecodeState, fn) -> DecodeState:
+    """A DecodeState with ``fn(path, leaf)`` in every leaf's place (path
+    '/'-joined, as ``sharding.decode_state_pspecs`` names it)."""
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            return {k: walk(f"{prefix}/{k}", x) for k, x in v.items()}
+        return fn(prefix, v)
+    return DecodeState(**{f.name: walk(f.name, getattr(state, f.name))
+                          for f in dataclasses.fields(state)})
+
+
+def shard_state(state: DecodeState, mesh, device=None) -> DecodeState:
+    """A DecodeState that every rank holds whole (on the host, say) as
+    DTensors placed by ``sharding.decode_state_pspecs``: each rank copies
+    its own shards to ``device`` (default: where the state lies)."""
+    specs = shd.decode_state_pspecs(mesh, state)
+    return map_state(state, lambda p, t: DL.distribute(t, mesh, specs[p],
+                                                       device))
+
+
+class ShardedSlotFns(NamedTuple):
+    step: object
+    admit: object
+    release: object
+    placements: Dict[str, tuple]    # every leaf's, by path
+
+
+def make_sharded_slot_fns(cfg: ModelConfig, spec: SpecConfig,
+                          state: DecodeState, mesh) -> ShardedSlotFns:
+    """The counterpart of the reference's ``make_sharded_slot_fns``: the
+    step, admit and release of a DecodeState of DTensors (``shard_state``)
+    with every leaf's placements pinned.
+
+    Each runs its row work on this rank's local rows (views of the
+    DTensors' storage, so every leaf keeps its storage) and its model math
+    on DTensors (``distributed/local.py``); admission prefills the prompt
+    on every rank and only the slot's owner writes the slot's rows, the
+    paged pool's writes landing on the shards that hold their pages.
+    After every call the leaves hold the placements that
+    ``decode_state_pspec`` gives them: the same DTensors, written in
+    place."""
+    specs = shd.decode_state_pspecs(mesh, state)
+    placements = {p: shd.to_placements(mesh, sp) for p, sp in specs.items()}
+    paged = C.is_paged(state.model)
+    kpath = next(p for p in specs
+                 if p.startswith("model/groups/") and p.endswith("/k"))
+    gid = kpath.split("/")[2]
+    layout = DL.cache_layout(mesh, cfg, specs[kpath],
+                            tuple(state.model["groups"][gid]["k"].shape),
+                            paged=paged)
+    rows = DL.rows_for(mesh, state.buf.shape[0], layout)
+    # an admission prefills its prompt as one local row on every rank
+    scratch = DL.rows_for(mesh, DL.padded(mesh, 1),
+                          DL.CacheLayout(kv=layout.kv))
+
+    def local_view(st: DecodeState) -> DecodeState:
+        loc = map_state(st, lambda p, t: t.to_local())
+        if rows.axes:           # the replicated cur_len, this rank's rows
+            loc.model["cur_len"] = loc.model["cur_len"][rows.lo:rows.hi]
+        return loc
+
+    def sync_cur_len(st: DecodeState) -> None:
+        if rows.axes:
+            full = st.model["cur_len"].to_local()
+            full.copy_(DL.gather_rows(full[rows.lo:rows.hi].clone(), rows))
+
+    def step(params, st: DecodeState, tables=None) -> DecodeState:
+        with DL.active(rows):
+            spec_step(params, cfg, spec, local_view(st), tables)
+        sync_cur_len(st)
+        return st
+
+    def slot_pages(model: Dict, slot: int):
+        """(page-table row, page count) of ``slot``, from the rank that
+        holds it."""
+        pt, npg = model["page_table"], model["n_pages"]
+        if not rows.axes:
+            return pt[slot], npg[slot]
+        vec = torch.zeros((1, pt.shape[1] + 1), dtype=torch.int32,
+                          device=pt.device)
+        if rows.owns(slot):
+            vec[0, :-1] = pt[slot - rows.lo]
+            vec[0, -1] = npg[slot - rows.lo]
+        got = DL.gather_rows(vec, rows)[slot // rows.n]
+        return got[:-1], got[-1]
+
+    def free_pages(model: Dict, slot: int) -> None:
+        row, n = slot_pages(model, slot)
+        C.push_row(model["free_list"], model["free_top"], row, n)
+        if rows.owns(slot):
+            model["page_table"][slot - rows.lo] = -1
+            model["n_pages"][slot - rows.lo] = 0
+
+    def admit(params, st: DecodeState, slot: int, prompt: torch.Tensor,
+              max_new_tokens: int, eos_id: int, temperature: float = 0.0,
+              top_p: float = 1.0, rng_key=None) -> DecodeState:
+        loc = local_view(st)
+        dev = loc.buf.device
+        prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int32)
+        P, Lb = prompt.shape[0], loc.buf.shape[1]
+        with DL.active(scratch):
+            row_model = M.init_state(_local_kv_cfg(cfg), 1,
+                                     P if paged else Lb, device=dev)
+            logits, row_model = M.prefill(params, cfg, row_model,
+                                          tokens=prompt[None],
+                                          last_only=True)
+        first, k_carry = _first_token(logits, temperature, top_p, rng_key)
+        st.model["cur_len"].to_local()[slot] = P
+        own, sl = rows.owns(slot), slot - rows.lo
+        if paged:
+            model = loc.model
+            free_pages(model, slot)
+            ps = next(iter(C.attn_groups(model).values()))["k"].shape[2]
+            row, n = C.alloc_row(model["free_list"], model["free_top"],
+                                 torch.full_like(model["page_table"][0], -1),
+                                 0, C.pages_for_len(P, ps))
+            if own:
+                model["page_table"][sl] = row
+                model["n_pages"][sl] = n
+            # every rank writes the pages of its pool shard (the row is
+            # the same on every rank: nothing to gather)
+            with DL.active(DL.Rows(mesh, 1, (), 0, 1, layout)):
+                phys = C.phys_slots(row[None], torch.arange(
+                    P, device=dev)[None], ps, layout.pool_pages - 1)
+                for g_id, g in C.attn_groups(model).items():
+                    r = row_model["groups"][g_id]
+                    C.paged_kv_write(g["k"], g["v"], r["k"][:, :, :P],
+                                     r["v"][:, :, :P], phys)
+        elif own:
+            for g_id, g in loc.model["groups"].items():
+                for name, leaf in g.items():
+                    row = row_model["groups"][g_id][name][:, 0]
+                    lo, hi = DL.shard_range(mesh, row.shape[1], layout.seq)
+                    leaf[:, sl] = row[:, lo:hi]
+        if own:
+            _write_slot(loc, sl, prompt, first,
+                        max_new_tokens, eos_id, temperature, top_p, k_carry)
+        return st
+
+    def release(st: DecodeState, slot: int) -> DecodeState:
+        loc = local_view(st)
+        if paged:
+            free_pages(loc.model, slot)
+        if rows.owns(slot):
+            _clear_slot(loc, slot - rows.lo)
+        return st
+
+    return ShardedSlotFns(step, admit, release, placements)
 
 
 def greedy_reference(params, cfg: ModelConfig, prompt, max_new_tokens: int,

@@ -4,6 +4,10 @@ The choice follows the tensor: an operand on the CPU takes the kernel's
 plain PyTorch version, an operand on a CUDA device takes the CUDA kernel,
 and anything else raises.  There is no backend knob and no fallback: a CUDA
 tensor the kernel refuses raises from the kernel's wrapper.
+
+Under a mesh (``distributed/local.py``) the model hands every kernel this
+rank's local tensors, so the choice follows them there too: a meshed step
+on the card launches the same kernels as an unmeshed one.
 """
 from __future__ import annotations
 

@@ -22,6 +22,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed import act_sharding
+from ..distributed import local as L
 from ..kernels import dispatch
 from ..kernels.ref import gather_pages
 from ..kernels.spec_attention import TreeMask
@@ -179,17 +181,38 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def qkv_project(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 freqs: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, T, _ = x.shape
+    """(q, k, v) of a (B, T, d) block, split into heads and rotated.  Under
+    a mesh (``x`` a DTensor, ``distributed/local.py``) the projections run
+    on DTensors and come back as this rank's rows and kv heads (q's heads
+    follow their kv heads: G q heads a kv head, contiguous) before the
+    split and RoPE, which then run locally (``freqs`` local rows)."""
     hd = cfg.resolved_head_dim
     cd = cfg.compute_dtype
     x = x.to(cd)
-    q = (x @ params["wq"].to(cd)).reshape(B, T, cfg.num_heads, hd)
-    k = (x @ params["wk"].to(cd)).reshape(B, T, cfg.num_kv_heads, hd)
-    v = (x @ params["wv"].to(cd)).reshape(B, T, cfg.num_kv_heads, hd)
+    q, k, v = (x @ params[w].to(cd) for w in ("wq", "wk", "wv"))
+    rows = L.current()
+    if rows is not None:
+        kv = {2: rows.cache.kv}
+        q, k, v = (L.lower(t, 0, kv) for t in (q, k, v))
+    q, k, v = (t.reshape(t.shape[0], t.shape[1], -1, hd) for t in (q, k, v))
     if cfg.rope != "none":
         q = apply_rope(q, freqs, cfg)
         k = apply_rope(k, freqs, cfg)
     return q, k, v
+
+
+def out_project(params: Params, out: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """The output projection of an attention output (N, T, H, hd); under
+    a mesh, this rank's rows and kv heads are lifted to the global rows'
+    DTensor first."""
+    cd = cfg.compute_dtype
+    N, T = out.shape[:2]
+    o = out.reshape(N, T, -1).to(cd)
+    rows = L.current()
+    if rows is not None:
+        o = L.lift(o, 0, {2: rows.cache.kv})
+    return o @ params["wo"].to(cd)
 
 
 def attn_full(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -200,15 +223,15 @@ def attn_full(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     positions: (B, T), or (3, B, T) for M-RoPE.  seq_mask: (B, T) bool for
     padding.  Returns output and the (k, v) tensors for cache insertion.
+    Under a mesh (``x`` a DTensor, ``distributed/local.py``) the positions
+    and the returned k, v are this rank's local rows.
     """
     freqs = rope_freqs(cfg, positions) if cfg.rope != "none" else None
     q, k, v = qkv_project(params, x, cfg, freqs)
     pos2d = positions[0] if positions.dim() == 3 else positions
     k_pos = pos2d if seq_mask is None else torch.where(seq_mask, pos2d, -1)
     out = masked_attention(q, k, v, pos2d, k_pos, cfg, causal=cfg.causal)
-    B, T = out.shape[:2]
-    y = out.reshape(B, T, -1) @ params["wo"].to(cfg.compute_dtype)
-    return y, (k, v)
+    return out_project(params, out, cfg), (k, v)
 
 
 def _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail, cache_pos,
@@ -233,7 +256,8 @@ def _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail, cache_pos,
     kc, vc = k_cache.float(), v_cache.float()
     scale = 1.0 / (hd ** 0.5)
     # context logits: shared cache read once per sequence
-    lc = torch.einsum("bkwnGh,bsnh->bknGws", qg, kc) * scale
+    lc = act_sharding.constrain(
+        torch.einsum("bkwnGh,bsnh->bknGws", qg, kc) * scale, "ctx_logits")
     if cfg.attn_logit_softcap:
         lc = cfg.attn_logit_softcap * torch.tanh(lc / cfg.attn_logit_softcap)
     valid_c = (cache_pos >= 0)[:, None, None, None, None, :]
@@ -257,6 +281,7 @@ def _verify_attention_xla(q, k_cache, v_cache, k_tail, v_tail, cache_pos,
     denom = e_c.sum(dim=-1) + e_l.sum(dim=-1)
     out = (torch.einsum("bknGws,bsnh->bkwnGh", e_c, vc)
            + torch.einsum("bknGwv,bkvnh->bkwnGh", e_l, vn))
+    out = act_sharding.constrain(out, "ctx_out")
     out = out / torch.movedim(denom, -1, 2)[..., None]
     return out.reshape(B, K, W1, H, hd)
 
@@ -308,20 +333,25 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
     rides as the single row k == 1; ``core/tree.device_constants``):
     K4 on the card, the plain verify with its bool mask on the CPU.
     Returns (y (B,k,w1,d), k_new, v_new (B,k,w1,KV,hd)).
+
+    Under a mesh (``x`` a DTensor) the positions, caches, cur_len and
+    returned tails are this rank's local rows and kv heads; the cache shard
+    a rank lacks is gathered for the read (a linear cache's sequence, a
+    paged pool's pages), and the verify takes the same route on the local
+    tensors.
     """
     B, K, W1, d = x.shape
     hd = cfg.resolved_head_dim
-    cd = cfg.compute_dtype
-    KV = cfg.num_kv_heads
     freqs = rope_freqs(cfg, positions) if cfg.rope != "none" else None
     fr = None if freqs is None else freqs.repeat_interleave(K, dim=0)
     q, k_new, v_new = qkv_project(params, x.reshape(B * K, W1, d), cfg, fr)
-    qk = q.reshape(B, K, W1, cfg.num_heads, hd)
-    kn = k_new.reshape(B, K, W1, KV, hd)
-    vn = v_new.reshape(B, K, W1, KV, hd)
+    n = q.shape[0] // K             # this rank's rows under a mesh, else B
+    qk, kn, vn = (t.reshape(n, K, W1, -1, hd) for t in (q, k_new, v_new))
     pos2d = positions[0] if positions.dim() == 3 else positions
+    if L.current() is not None:
+        k_cache, v_cache = _whole_cache(k_cache, v_cache, page_table)
     kernel = dispatch.verify_kernel_supported(cfg)
-    if kernel and dispatch.on_card(x):
+    if kernel and dispatch.on_card(qk):
         if page_table is not None:
             out = dispatch.verify_attention_paged(qk, k_cache, v_cache,
                                                   page_table, kn, vn,
@@ -337,6 +367,18 @@ def attn_verify(params: Params, x: torch.Tensor, cfg: ModelConfig,
         verify = _verify_attention_xla if kernel else plain_verify
         out = verify(qk, k_cache, v_cache, kn, vn, cache_pos, pos2d, cfg,
                      tail_mask=None if tail_mask is None else tail_mask.mask)
-    out = out.reshape(B, K, W1, cfg.num_heads * hd).to(cd)
-    y = out @ params["wo"].to(cd)
-    return y, kn, vn
+    y = out_project(params, out.reshape(n * K, W1, -1, hd), cfg)
+    return y.reshape(B, K, W1, d), kn, vn
+
+
+def _whole_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 page_table: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Under a mesh, this rank's cache shards with what the read lacks
+    gathered: a paged pool's pages (a slot's pages may sit on any shard),
+    a linear cache's sequence; a no-op over axes of size 1."""
+    c = L.current().cache
+    if page_table is not None:
+        return (L.gather(k_cache, 0, c.pages, size=c.pool_pages),
+                L.gather(v_cache, 0, c.pages, size=c.pool_pages))
+    return L.gather(k_cache, 1, c.seq), L.gather(v_cache, 1, c.seq)

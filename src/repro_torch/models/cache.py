@@ -45,6 +45,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..distributed import local as L
 # select_step_state (the gated replay's commit of a recurrent state) lives
 # beside K5's plain version, whose n_commit selection it defines
 from ..kernels.ref import gather_pages, select_step_state  # noqa: F401
@@ -197,9 +198,14 @@ def is_paged(state: Dict) -> bool:
 
 def paged_dims(state: Dict) -> Tuple[int, int, int]:
     """(num_pages, page_size, pages_per_slot) of a paged state; num_pages
-    counts the real pages, not the trash page."""
+    counts the real pages, not the trash page (the whole pool's under a
+    mesh that shards its pages)."""
     pool = next(iter(attn_groups(state).values()))["k"]
-    return pool.shape[1] - 1, pool.shape[2], state["page_table"].shape[1]
+    n_pg = pool.shape[1]
+    rows = L.current()
+    if rows is not None and rows.cache.pool_pages:
+        n_pg = rows.cache.pool_pages
+    return n_pg - 1, pool.shape[2], state["page_table"].shape[1]
 
 
 def init_paged_state(cfg: ModelConfig, batch: int, num_pages: int,
@@ -272,7 +278,15 @@ def paged_kv_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
     (B, T) bool, write where True.  Distinct slots own distinct pages, so
     real writes never collide; gated-off and unallocated writes land on the
     trash page.  Returns the pools.
+
+    Under a mesh whose pool is shared by the ranks' rows
+    (``distributed/local.py``), every rank applies every row's writes that
+    fall in its own page shard.
     """
+    rows = L.current()
+    if rows is not None and rows.cache.shared_pool:
+        _paged_kv_write_mesh(rows, k_pool, v_pool, k_new, v_new, phys, gate)
+        return k_pool, v_pool
     lead = k_pool.shape[:-4]
     slots = k_pool.shape[-4] * k_pool.shape[-3]
     trash = (k_pool.shape[-4] - 1) * k_pool.shape[-3]
@@ -291,22 +305,68 @@ def paged_kv_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
     return k_pool, v_pool
 
 
+def _paged_kv_write_mesh(rows, k_pool, v_pool, k_new, v_new, phys, gate
+                         ) -> None:
+    """``paged_kv_write`` into this rank's shard of a shared pool: the
+    writes of every rank's rows are gathered (a slot's pages may sit on any
+    shard) and each lands where its page is local."""
+    if gate is not None:
+        phys = torch.where(gate, phys, -1)
+    phys = L.gather_rows(phys, rows)
+    nd = k_new.dim()
+    k_new, v_new = (L.gather(t, nd - 4, rows.axes, rows.mesh)
+                    for t in (k_new, v_new))
+    n_pg, ps = k_pool.shape[-4], k_pool.shape[-3]
+    lo, _ = L.shard_range(rows.mesh, rows.cache.pool_pages,
+                          rows.cache.pages)
+    loc = phys - lo * ps
+    ok = (phys >= 0) & (loc >= 0) & (loc < n_pg * ps)
+    n_lead = k_pool.numel() // (n_pg * ps * k_pool.shape[-2]
+                                * k_pool.shape[-1])
+    idx = (loc.clamp(min=0).reshape(1, -1)
+           + (torch.arange(n_lead, device=phys.device) * n_pg * ps)[:, None])
+    ok = ok.reshape(1, -1).expand(n_lead, -1).reshape(-1)
+    tail = k_pool.shape[-2:]
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        L.owned_write(pool.view((n_lead * n_pg * ps,) + tail),
+                      idx.reshape(-1), new.reshape((-1,) + tail), ok)
+
+
+def alloc_row(free_list: torch.Tensor, free_top: torch.Tensor,
+              row: torch.Tensor, cur, n_new
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pop ``n_new`` pages off the free stack after a page-table ``row``'s
+    ``cur`` allocated pages: returns (the new row, its page count) and
+    lowers ``free_top`` IN PLACE."""
+    PPS, N = row.shape[0], free_list.shape[0] - 1
+    j = torch.arange(PPS, device=row.device) - cur   # j-th newly-added page
+    take = (j >= 0) & (j < n_new)
+    src = free_top - 1 - j
+    grant = take & (src >= 0) & (src < N)
+    new = torch.where(grant, free_list[src.clamp(0, N - 1)], row)
+    free_top.copy_((free_top - n_new).clamp(min=0))
+    return new, cur + grant.sum().to(torch.int32)
+
+
+def push_row(free_list: torch.Tensor, free_top: torch.Tensor,
+             row: torch.Tensor, n) -> None:
+    """Push a page-table ``row``'s first ``n`` pages back onto the free
+    stack, IN PLACE."""
+    PPS, N = row.shape[0], free_list.shape[0] - 1
+    idx = torch.arange(PPS, device=row.device)
+    dst = torch.where(idx < n, free_top + idx, N).clamp(max=N).long()
+    free_list.index_put_((dst,), row)                # N: the trash entry
+    free_top.add_(n)
+
+
 def alloc_slot_pages(state: Dict, slot: int, n_new) -> Dict:
     """Pop ``n_new`` pages off the free stack into ``slot``'s page table
     (after its allocated pages), IN PLACE and without a host sync.  The
     caller guarantees n_new <= free_top (the serving engine's reservation
     admission does)."""
     pt, npg = state["page_table"], state["n_pages"]
-    fl, ft = state["free_list"], state["free_top"]
-    PPS, N = pt.shape[1], fl.shape[0] - 1
-    cur = npg[slot]
-    j = torch.arange(PPS, device=pt.device) - cur    # j-th newly-added page
-    take = (j >= 0) & (j < n_new)
-    src = ft - 1 - j
-    grant = take & (src >= 0) & (src < N)
-    pt[slot] = torch.where(grant, fl[src.clamp(0, N - 1)], pt[slot])
-    npg[slot] = cur + grant.sum().to(torch.int32)
-    ft.copy_((ft - n_new).clamp(min=0))
+    pt[slot], npg[slot] = alloc_row(state["free_list"], state["free_top"],
+                                    pt[slot], npg[slot], n_new)
     return state
 
 
@@ -314,13 +374,7 @@ def free_slot_pages(state: Dict, slot: int) -> Dict:
     """Push every page of ``slot`` back onto the free stack and clear its
     table, IN PLACE.  Idempotent: a slot with n_pages == 0 is a no-op."""
     pt, npg = state["page_table"], state["n_pages"]
-    fl, ft = state["free_list"], state["free_top"]
-    PPS, N = pt.shape[1], fl.shape[0] - 1
-    n = npg[slot]
-    idx = torch.arange(PPS, device=pt.device)
-    dst = torch.where(idx < n, ft + idx, N).clamp(max=N).long()
-    fl.index_put_((dst,), pt[slot])                  # N: the trash entry
-    ft.add_(n)
+    push_row(state["free_list"], state["free_top"], pt[slot], npg[slot])
     pt[slot] = -1
     npg[slot] = 0
     return state
@@ -340,14 +394,22 @@ def grow_pages(state: Dict, required_len: torch.Tensor,
     ps = paged_dims(state)[1]
     need = (pages_for_len(required_len, ps) - npg).clamp(min=0)
     need = torch.where(active, need, 0).to(torch.int32)
-    offs = torch.cumsum(need, 0) - need              # exclusive prefix (B,)
+    rows = L.current()
+    if rows is not None and rows.cache.shared_pool and rows.axes:
+        # a pool shared by every rank's rows: allocate in global row order
+        need_all = L.gather_rows(need, rows)
+        offs = (torch.cumsum(need_all, 0) - need_all)[rows.lo:rows.hi]
+        total = need_all.sum()
+    else:
+        offs = torch.cumsum(need, 0) - need          # exclusive prefix (B,)
+        total = need.sum()
     j = torch.arange(PPS, device=pt.device)[None, :] - npg[:, None]
     take = (j >= 0) & (j < need[:, None])
     src = ft - 1 - (offs[:, None] + j)
     grant = take & (src >= 0)
     pt.copy_(torch.where(grant, fl[src.clamp(0, N - 1)], pt))
     npg.add_(grant.sum(dim=1).to(torch.int32))
-    ft.copy_((ft - need.sum()).clamp(min=0))
+    ft.copy_((ft - total).clamp(min=0))
     return state
 
 
@@ -381,7 +443,7 @@ def check_page_invariants(state: Dict) -> Dict:
     """
     N = state["free_list"].shape[0] - 1
     # repro-lint: allow(tensor-branch): a host-side audit, outside the step
-    pt, npg, fl, ft = (state[k].cpu().numpy() for k in (
+    pt, npg, fl, ft = (L.whole(state[k]).cpu().numpy() for k in (
         "page_table", "n_pages", "free_list", "free_top"))
     fl, ft = fl[:N], int(ft)
     allocated = []
@@ -446,6 +508,10 @@ def kv_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
     """
     N, T = slots.shape
     S = k_cache.shape[1]
+    rows = L.current()
+    if rows is not None and rows.cache.seq:
+        _kv_write_seq_mesh(rows, k_cache, v_cache, k_new, v_new, slots, gate)
+        return k_cache, v_cache
     keep = (slots >= 0) & (slots < S)
     if gate is not None:
         keep = keep & gate
@@ -457,6 +523,26 @@ def kv_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
         cache.index_put_((n_idx, idx),
                          torch.where(m, new.to(cache.dtype), old))
     return k_cache, v_cache
+
+
+def _kv_write_seq_mesh(rows, k_cache, v_cache, k_new, v_new, slots, gate
+                       ) -> None:
+    """``kv_write`` into this rank's sequence shard of a linear cache
+    whose sequence is sharded over the mesh (``state_pspec``'s fallback
+    when the kv heads do not divide the model axis)."""
+    N, S_loc = k_cache.shape[:2]
+    n_sh = L.ways(rows.mesh, rows.cache.seq)
+    lo, _ = L.shard_range(rows.mesh, S_loc * n_sh, rows.cache.seq)
+    loc = slots - lo
+    ok = (slots >= 0) & (slots < S_loc * n_sh) & (loc >= 0) & (loc < S_loc)
+    if gate is not None:
+        ok = ok & gate
+    idx = (torch.arange(N, device=slots.device)[:, None] * S_loc
+           + loc.clamp(0, S_loc - 1))
+    tail = k_cache.shape[2:]
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        L.owned_write(cache.view((N * S_loc,) + tail), idx.reshape(-1),
+                      new.reshape((-1,) + tail), ok.reshape(-1))
 
 
 def prefill_write(cfg: ModelConfig, k_cache, v_cache, k_new, v_new,

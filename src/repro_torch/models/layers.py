@@ -12,6 +12,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed import local as L
 from .config import GEGLU, GELU, RELU2, SWIGLU, ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -89,7 +90,12 @@ def apply_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig,
 # ----------------------------------------------------------------------------
 def embed_tokens(params: Params, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    x = params["embedding"][tokens.long()].to(cfg.compute_dtype)
+    """The token embeddings; under a mesh (``tokens`` this rank's rows),
+    the DTensor of every rank's rows, the table left in its shards."""
+    if L.current() is not None:
+        x = L.embed_rows(params["embedding"], tokens).to(cfg.compute_dtype)
+    else:
+        x = params["embedding"][tokens.long()].to(cfg.compute_dtype)
     if cfg.scale_embed:  # Gemma
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype)
     return x
@@ -97,9 +103,13 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
 
 def lm_logits(params: Params, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits; on a DTensor ``x`` of rows, the DTensor of the rows with
+    the vocabulary whole, the head left in its shards."""
     cd = cfg.compute_dtype
     if cfg.tie_embeddings:
         w = params["embedding"].to(cd).T
     else:
         w = params["lm_head"].to(cd)
+    if L.current() is not None:
+        return L.matmul_rows(x.to(cd), w).float()
     return (x.to(cd) @ w).float()

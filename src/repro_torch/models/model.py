@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..distributed import local as L
 from .cache import (attn_groups, init_state, is_paged, key_positions,
                     kv_write, paged_dims, paged_kv_write, phys_slots,
                     write_slots)
@@ -68,11 +69,15 @@ def make_positions(cfg: ModelConfig, B: int, T: int,
 
 def _cache_len(state: State) -> int:
     """Logical cache capacity per row (pages_per_slot * page_size when
-    paged)."""
+    paged; the whole sequence under a mesh that shards it)."""
     if is_paged(state):
         _, ps, pps = paged_dims(state)
         return pps * ps
-    return next(iter(attn_groups(state).values()))["k"].shape[2]
+    S = next(iter(attn_groups(state).values()))["k"].shape[2]
+    rows = L.current()
+    if rows is not None and rows.cache.seq:
+        S *= L.ways(rows.mesh, rows.cache.seq)
+    return S
 
 
 def _paged_ctx(state: State, pos: torch.Tensor) -> Dict[str, Any]:
@@ -92,6 +97,13 @@ def _embed(params: Params, cfg: ModelConfig, tokens, embeds
     return embed_tokens(params["embed"], tokens, cfg)
 
 
+def _logits(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
+    """The head's logits, as this rank's local rows under a mesh (the
+    step's row work reads them whole over the vocabulary)."""
+    logits = lm_logits(params["embed"], x, cfg)
+    return logits if L.current() is None else L.lower(logits)
+
+
 def forward_hidden(params: Params, cfg: ModelConfig, tokens=None,
                    embeds=None, positions=None, remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,7 +112,8 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens=None,
     MoE layers' mean router load-balance loss (0 for a stack without MoE
     layers).  ``remat`` checkpoints each block for backward (training)."""
     x = _embed(params, cfg, tokens, embeds)
-    B, T = x.shape[:2]
+    # under a mesh x holds every rank's rows, the positions this rank's
+    B, T = (x if tokens is None else tokens).shape[:2]
     if positions is None:
         positions = make_positions(cfg, B, T, device=x.device)
     x, _, aux = run_stack(params, cfg, x, "full", None,
@@ -113,7 +126,7 @@ def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
     """Full forward (scoring) from ``tokens`` or ``embeds``.  Returns
     (logits f32, aux)."""
     x, aux = forward_hidden(params, cfg, tokens, embeds, positions)
-    return lm_logits(params["embed"], x, cfg), aux
+    return _logits(params, cfg, x), aux
 
 
 def prefill(params: Params, cfg: ModelConfig, state: State,
@@ -123,20 +136,20 @@ def prefill(params: Params, cfg: ModelConfig, state: State,
     place.  ``state`` must be freshly allocated (cur_len == 0).
     ``last_only`` computes logits for the final position only."""
     x = embed_tokens(params["embed"], tokens, cfg)
-    B, T = x.shape[:2]
+    B, T = tokens.shape[:2]
     if positions is None:
-        positions = make_positions(cfg, B, T, device=x.device)
+        positions = make_positions(cfg, B, T, device=tokens.device)
     ctx: Dict[str, Any] = {"positions": positions}
     if is_paged(state):
         # positions 0..T-1 of every row, through its page table (the pages
         # must be allocated already)
-        ctx.update(_paged_ctx(state, _linear_positions(B, T,
-                                                       device=x.device)))
+        ctx.update(_paged_ctx(state, _linear_positions(
+            B, T, device=tokens.device)))
     x, _, _ = run_stack(params, cfg, x, "prefill", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     if last_only:
         x = x[:, -1:]
-    logits = lm_logits(params["embed"], x, cfg)
+    logits = _logits(params, cfg, x)
     state["cur_len"].add_(T)
     return logits, state
 
@@ -172,7 +185,7 @@ def decode(params: Params, cfg: ModelConfig, state: State,
     x = embed_tokens(params["embed"], tokens, cfg)
     x, _, _ = run_stack(params, cfg, x, mode, state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
-    logits = lm_logits(params["embed"], x, cfg)
+    logits = _logits(params, cfg, x)
     cur.add_(T if n_commit is None else n_commit.to(cur.dtype))
     return logits, state
 
@@ -211,7 +224,7 @@ def verify(params: Params, cfg: ModelConfig, state: State,
     x = embed_tokens(params["embed"], tokens.reshape(B * K, W1), cfg)
     x, kv_tails, _ = run_stack(params, cfg, x, "verify", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
-    logits = lm_logits(params["embed"], x, cfg)
+    logits = _logits(params, cfg, x)
     return logits.reshape(B, K, W1, -1), kv_tails
 
 

@@ -35,6 +35,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import local as L
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -94,16 +95,20 @@ def _router(params: Params, x2d: torch.Tensor, cfg: ModelConfig):
     return topk_idx, topk_w, aux
 
 
-def moe_dense(params: Params, x: torch.Tensor, cfg: ModelConfig):
-    """Oracle: all experts on all tokens.  x: (B, T, d)."""
+def moe_dense(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              e_lo: int = 0):
+    """Oracle: all experts on all tokens.  x: (B, T, d).  ``params``' expert
+    stacks may hold experts e_lo .. e_lo + E_l - 1 alone (a mesh's expert
+    shard): the result is then their part of the combine."""
     cd = cfg.compute_dtype
     B, T, d = x.shape
     x2d = x.reshape(-1, d).to(cd)
     idx, w, aux = _router(params, x2d, cfg)
-    E = cfg.num_experts
+    E, E_l = cfg.num_experts, params["w_gate"].shape[0]
     outs = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"],
-                       x2d.expand((E,) + x2d.shape), cd)     # (E, N, d)
-    onehot = F.one_hot(idx, E).to(cd) * w.to(cd)[..., None]
+                       x2d.expand((E_l,) + x2d.shape), cd)   # (E_l, N, d)
+    onehot = F.one_hot(idx, E)[..., e_lo:e_lo + E_l].to(cd) \
+        * w.to(cd)[..., None]
     comb = torch.einsum("nke,end->nd", onehot, outs)
     return comb.reshape(B, T, d), aux
 
@@ -115,8 +120,13 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(int(n_tokens * K / E * cfg.capacity_factor), K)
 
 
-def moe_scatter(params: Params, x: torch.Tensor, cfg: ModelConfig):
-    """Sort-based capacity dispatch.  x: (B, T, d)."""
+def moe_scatter(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                e_lo: int = 0):
+    """Sort-based capacity dispatch.  x: (B, T, d).  Routing and capacity
+    ranks always cover all E experts and every token of the call; the
+    expert stacks may hold experts e_lo .. e_lo + E_l - 1 alone (a mesh's
+    expert shard), whose slots alone are then computed: their part of the
+    combine."""
     cd = cfg.compute_dtype
     B, T, d = x.shape
     N = B * T
@@ -138,13 +148,16 @@ def moe_scatter(params: Params, x: torch.Tensor, cfg: ModelConfig):
     keep = ranks < C
     if _counter is not None:
         _counter.add((~keep).sum())
+    E_l = params["w_gate"].shape[0]
+    if E_l != E:
+        keep = keep & (flat_e >= e_lo) & (flat_e < e_lo + E_l)
     # pack the kept slots into (E, C, d); row E*C takes every dropped slot
-    dst = torch.where(keep, flat_e * C + ranks, E * C)
-    buf = torch.zeros((E * C + 1, d), dtype=cd, device=x.device)
+    dst = torch.where(keep, (flat_e - e_lo) * C + ranks, E_l * C)
+    buf = torch.zeros((E_l * C + 1, d), dtype=cd, device=x.device)
     buf = buf.index_put((dst,), x2d.repeat_interleave(K, dim=0))
     out = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"],
-                      buf[:E * C].view(E, C, d), cd).reshape(E * C, d)
-    got = out[dst.clamp(max=E * C - 1)]                      # (N*K, d)
+                      buf[:E_l * C].view(E_l, C, d), cd).reshape(E_l * C, d)
+    got = out[dst.clamp(max=E_l * C - 1)]                    # (N*K, d)
     got = torch.where(keep[:, None], got, 0) * w.reshape(-1, 1).to(cd)
     got = got.view(N, K, d)
     comb = got[:, 0]
@@ -193,11 +206,46 @@ def count_drops() -> Iterator[DropCounts]:
         _counter = outer
 
 
+def _routed_mesh(params: Params, x, cfg: ModelConfig):
+    """The routed experts on a DTensor ``x`` (B, T, d): every rank routes
+    all the call's tokens (the capacity ranks are over all N of them, so
+    the tokens are gathered, an explicit redistribute), computes its
+    "model" shard's experts (or, when E does not divide the axis, its ffn
+    columns of every expert) and the partial combines are summed over
+    "model"."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = L.current().mesh
+    rep = [Replicate()] * mesh.ndim
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+
+    def model_shard(w):
+        pl = list(rep)
+        if mi is not None:
+            pl[mi] = w.placements[mi]
+        return w.redistribute(mesh, pl).to_local()
+
+    local = {"router": params["router"].redistribute(mesh, rep).to_local()}
+    for n in ("w_gate", "w_up", "w_down"):
+        local[n] = model_shard(params[n])
+    e_lo = 0
+    if mi is not None and params["w_gate"].placements[mi] == Shard(0):
+        e_lo = L.coord(mesh, "model") * local["w_gate"].shape[0]
+    impl = moe_dense if cfg.moe_impl == "dense" else moe_scatter
+    y, aux = impl(local, x.redistribute(mesh, rep).to_local(), cfg, e_lo)
+    y = DTensor.from_local(L.reduce_model(y, mesh), mesh, rep,
+                           run_check=False)
+    return y.redistribute(mesh, L.current().placements(y.dim())), aux
+
+
 def apply_moe(params: Params, x: torch.Tensor, cfg: ModelConfig):
     """Returns (y, aux_loss).  Adds the shared experts (DeepSeek) when the
     config has them."""
-    impl = moe_dense if cfg.moe_impl == "dense" else moe_scatter
-    y, aux = impl(params, x, cfg)
+    if L.current() is not None:
+        y, aux = _routed_mesh(params, x, cfg)
+    else:
+        impl = moe_dense if cfg.moe_impl == "dense" else moe_scatter
+        y, aux = impl(params, x, cfg)
     if cfg.num_shared_experts:
         cd = cfg.compute_dtype
         xs = x.to(cd)

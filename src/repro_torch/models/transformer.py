@@ -33,6 +33,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed import act_sharding
+from ..distributed import local as L
 from .attention import attn_full, attn_verify
 from .cache import group_ids, kv_write, paged_kv_write, prefill_write
 from . import moe as moe_lib
@@ -275,6 +277,8 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
     MoE aux loss (MoE FFN) or None)."""
     h = apply_norm(bp["norm1"], x, cfg)
     tails = aux = None
+    if L.current() is not None:
+        h = L.to_rows(h)
     if spec.mixer == ATTN:
         y, tails = _attn_mixer(bp["mixer"], h, cfg, mode, gst, ctx)
     else:
@@ -282,6 +286,8 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
     x = x + y.to(x.dtype)
     if spec.mlp != NO_MLP:
         h2 = apply_norm(bp["norm2"], x, cfg)
+        if L.current() is not None:
+            h2 = L.to_rows(h2)
         if spec.mlp == MOE:
             y2, aux = moe_lib.apply_moe(bp["mlp"], h2, cfg)
         else:
@@ -333,10 +339,13 @@ def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _layers(cfg)
     views = {gid: _unbind(params[gid]) for gid in {g for g, _, _ in layers}}
+    meshed = L.current() is not None
     for gid, spec, r in layers:
         gst = (None if state is None
                else _index(state["groups"][gid], r))
         bp = _index(views[gid], r)
+        if meshed:
+            bp = L.model_only(bp)
         if remat:
             # bp and spec bound now: backward calls the block again after
             # the loop has moved on
@@ -346,6 +355,8 @@ def run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
             t = None
         else:
             x, t, a = _apply_block(bp, x, cfg, spec, mode, gst, ctx)
+        if meshed:
+            x = act_sharding.constrain(x, "residual")
         if a is not None:
             aux = aux + a
         if t is not None:

@@ -1,5 +1,5 @@
 """Serving engine: ties the scheduler to the speculative generator (port of
-``repro/serving/engine.py``, less its mesh branch).
+``repro/serving/engine.py``).
 
 One ``ServingEngine`` owns (params, cfg, tables) and serves batched requests
 with either plain greedy decoding or the paper's batched speculation —
@@ -32,9 +32,21 @@ step, beside greedy ones (``SpecConfig.sampling``, ``core/verify.py``).
 A request's key is ``prng_key(seed)`` when it pins a seed, else
 ``fold_in(prng_key(engine seed), request_id)``: the reference's keys, so
 the reference's engine serves the same tokens for the same request.
+
+``mesh=`` (a ``DeviceMesh`` with the reference's axis names,
+``launch/mesh.py``) serves over a mesh: the parameters are DTensors placed
+by ``distributed.sharding.params_shardings``, the continuous DecodeState by
+``decode_state_shardings``, a static batch's rows by ``batch_sharding``,
+the draft tables replicated; the activation sharder is active only inside
+the engine's own calls (``_act``).  Temperature-0 rows serve the same
+tokens as the engine without a mesh; sampled rows are reproducible per
+mesh configuration (sharded reductions perturb logits at the ~1e-6
+level, which argmax absorbs and a gumbel draw at its boundary may not).
+``mesh_report()`` says how the state and parameters were placed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -48,13 +60,26 @@ from ..core.controller import DEFAULT_ARMS, AdaptiveKW
 from ..core.ngram_tables import NGramTables, build_bigram, build_unigram
 from ..core.spec_engine import (DecodeState, PagedConfig, SpecConfig,
                                 admit_slot, empty_decode_state, generate,
-                                release_slot, spec_step)
+                                make_sharded_slot_fns, release_slot,
+                                shard_state, spec_step)
 from ..data.tokenizer import ByteTokenizer
 from ..device import resolve_device
+from ..distributed import act_sharding
+from ..distributed import local as DL
+from ..distributed import sharding as shd
 from ..models import cache as Cache
 from ..models import model as M
 from ..models.config import ModelConfig
 from .scheduler import DEFAULT_BUCKETS, Batch, Request, Scheduler, SlotMap
+
+
+def mesh_unsupported(cfg: ModelConfig) -> str:
+    """Why ``cfg`` cannot be served over a mesh ('' when it can): the mesh
+    serves attention stacks with dense or MoE FFNs."""
+    if M.has_recurrent(cfg):
+        return (f"{cfg.name}: recurrent mixers have no mesh path yet; serve "
+                f"it without a mesh")
+    return ""
 
 
 class ServingEngine:
@@ -71,7 +96,8 @@ class ServingEngine:
                  page_size: int = 0,
                  sampling: Optional[bool] = None,
                  seed: int = 0,
-                 device="cuda"):
+                 device="cuda",
+                 mesh=None):
         """``params`` live on ``device`` (default the CUDA card; pass
         ``device="cpu"`` for the plain path).  A drafting ``spec`` without
         ``tables`` builds them with one sweep over the vocabulary.
@@ -97,8 +123,20 @@ class ServingEngine:
         then rejected at admission rather than served greedy.  Static
         batches resolve it per batch.  ``seed`` is the engine's base key:
         a request's key is fold_in(seed key, request_id) unless the request
-        pins its own ``seed``; both replay."""
+        pins its own ``seed``; both replay.
+
+        ``mesh``: serve over a ``DeviceMesh`` (module docstring).  The
+        ``params`` may then lie anywhere, the host say: each rank copies
+        only its own shard of each to ``device``, so that no card holds the
+        whole model.  Attention stacks with dense or MoE FFNs; the kernels
+        take the same route as without a mesh, on each rank's local
+        tensors."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            why = mesh_unsupported(cfg)
+            if why:
+                raise NotImplementedError(why)
         self.params = params
         self.cfg = cfg
         self.spec = (spec or SpecConfig(strategy="greedy")).validate()
@@ -131,35 +169,86 @@ class ServingEngine:
                 f"(sliding_window=None, >=1 attn layer); run linear instead")
         self._paged_cfg = (PagedConfig(num_pages or 0, page_size)
                            if paged else None)
+        if mesh is not None:
+            # each rank's shards alone reach its device
+            self.params = shd.rebuild(params, lambda p, t: DL.distribute(
+                t, mesh, shd.param_pspec(mesh, p, t), self.device))
         if (self.spec.strategy != "greedy" or adaptive) and tables is None:
             arm_k = max((a[0] for a in self._arms or ()), default=0)
             arm_w = max((a[1] for a in self._arms or ()), default=0)
-            tables = self.build_tables(k_max=max(self.spec.k, 25, arm_k),
-                                       w_max=max(self.spec.w, 16, arm_w))
+            # under a mesh: the sweep through the sharded model, the
+            # unigrams from the caller's whole embeddings, a chunk at a time
+            tables = self.build_tables(
+                k_max=max(self.spec.k, 25, arm_k),
+                w_max=max(self.spec.w, 16, arm_w),
+                embed=None if mesh is None else params["embed"])
+        # under a mesh the tables, small integer lookups, are replicated:
+        # every rank holds them whole
         self.tables = tables
+        self._fns = None
         # the spec the continuous path runs (sampling resolved, and the arm
         # table baked in under adaptive, when the state is built)
         self._cont_spec: SpecConfig = self.spec
         self._cont_state: Optional[DecodeState] = None
         self._slots: Optional[SlotMap] = None
 
+    def _act(self):
+        """Scoped activation sharder: the engine's mesh is active only
+        inside its own calls and always uninstalled on exit, so that a
+        meshed engine never constrains OTHER callers' tensors."""
+        return (act_sharding.activated(self.mesh) if self.mesh is not None
+                else contextlib.nullcontext())
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def build_tables(self, k_max: int = 16, w_max: int = 16,
-                     batch: int = 256) -> NGramTables:
+                     batch: int = 256, embed=None) -> NGramTables:
         """One-off model sweep over the vocabulary (the bigram tables) plus
-        the unigram ranking from the embeddings."""
-        topk, chain = build_bigram(
-            lambda t: M.forward(self.params, self.cfg, tokens=t)[0][:, -1],
-            self.cfg.vocab_size, k_max=k_max, w_max=w_max, batch=batch,
-            device=self.device)
-        emb = self.params["embed"]["embedding"]
-        uni = build_unigram(emb, self.params["embed"].get("lm_head", emb.T),
-                            k_max=k_max)
+        the unigram ranking from the embeddings.  Under a mesh each rank
+        sweeps its rows of every batch through the sharded model, and the
+        unigrams come from ``embed`` (whole embedding parameters anywhere,
+        read a chunk at a time on the engine's device), else from the
+        engine's own tables gathered whole."""
+        if self.mesh is None:
+            topk, chain = build_bigram(
+                lambda t: M.forward(self.params, self.cfg,
+                                    tokens=t)[0][:, -1],
+                self.cfg.vocab_size, k_max=k_max, w_max=w_max, batch=batch,
+                device=self.device)
+            emb = self.params["embed"]["embedding"]
+            uni = build_unigram(emb, self.params["embed"].get("lm_head",
+                                                              emb.T),
+                                k_max=k_max)
+            return NGramTables(unigram_topk=uni, bigram_topk=topk,
+                               bigram_chain=chain)
+        topk, chain = build_bigram(self._meshed_next_logits,
+                                   self.cfg.vocab_size, k_max=k_max,
+                                   w_max=w_max, batch=batch,
+                                   device=self.device)
+        if embed is None:
+            embed = {k: DL.whole(t) for k, t in self.params["embed"].items()}
+        emb = embed["embedding"]
+        uni = build_unigram(emb, embed.get("lm_head", emb.T), k_max=k_max,
+                            device=self.device)
         return NGramTables(unigram_topk=uni, bigram_topk=topk,
                            bigram_chain=chain)
+
+    def _meshed_next_logits(self, toks: torch.Tensor) -> torch.Tensor:
+        """(B, 1) tokens -> (B, V) next-token logits through the sharded
+        model: each rank runs its rows of the batch (padded to a whole
+        number a rank with copies of the last row) and the rows are
+        gathered."""
+        B = toks.shape[0]
+        rows = DL.rows_for(self.mesh, DL.padded(self.mesh, B),
+                           DL.cache_layout(self.mesh, self.cfg))
+        pick = torch.arange(rows.lo, rows.hi,
+                            device=toks.device).clamp(max=B - 1)
+        with self._act(), DL.active(rows):
+            logits = M.forward(self.params, self.cfg,
+                               tokens=toks[pick])[0][:, -1]
+            return DL.gather_rows(logits)[:B]
 
     def submit(self, prompt: str, max_new_tokens: int = 64,
                eos_id: int = -1, temperature: float = 0.0,
@@ -227,9 +316,11 @@ class ServingEngine:
                     self.device))
         self._sync()
         t0 = time.perf_counter()
-        buf, blen, stats = generate(self.params, self.cfg, spec, tokens,
-                                    self.tables, eos_id=eos,
-                                    device=self.device, **sample_kw)
+        with self._act():
+            buf, blen, stats = generate(self.params, self.cfg, spec, tokens,
+                                        self.tables, eos_id=eos,
+                                        device=self.device, mesh=self.mesh,
+                                        **sample_kw)
         self._sync()
         dt = time.perf_counter() - t0
         P = batch.tokens.shape[1]
@@ -296,9 +387,28 @@ class ServingEngine:
         self._cont_prompt_cap = prompt_cap
         # w is the step's: the arm table's maximum under adaptive
         buf_size = prompt_cap + self.max_new_cap + self._cont_spec.w + 2
+        # under a mesh the slots are a whole number a rank; a slot past
+        # max_batch is never assigned
+        n_slots, paged_cfg = self.max_batch, self._paged_cfg
+        if self.mesh is not None:
+            n_slots = DL.padded(self.mesh, self.max_batch)
+            if paged_cfg is not None and not paged_cfg.num_pages:
+                # the default pool stays max_batch slots' worst case
+                ps = paged_cfg.resolve_page_size(self.cfg)
+                paged_cfg = dataclasses.replace(
+                    paged_cfg, num_pages=self.max_batch * -(-buf_size // ps))
         self._cont_state = empty_decode_state(
-            self.cfg, self._cont_spec, self.max_batch, buf_size,
-            paged=self._paged_cfg, device=self.device)
+            self.cfg, self._cont_spec, n_slots, buf_size,
+            paged=paged_cfg,
+            device=self.device if self.mesh is None else "cpu")
+        if self.mesh is not None:
+            # place the state (built on the host: each rank's shards alone
+            # reach its device), then the step, admit and release with
+            # every leaf's placements pinned
+            self._cont_state = shard_state(self._cont_state, self.mesh,
+                                           self.device)
+            self._fns = make_sharded_slot_fns(self.cfg, self._cont_spec,
+                                              self._cont_state, self.mesh)
         self._slots = SlotMap(self.max_batch)
         # host-side total of the retired requests' arm pulls (adaptive)
         self._arm_pulls_total = (np.zeros(len(self._arms), np.int64)
@@ -321,17 +431,26 @@ class ServingEngine:
         return len(self._slots) if self._slots is not None else 0
 
     def _run_step(self, state: DecodeState) -> DecodeState:
+        if self._fns is not None:
+            with self._act():
+                return self._fns.step(self.params, state, self.tables)
         return spec_step(self.params, self.cfg, self._cont_spec, state,
                          self.tables)
 
     def _run_admit(self, state: DecodeState, slot: int, toks, mnt: int,
                    eos: int, req: Request) -> DecodeState:
-        return admit_slot(self.params, self.cfg, state, slot,
-                          torch.from_numpy(np.asarray(toks)), mnt, eos,
-                          temperature=req.temperature, top_p=req.top_p,
-                          rng_key=self._req_key(req))
+        args = (state, slot, torch.from_numpy(np.asarray(toks)), mnt, eos)
+        kw = dict(temperature=req.temperature, top_p=req.top_p,
+                  rng_key=self._req_key(req))
+        if self._fns is not None:
+            with self._act():
+                return self._fns.admit(self.params, *args, **kw)
+        return admit_slot(self.params, self.cfg, *args, **kw)
 
     def _run_release(self, state: DecodeState, slot: int) -> DecodeState:
+        if self._fns is not None:
+            with self._act():
+                return self._fns.release(state, slot)
         return release_slot(state, slot)
 
     def _retire_finished(self) -> List[Request]:
@@ -339,20 +458,22 @@ class ServingEngine:
         # the one structural host read per step: slot reuse is a host
         # decision, so the done flags come back every step
         # repro-lint: allow(host-sync): slot reuse is decided on the host
-        done = state.done.cpu().numpy()
+        done = DL.whole(state.done).cpu().numpy()
         if not done[[s for s, _ in self._slots.occupied()]].any():
             return []
         if self.paged:
             # pool peak: occupancy only falls at release, so sampling here
             # (before this round's frees) sees every high-water mark
             # repro-lint: allow(host-sync): retiring rounds only, after the done read
-            in_use = self._pool_pages - int(state.model["free_top"])
+            in_use = self._pool_pages - int(
+                DL.whole(state.model["free_top"]).cpu())
             self._pool_peak = max(self._pool_peak, in_use)
         # one device->host transfer per array, only on retiring rounds:
         # the retired rows' outputs and stats, before release zeroes them
         # repro-lint: allow(host-sync): retiring rounds only, after the done read
         blen, plen, buf, calls_np, tokens_np, accept_hist_np, arm_pulls_np = (
-            t.cpu().numpy() if t is not None else None for t in (
+            DL.whole(t).cpu().numpy() if t is not None else None
+            for t in (
                 state.buf_len, state.prompt_len, state.buf,
                 state.stats["calls"], state.stats["tokens"],
                 state.stats["accept_hist"],
@@ -520,7 +641,7 @@ class ServingEngine:
         queue head could not reserve pages), not distinct requests."""
         if not self.paged or self._cont_state is None:
             return {}
-        free = int(self._cont_state.model["free_top"])
+        free = int(DL.whole(self._cont_state.model["free_top"]))
         self._pool_peak = max(self._pool_peak, self._pool_pages - free)
         return {"num_pages": self._pool_pages,
                 "page_size": self._page_size,
@@ -537,10 +658,56 @@ class ServingEngine:
         if self._arms is None or self._cont_state is None:
             return {}
         # repro-lint: allow(host-sync): telemetry, read outside the serving loop
-        in_flight = self._cont_state.stats["arm_pulls"].cpu().numpy()
+        in_flight = DL.whole(
+            self._cont_state.stats["arm_pulls"]).cpu().numpy()
         return {"arms": [list(a) for a in self._arms],
                 "pulls_retired": self._arm_pulls_total.tolist(),
                 "pulls_in_flight": in_flight.sum(axis=0).tolist()}
+
+    def mesh_report(self) -> Dict:
+        """How THIS engine placed its serving state ({} without a mesh):
+        the mesh shape, per-leaf DecodeState specs, the parameters'
+        sharding coverage and bytes (whole and on this rank), every
+        (logical axis, dim) that degraded to replication in this engine's
+        own resolution, and the attention caches' bytes, whole and on this
+        rank."""
+        if self.mesh is None:
+            return {}
+        leaves = [t for _, t in shd.walk(self.params)]
+        p_sharded = sum(1 for t in leaves
+                        if any(pl.is_shard() for pl in t.placements))
+        # re-resolve THIS engine's specs under a scoped recorder: only the
+        # fallbacks of its own params and state, not the process history
+        with shd.recording_fallbacks() as fallbacks:
+            shd.params_pspecs(self.mesh, self.params)
+            specs = (shd.decode_state_pspecs(self.mesh, self._cont_state)
+                     if self._cont_state is not None else None)
+        p_bytes = {"global": sum(t.numel() * t.element_size()
+                                 for t in leaves),
+                   "local": sum(t.to_local().numel() * t.element_size()
+                                for t in leaves)}
+        rep = {"mesh": shd.axis_sizes(self.mesh),
+               # the kernels' route: the tensors', as without a mesh
+               "backend": "cuda" if self.device.type == "cuda" else "plain",
+               "tables": "replicated",
+               "params_leaves": len(leaves),
+               "params_sharded": p_sharded,
+               "params_bytes": p_bytes,
+               "replication_fallbacks": [list(kv)
+                                         for kv in sorted(fallbacks)]}
+        if specs is not None:
+            txt = shd.spec_summary(specs)
+            rep["state_specs"] = txt
+            rep["state_sharded"] = sum(
+                1 for v in txt.values()
+                if any(f"'{ax}'" in v for ax in rep["mesh"]))
+            kv = [t for p, t in shd.state_leaf_items(self._cont_state)
+                  if p[0] == "model" and p[-1] in ("k", "v")]
+            rep["kv_bytes"] = {
+                "global": sum(t.numel() * t.element_size() for t in kv),
+                "local": sum(t.to_local().numel() * t.element_size()
+                             for t in kv)}
+        return rep
 
     def serve_continuous(self) -> List[Request]:
         """Drain the queue with continuous batching; blocks until idle."""

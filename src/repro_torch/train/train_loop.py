@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..distributed import act_sharding
 from ..models.layers import lm_logits
 from .optimizer import AdamWConfig, adamw_update, init_opt_state, tree_map
 
@@ -29,7 +30,8 @@ CHUNKED_LOSS_MIN_T = 2048
 def _nll_sum(embed, cfg: ModelConfig, hidden, labels) -> torch.Tensor:
     """Summed next-token NLL of ``labels`` under the logits of ``hidden``,
     log-softmax in float32."""
-    logp = torch.log_softmax(lm_logits(embed, hidden, cfg).float(), dim=-1)
+    logits = act_sharding.constrain(lm_logits(embed, hidden, cfg), "logits")
+    logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels[..., None].long())[..., 0].sum()
 
 

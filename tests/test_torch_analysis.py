@@ -267,6 +267,28 @@ def test_baseline_split_and_covers(tmp_path):
 # ---------------------------------------------------------------------------
 # runtime rules on planted states and ops
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("src", [
+    "from ..distributed import act_sharding\n"
+    "act_sharding.install(object())\n",
+    "from ..distributed import act_sharding\n"
+    "def start(mesh):\n    act_sharding.install(mesh)\n",
+], ids=["module-level", "unpaired"])
+def test_global_state_fires_on_a_mesh_install(src):
+    """The mesh half of ``global-state``: an install at import, and an
+    install with no uninstall/activated pairing in its module."""
+    got = _ast("serving/rogue.py", src)
+    assert [f.rule for f in got] == ["global-state"] * (
+        2 if "\nact_sharding.install" in src else 1)
+    paired = src + ("def stop():\n    act_sharding.uninstall()\n")
+    assert [f.rule for f in _ast("serving/rogue.py", paired)] == (
+        ["global-state"] if "\nact_sharding.install" in src else [])
+    scoped = ("from ..distributed import act_sharding\n"
+              "def serve(mesh):\n"
+              "    with act_sharding.activated(mesh):\n"
+              "        pass\n")
+    assert _ast("serving/ok.py", scoped) == []
+
+
 @pytest.fixture(scope="module")
 def linear_mixed():
     return registry.build_case(registry.case("linear-mixed"))
@@ -343,6 +365,35 @@ def test_host_sync_is_quiet_on_device_side_ops():
         torch.zeros(8, dtype=torch.int64).index_add_(0, x, torch.ones_like(x))
         torch.sort(x, stable=True)
     assert watch.hits == []
+
+
+def test_sharding_coverage_fires_on_a_leaf_without_a_rule(linear_mixed):
+    s = linear_mixed.state
+    assert rr.check_sharding_coverage(s, "t") == []
+    planted = dataclasses.replace(s, stats={**s.stats,
+                                            "mystery": s.stats["calls"]})
+    planted = dataclasses.replace(planted, model={**s.model,
+                                                  "mystery": s.buf_len})
+    got = rr.check_sharding_coverage(planted, "t")
+    assert {f.rule for f in got} == {"sharding-coverage"}
+    # a stats row matches its head's rule; a model-cache leaf its own name
+    assert {f.context for f in got} == {"sharding::model/mystery"}
+    assert len(got) == len(registry.MESHES)
+
+
+def test_sharding_coverage_fires_on_a_replication_fallback(linear_mixed):
+    """A Mamba state whose inner dim divides no model axis falls back to
+    replication on the loud end of its chain."""
+    s = linear_mixed.state
+    B = s.buf.shape[0]
+    planted = dataclasses.replace(s, model={
+        **s.model, "groups": {**s.model["groups"],
+                              "p1": {"ssm": torch.zeros((1, B, 3, 4))}}})
+    got = rr.check_sharding_coverage(planted, "t")
+    assert got and {f.rule for f in got} == {"sharding-coverage"}
+    assert all("replication fallback" in f.message for f in got)
+    assert {f.context for f in got} == {"sharding-fallback::2x2",
+                                        "sharding-fallback::pod3d"}
 
 
 # ---------------------------------------------------------------------------

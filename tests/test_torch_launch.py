@@ -6,6 +6,7 @@ continuously over a paged cache, with outputs equal to
 """
 import contextlib
 import io
+import re
 
 import numpy as np
 import pytest
@@ -103,9 +104,52 @@ def test_serve_cli_equals_engine_and_greedy(trained, mode):
         assert r.stats["new_tokens"] == MAX_NEW
 
 
-def test_serve_cli_refuses_the_mesh():
-    with pytest.raises(SystemExit, match="not ported"):
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_serve_cli_refuses_the_mesh(monkeypatch):
+    """A mesh larger than the process group, and a mesh of cards on a host
+    without them, exit with a clear message."""
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
+        serve.main(["--arch", ARCH, "--mesh", "2x2"])
+    with pytest.raises(SystemExit, match="DxM"):
+        serve.main(["--arch", ARCH, "--mesh", "2by2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="recurrent"):
+        serve.main(["--arch", "jamba-1.5-large-398b", "--mesh", "1x1",
+                    "--device", "cpu"])
+    # under a launcher's one-rank group (torchrun's environment)
+    for k, v in dict(WORLD_SIZE="1", RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(_free_port())).items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit, match="needs 4 ranks but the process "
+                                         "group has 1"):
         serve.main(["--arch", ARCH, "--mesh", "2x2", "--device", "cpu"])
+    assert not torch.distributed.is_initialized()
+
+
+def test_serve_cli_mesh_prints_the_same_texts(trained):
+    """``--mesh 2x2 --device cpu``: this process as rank 0 of four gloo
+    ranks (three spawned) prints what the call without ``--mesh`` prints,
+    then the mesh line."""
+    argv = ["--arch", ARCH, "--ckpt", trained[0], "--device", "cpu",
+            "--n-prompts", str(N_PROMPTS), "--max-new", str(MAX_NEW),
+            "--continuous"]
+    plain, out = _run(serve.main, argv)
+    meshed, out_m = _run(serve.main, argv + ["--mesh", "2x2"])
+    # request ids count on across the process's engines: compare the rest
+    drop_id = lambda text: [re.sub(r"^\[req \d+\] ", "", ln)
+                            for ln in text.splitlines()]
+    lines = drop_id(out_m)
+    assert lines[:-1] == drop_id(out)
+    assert lines[-1].startswith("mesh: {'data': 2, 'model': 2} params "
+                                "sharded ")
+    for a, b in zip(plain, meshed):
+        np.testing.assert_array_equal(a.output_ids, b.output_ids)
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_refusals_and_help(capsys):
