@@ -31,7 +31,8 @@ Phases (any failure raises and the script exits non-zero):
                SENTINEL-hashed continuation, buf_len < q+1, fewer than k
                representatives, a bigram fill past the non-duplicates),
                timed at the three real-text shapes beside its bound;
-  3. serve   — StableLM-2-1.6B at full width, bf16, seeded random weights:
+  3. serve   — StableLM-2-1.6B at full width, cut to MAIN_DEPTH (2) of its
+               24 layers, bf16, seeded random weights:
                a mixed-strategy ServingEngine builds its n-gram tables and
                serves 8 requests statically (serve_all); the kernels' launch
                counts show the path went through them, K2 once a step;
@@ -56,9 +57,10 @@ Phases (any failure raises and the script exits non-zero):
                every tree verify.  6b profiles a tree and a linear (12, 5)
                step.  In f32 (TF32 off) the tree's static, continuous
                linear and continuous paged outputs equal greedy_reference.
-  7. hybrid  — Jamba-1.5-Large cut to one period without experts
-               (``no_experts``: 7 Mamba + 1 attention layer at full width,
-               dense SwiGLU FFNs, 9.0 B parameters), bf16, seeded weights,
+  7. hybrid  — Jamba-1.5-Large cut to offsets 1-4 of its period without
+               experts (HYB_SERVE: 3 Mamba + 1 attention layer at full
+               width, dense SwiGLU FFNs, 4.9 B parameters), bf16, seeded
+               weights,
                after StableLM is freed: 7a serves phase 3's 8 requests
                statically, mixed and greedy (K5, K1 and K2 launch), then
                with requests 0-3 sampled, twice: the replay is bit-equal
@@ -113,7 +115,7 @@ Phases (any failure raises and the script exits non-zero):
  10. archs  — the registry's other attention-only architectures, after
                phase 7, one model at a time (seeded, bf16, full width,
                cut by depth: Mistral-7B to 4 layers, Gemma-2B to 4,
-               GLM-4-9B to 5, Nemotron-4 to 2, Qwen2-VL to 2, StableLM's
+               GLM-4-9B to 5, Nemotron-4 to 1, Qwen2-VL to 2, StableLM's
                long-context variant to 4), each freed
                after, with its peak memory: 10a Mistral-7B (its 4096-token
                window keeps it outside K1's contract: every verify layer
@@ -123,7 +125,7 @@ Phases (any failure raises and the script exits non-zero):
                beside K1's and SDPA's at its verify shape; 10b two
                ~4,200-byte prompts and 64 new tokens wrap its 4096-slot
                ring in prefill and under speculation, then in f32 at
-               depth 2 the outputs are greedy decoding
+               depth 1 the outputs are greedy decoding
                (``check_lossless``'s tie rule); 10c-10e Gemma-2B,
                GLM-4-9B, Nemotron-4 and Qwen2-VL (M-RoPE) serve phase 3's
                requests statically (K1 steps x layers times), Gemma and
@@ -148,7 +150,7 @@ Phases (any failure raises and the script exits non-zero):
                10, ``mixed_batches(8, 128, 120, seed=0)``, remat), its loss
                curve, the first 5 losses held against the same steps on
                the CPU (TRAIN_CPU_TOL), and K1-K5 0 launches while it
-               trains; 11b: StableLM-2-1.6B at full width cut to 6 of
+               trains; 11b: StableLM-2-1.6B at full width cut to 3 of
                its 24 layers (bf16 params, f32 moments), its seeded
                weights served first (11c's yardstick), then 200 steps on
                the same mixture: ms a step,
@@ -168,24 +170,40 @@ Phases (any failure raises and the script exits non-zero):
                smoke config, 20 steps, ``--save``) and
                ``launch.serve --ckpt --continuous --paged`` as
                subprocesses, both exit 0, every request served, K3
-               launches; 11e: a train step of the hybrid on the card
-               raises K5's backward guard (only that error is caught).
+               launches; 11e: the hybrid trains on the card: K5's
+               backward (``csrc/mamba_scan_bwd.cu``) against its plain
+               version at the training shape (8 x 128, d_inner 16384,
+               d_state 16; bf16 and f32 u, a ragged T, odd shapes; f32
+               relative K5_BWD_TOL on every gradient, a second run
+               bit-equal), timed beside its bound; then
+               ``no_experts(with_experts(config(), 2, 3), 1)`` (Mamba and
+               attention with SwiGLU FFNs at full width, 2.853 B, bf16
+               params and f32 moments, the state donated) trains
+               HYB_TRAIN_STEPS steps of the mixture with remat: ms a step,
+               peak memory, the loss falling, K5 twice and its backward
+               once a Mamba layer a step and no other kernel (asserted);
+               then in f32 (TF32 off), on 1 x 32 tokens of 2 batches with
+               the card's AdamW step between, the loss, grad norm and
+               every Mamba parameter's gradient equal the CPU's on the
+               same weights (TRAIN_CPU_TOL, relative).
  12. moe    — after phase 11: the MoE FFN and the xLSTM mixers, one model
                at a time (seeded, full width, each freed after), phase 3's
                8 requests statically mixed (10, 10) and greedy, with the
                token-slots ``moe_scatter`` drops at the default capacity
                (mean and max a MoE-layer call) and the peak memory: 12a
-               DeepSeek-MoE-16B at full depth (K1 steps x 28), the first 8
+               DeepSeek-MoE-16B at 7 of its 28 layers (K1 steps x 7),
+               the first 8
                requests of phase 5's mix continuously paged (K3), a mixed
                step profiled (the MoE FFN's device ms); 12b Mixtral-8x7B
                cut to 4 of 32 layers with all 8 experts (the window's
                plain verify steps x 8, K1 never), continuous linear; 12c
                Jamba with experts (``with_experts(config(), 5)``: 4 Mamba
                layers, 2 of them with 16-expert MoE FFNs, 1 attention; K5
-               4 x (1 + 2 x steps), K1 2 x steps); 12d xLSTM-125M at full
-               size, continuous linear, a mixed step profiled (the mLSTM
+               4 x (1 + 2 x steps), K1 2 x steps); 12d xLSTM-125M at 4 of
+               its 12 layers (12e's too), continuous linear, a mixed step
+               profiled (the mLSTM
                and sLSTM loops' device ms; K1/K3/K5 never).  12e in f32
-               (TF32 off): DeepSeek and Mixtral at 2 layers on 8 x 64,
+               (TF32 off): DeepSeek at 2 layers and Mixtral at 1 on 8 x 64,
                at the default capacity against ``greedy_reference`` (rows
                equal, first differences, drops: printed, not asserted,
                the reference's capacity fault) and at capacity E / K (no
@@ -215,7 +233,7 @@ Phases (any failure raises and the script exits non-zero):
  14. mesh    — after phase 13: ``ServingEngine(mesh=)`` on a (1, 1)
                NCCL mesh (a one-rank process group in this process, torn
                down at the phase's end; one card cannot hold two NCCL
-               ranks).  14a: StableLM-2-1.6B at full width and depth,
+               ranks).  14a: phase 3's StableLM-2-1.6B (MAIN_DEPTH),
                bf16, seeded weights, serves phase 5's first 8 requests
                continuously, paged mixed, beside the same engine without
                a mesh: tokens/s, tokens/call, wall ms a step and peak
@@ -226,6 +244,20 @@ Phases (any failure raises and the script exits non-zero):
                at 2 layers in f32 (TF32 off), 4 of the requests, greedy
                and mixed, linear and paged: the meshed tokens equal the
                unmeshed engine's and greedy_reference's.
+ 15. mesh, recurrent — in phase 14's group: 15a Jamba cut to one period
+               (7 Mamba + 1 attention layer at full width, no experts,
+               9.0 B, bf16; phase 7's until its cut) serves phase
+               5's first 8 requests continuously mixed, linear and paged,
+               without and with the (1, 1) mesh (the meshed engine from
+               host parameters): tokens/s, wall and busy ms a step, device
+               ops, the card's bytes after placement against the shards';
+               under the mesh the kernels launch as without it (K5 once a
+               Mamba layer an admission and twice a step, K1/K3 twice a
+               step, K2 once, no plain_verify; asserted) and the bf16
+               tokens are equal; 15b in f32 the 2-layer hybrid of 11e and
+               xLSTM-125M at one period (4 layers; sLSTM's r at fan-in
+               dh), greedy and mixed: meshed == unmeshed ==
+               greedy_reference.
 Phase 2c holds K4 (the tree's ancestor tail in K1 and K3) against its plain
 version over six shapes, K4 over the pool == K4 over the gathered view bit
 for bit, and times it at the tree cell's shape.  Phase 2d holds K5 (the
@@ -239,11 +271,13 @@ these kernels beside another checkout's.
 The last two lines of stdout are the card's name and power limit and
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
 JSON record: each kernel's ``launches`` on its main path's run (phases 3, 5,
-6 and 7a), under ``launches_adaptive`` its launches on each adaptive
-run (9a, 9b, 9c's f32 tree runs, 7e), under ``launches_archs`` on each
-bf16 run of phases 10 and 12, under ``launches_trained`` on each
-serving run of phase 11c and under ``launches_contract`` in each of 13a's
-checked steps and each of 13b's examples, each counted from zero.
+6 and 7a; K5's backward: 11e's training run), under ``launches_adaptive``
+its launches on each adaptive run (9a, 9b, 9c's f32 tree runs, 7e), under
+``launches_archs`` on each bf16 run of phases 10 and 12, under
+``launches_trained`` on each serving run of phase 11c, under
+``launches_contract`` in each of 13a's checked steps and each of 13b's
+examples and under ``launches_mesh`` in 14a's meshed run (K5: 15a's
+meshed paged run), each counted from zero.
 """
 from __future__ import annotations
 
@@ -282,6 +316,11 @@ K1_SPLIT_ERR = 2.5e-3
 K1_EXCESS_ERR = 3e-5
 
 SERVE_K, SERVE_W, SERVE_NEW, SERVE_BUCKET = 10, 10, 64, 256
+# StableLM-2-1.6B on the main path (phases 3-9, 14a) at full width, cut by
+# depth to hold the script's time: 2 of its 24 layers (24 until phase 15
+# joined the script); its steps are host-bound, so their time falls with
+# the layers
+MAIN_DEPTH = 2
 LOSSLESS_REQUESTS, LOSSLESS_NEW = 4, 32
 # phase 5: continuous batching over the paged pool
 CONT_N, CONT_SLOTS, CONT_BUCKETS = 24, 8, (64, 256)
@@ -291,8 +330,11 @@ CONT_LONG_EVERY, CONT_LOSSLESS = 5, 8
 TREE_WDB = (4, 5, 2)             # width, depth, branch: 68 nodes + root
 TREE_LINEAR = (12, 5)            # the linear arm of matched cost: 72 inputs
 TREE_N, TREE_BUCKET, TREE_NEW, TREE_SLOTS = 12, 128, 48, 4
-# phase 7: the hybrid (Jamba, one period, no experts)
-HYB_PERIODS = 1
+# phase 7: the hybrid, Jamba cut to offsets 1-4 of its period without
+# experts, no_experts(with_experts(config(), 4, 1), 1): 3 Mamba layers and
+# the attention layer at full width (the whole period of 8 until phase 15
+# joined the script); 15a keeps the whole period (HYB_PERIODS)
+HYB_SERVE, HYB_PERIODS = (4, 1), 1
 # phase 8: sampled serving; the distribution check's setup and limits are
 # the reference's test_spec_sampling_matches_plain_distribution
 SAMPLE_T, SAMPLE_P, SAMPLE_SEED = 0.8, 0.95, 1000
@@ -308,10 +350,37 @@ TRAIN_CHECK_STEPS = 5            # 11a's first steps, run again on the CPU
 # the two run the same ops with other reduction orders, ~1e-6 per step
 TRAIN_CPU_TOL = 1e-4
 LM_TRAIN_STEPS = 200             # 11b: StableLM-2-1.6B at full width,
-LM_TRAIN_DEPTH = 6               # cut to 6 of its 24 layers (12 before
-#                                  phase 14 joined the script)
+LM_TRAIN_DEPTH = 3               # cut to 3 of its 24 layers (12 before
+#                                  phase 14, 6 before phase 15 joined)
 CLI_TRAIN_STEPS = 20             # 11d
+# 11e: the hybrid trains on the card: with_experts(config(), 2, 3) made
+# dense (Mamba/SwiGLU + attention/SwiGLU at full width, 2.853 B)
+HYB_TRAIN, HYB_TRAIN_STEPS = (2, 3), 30
+# its f32 steps held against the CPU's, on 1 x 32 of each batch's tokens
+# (the CPU's time: a full 8 x 128 step of 2.853 B f32 takes it minutes)
+HYB_CHECK_STEPS, HYB_CHECK_ROWS, HYB_CHECK_T = 2, 1, 32
+K5_BWD_TOL = 1e-4                # f32 relative, every gradient of K5's
 ADAPTIVE_F32_DEPTH = 2           # 9c: StableLM's f32 checks, of 24 layers
+
+
+def main_config():
+    """StableLM-2-1.6B, the main path's model: full width, MAIN_DEPTH of
+    its 24 layers, bf16."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("stablelm-1.6b"),
+                               num_layers=MAIN_DEPTH)
+
+
+def hybrid_config(periods: int = 0):
+    """Phase 7's hybrid (see HYB_SERVE), or with ``periods`` that many
+    whole periods of Jamba's pattern: full width, dense FFNs, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import (no_experts,
+                                                           with_experts)
+    cfg = get_config("jamba-1.5-large-398b")
+    if periods:
+        return no_experts(cfg, periods)
+    return no_experts(with_experts(cfg, *HYB_SERVE), 1)
 
 
 def card_line() -> str:
@@ -1555,7 +1624,7 @@ def phase_serve() -> dict:
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config("stablelm-1.6b")
+    cfg = main_config()
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     sync()
@@ -1801,7 +1870,7 @@ def phase_continuous(tables) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.core.spec_engine import SpecConfig
     from repro_torch.models import model as M
-    cfg = get_config("stablelm-1.6b")
+    cfg = main_config()
     params = M.init_params(cfg, seed=0, device="cuda")
     work = cont_workload()
     runs, rates = {}, {}
@@ -1971,7 +2040,7 @@ def phase_tree(tables) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.spec_engine import greedy_reference
     from repro_torch.models import model as M
-    cfg = get_config("stablelm-1.6b")
+    cfg = main_config()
     params = M.init_params(cfg, seed=0, device="cuda")
     prompts = tree_workload()
     work = [(p, TREE_NEW) for p in prompts]
@@ -2275,7 +2344,7 @@ def phase_sampling(tables, serve_out, tree_out) -> None:
     from repro_torch.core.spec_engine import SpecConfig
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
-    cfg = get_config("stablelm-1.6b")
+    cfg = main_config()
     params = M.init_params(cfg, seed=0, device="cuda")
     spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
     prompts = smoke_prompts()
@@ -2447,7 +2516,7 @@ def phase_adaptive(tables, cont_rates: dict) -> dict:
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
     t_phase = time.perf_counter()
-    cfg = get_config("stablelm-1.6b")
+    cfg = main_config()
     params = M.init_params(cfg, seed=0, device="cuda")
     spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
     work = cont_workload()
@@ -2649,7 +2718,7 @@ def oracle_greedy(params, cfg, toks, max_new: int, pad_to: int = 0):
 
 
 def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode,
-                   pad_to: int = 0):
+                   pad_to: int = 0, ref=None):
     """Each output is greedy decoding of its prompt, up to f32 ties.
 
     The outputs are compared with greedy decoding by full forwards
@@ -2662,12 +2731,15 @@ def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode,
     at a time).  A token within that noise is a tie (two top logits closer
     than f32 evaluation can separate); each is printed with its margin.
     Any other difference fails the run.  ``pad_to``: see
-    ``oracle_logits``."""
+    ``oracle_logits``.  ``ref``: the oracle's greedy decoding of the same
+    prompts, returned by an earlier call (computed when None).  Returns
+    it."""
     import numpy as np
     import torch
     toks = np.stack([tok_fn(p) for p in prompts])
     P, n = toks.shape[1], len(done)
-    ref = oracle_greedy(params32, cfg32, toks, max_new, pad_to)
+    if ref is None:
+        ref = oracle_greedy(params32, cfg32, toks, max_new, pad_to)
     out = np.stack([r.output_ids for r in done])
     if out.shape != (n, max_new):
         raise AssertionError(f"f32 {mode}: outputs {out.shape}")
@@ -2703,6 +2775,7 @@ def check_lossless(params32, cfg32, done, prompts, tok_fn, max_new, mode,
           f" requests x {max_new} tokens; every token the oracle's argmax on"
           f" its own prefix but {int((gap > 0).sum())} f32 tie(s) (noise "
           f"{noise:.4g}); {calls} verify calls")
+    return ref
 
 
 def phase_hybrid() -> tuple:
@@ -2711,13 +2784,10 @@ def phase_hybrid() -> tuple:
     runs."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.configs.jamba_1_5_large_398b import no_experts
     from repro_torch.core.spec_engine import SpecConfig
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServingEngine
-    # full width, one period (7 Mamba + 1 attention), dense SwiGLU FFNs
-    cfg = no_experts(get_config("jamba-1.5-large-398b"), HYB_PERIODS)
+    cfg = hybrid_config()
     gib = torch.cuda.memory_allocated() / 2**30
     print(f"  memory after freeing StableLM: {gib:.2f} GiB allocated, peak "
           f"so far {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2857,8 +2927,8 @@ def phase_hybrid() -> tuple:
                       buckets=(SERVE_BUCKET,))
     tok_fn = lambda p: e.scheduler.pad_to_bucket(e.tok.encode(p))
     done, _ = serve(e, lprompts, LOSSLESS_NEW)
-    check_lossless(params32, cfg32, done, lprompts, tok_fn, LOSSLESS_NEW,
-                   "hybrid static")
+    ref = check_lossless(params32, cfg32, done, lprompts, tok_fn,
+                         LOSSLESS_NEW, "hybrid static")
     e = ServingEngine(params32, cfg32, spec, tables=tables,
                       max_batch=CONT_SLOTS, buckets=(SERVE_BUCKET,),
                       max_new_cap=LOSSLESS_NEW, paged=True,
@@ -2866,7 +2936,7 @@ def phase_hybrid() -> tuple:
     done, _ = serve_continuous(e, [(p, LOSSLESS_NEW) for p in lprompts])
     print(f"    pool: {check_pool_drained(e)}")
     check_lossless(params32, cfg32, done, lprompts, tok_fn, LOSSLESS_NEW,
-                   "hybrid continuous paged")
+                   "hybrid continuous paged", ref=ref)   # the same oracle
     del params32, e
     torch.cuda.empty_cache()
     return k5, adaptive
@@ -3034,8 +3104,8 @@ def phase_arch_kernels(S_main: int, cur_main: list, cont_cur: list) -> None:
 ARCH_RUNS = (("10c", "gemma-2b"), ("10d", "glm4-9b"),
              ("10e", "nemotron-4-340b"), ("10e", "qwen2-vl-72b"))
 # of 18, 40, 96 and 80 layers
-ARCH_DEPTH = {"gemma-2b": 4, "glm4-9b": 5, "nemotron-4-340b": 2,
-              "qwen2-vl-72b": 2}
+ARCH_DEPTH = {"gemma-2b": 4, "glm4-9b": 5, "nemotron-4-340b": 1,
+              "qwen2-vl-72b": 2}         # Nemotron-4: 2 until phase 15
 ARCH_F32_DEPTH = {"nemotron-4-340b": 1}                  # others: 2
 MISTRAL_DEPTH, LONG_DEPTH = 4, 4     # 10a-10b of 32 layers, 10g of 24
 BIGRAM_BATCH = 2048          # the tables' sweep batch for vocabularies
@@ -3368,7 +3438,7 @@ def phase_mistral(S_main: int, cur_main: list, prompts, runs) -> None:
     del params
     torch.cuda.empty_cache()
     arch_lossless("mistral-7b", tables, ring, RING_NEW, "10b mistral-7b ring",
-                  layers=2, bucket=RING_BUCKET)
+                  layers=1, bucket=RING_BUCKET)
 
 
 def phase_archs(S_main: int, cur_main: list, lm_tables) -> dict:
@@ -3383,7 +3453,7 @@ def phase_archs(S_main: int, cur_main: list, lm_tables) -> dict:
     verify's device ms beside K1 and SDPA at its verify shape.  10b: two
     ~4,200-byte prompts and 64 new tokens wrap its 4,096-slot ring in
     prefill and under speculation (bf16), then in f32 at depth
-    2 the same requests are greedy decoding (``check_lossless``'s tie
+    1 the same requests are greedy decoding (``check_lossless``'s tie
     rule).  10c-10e: Gemma-2B, GLM-4-9B, Nemotron-4 and Qwen2-VL (M-RoPE)
     serve phase 3's requests statically (K1 steps x
     layers times), Gemma and GLM phase 5's mix continuously paged (K3),
@@ -3560,15 +3630,18 @@ def bench_config():
                        compute_dtype=torch.float32).validate()
 
 
-def train_run(ts, cfg, batches, warmup: int, label: str):
+def train_run(ts, cfg, batches, warmup: int, label: str,
+              donate: bool = False):
     """AdamW steps (remat) of ``ts``, one a batch, on the device ``ts``
-    lives on.  Returns (train state, per-step losses, seconds per step
-    after the first, the first step's seconds)."""
+    lives on (``donate``: updated in place).  Returns (train state,
+    per-step losses, seconds per step after the first, the first step's
+    seconds)."""
     import torch
     from repro_torch.train import AdamWConfig, make_train_step
     steps = len(batches)
     step = make_train_step(cfg, AdamWConfig(
-        lr=TRAIN_LR, total_steps=steps, warmup_steps=warmup), remat=True)
+        lr=TRAIN_LR, total_steps=steps, warmup_steps=warmup), remat=True,
+        donate=donate)
     card = ts["params"]["final_norm"]["scale"].is_cuda
     losses = []
     t0 = t1 = time.perf_counter()
@@ -3868,52 +3941,261 @@ def phase_cli() -> None:
                              f"{k3} launches")
 
 
-def phase_guard() -> None:
-    """11e: a train step of the hybrid on the card raises K5's guard (K5
-    has no backward); only that error is caught."""
-    import numpy as np
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.configs.jamba_1_5_large_398b import no_experts
+def k5_bwd_bound_ms(Bt, T, di, ds, u_bytes, final) -> tuple:
+    """Least time for K5's backward: u, dt, dy, B, C, A, D and h0 (and
+    dhT) read once, du (in u's dtype), ddt, dA, dB, dC, dD and dh0 written
+    once; per (row, step, channel, state) the a_t's exp once on the
+    special-function units and 19 flops (6 of the forward's state, 13 of
+    the reverse recurrence and its sums)."""
+    n = Bt * T * di
+    bytes_ = 2 * u_bytes * n + 4 * (3 * n + 4 * Bt * T * ds + 2 * di * ds
+                                    + 2 * di + 2 * Bt * di * ds
+                                    + (Bt * di * ds if final else 0))
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = max(19 * n * ds / PEAK_FLOPS["float32"],
+                n * ds / SFU_PER_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def k5_bwd_check() -> dict:
+    """11e: K5's backward against its plain version on the card, at the
+    training shape (TRAIN_B x TRAIN_T, d_inner 16384, d_state 16) with bf16
+    and f32 u, at a ragged T past a checkpoint's edge with a gradient into
+    the final state, and at odd shapes: f32 relative K5_BWD_TOL on every
+    gradient (du before its cast to u's dtype), and a second run bit-equal
+    (no float atomics).  Then its time at the training shape (bf16 u)
+    beside its bound and its plain version's.  Returns its record."""
+    import torch
+    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                                mamba_scan_bwd_plain)
+    di, ds = 16384, 16
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, Bt, T, di, ds, u dtype, a gradient into hT, dt rank
+        ("train", TRAIN_B, TRAIN_T, di, ds, bf16, False, 512),
+        ("train f32 u", TRAIN_B, TRAIN_T, di, ds, f32, False, 512),
+        ("ragged T", TRAIN_B, TRAIN_T - 1, di, ds, bf16, True, 512),
+        ("T=37 di=200 ds=8", 3, 37, 200, 8, f32, True, 7),
+        ("T=5 di=130 ds=3", 4, 5, 130, 3, bf16, False, 5)]
+    err = 0.0
+    for name, Bt, T, d_, s_, udt, final, dtr in cases:
+        ops = k5_inputs(Bt, T, d_, s_, seed=Bt * 10 + T, dtr=dtr,
+                        u_dtype=udt)
+        g = torch.Generator(device="cuda").manual_seed(T)
+        dy = torch.randn((Bt, T, d_), generator=g, device="cuda")
+        dhT = (torch.randn((Bt, d_, s_), generator=g, device="cuda")
+               if final else None)
+        got = mamba_scan_bwd_cuda(*ops, dy, dhT)
+        again = mamba_scan_bwd_cuda(*ops, dy, dhT)
+        want = mamba_scan_bwd_plain(*ops, dy, dhT)
+        sync()
+        rel = []
+        for gname, a, b, c in zip(("du", "ddt", "dA", "dB", "dC", "dD",
+                                   "dh0"), got, want, again):
+            e = float((a - b).abs().max())
+            r = e / float(b.abs().max())
+            err = max(err, e)
+            rel.append(f"{gname} {r:.2e}")
+            if r > K5_BWD_TOL or not torch.equal(a, c):
+                raise AssertionError(f"K5 backward {name}: {gname} off its "
+                                     f"plain version by {r:.3g} (relative)"
+                                     f" or not deterministic")
+        print(f"  K5 backward {name:18s} Bt={Bt} T={T} di={d_} ds={s_} u "
+              f"{str(udt)[6:]} dhT={final}: relative {', '.join(rel)} "
+              f"(tol {K5_BWD_TOL}), second run bit-equal")
+    ops = k5_inputs(TRAIN_B, TRAIN_T, di, ds, seed=5, u_dtype=bf16)
+    dy = torch.randn((TRAIN_B, TRAIN_T, di), device="cuda")
+    run = lambda: mamba_scan_bwd_cuda(*ops, dy)
+    bound, by = k5_bwd_bound_ms(TRAIN_B, TRAIN_T, di, ds, 2, False)
+    r = dict(max_abs_err=err, ms=time_ms(run, iters=10),
+             device_ms=device_ms(run, iters=10),
+             plain_ms=time_ms(lambda: mamba_scan_bwd_plain(*ops, dy),
+                              iters=2, warmup=1),
+             library_ms=None, bound_ms=bound, bound_by=by)
+    print(f"  mamba_scan_bwd train (Bt={TRAIN_B}, T={TRAIN_T}, di={di}, "
+          f"ds={ds}, u bf16): ms={r['ms']:.4f} (device "
+          f"{fmt_ms(r['device_ms'])}) plain_ms={r['plain_ms']:.3f} "
+          f"bound_ms={bound:.4f} ({by})"
+          + (f", {bound / r['device_ms']:.1%} of the bound"
+             if r["device_ms"] else ""))
+    return r
+
+
+def loss_and_grads(params, cfg, batch) -> dict:
+    """The training loss of ``batch`` (remat) and its gradients, on the
+    device ``params`` lie on: the loss, the global grad norm, each Mamba
+    parameter's gradient (the leaves K5's backward feeds) and, under
+    "grads", every gradient in ``tree_map`` form."""
+    import torch
+    from repro_torch.train.optimizer import global_norm, tree_map
+    from repro_torch.train.train_loop import lm_loss
+    dev = params["final_norm"]["scale"].device
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    leaves = []
+    tree_map(leaves.append, live)
+    with torch.enable_grad():
+        loss, _ = lm_loss(live, cfg, torch.as_tensor(batch, device=dev),
+                          remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    grads = tree_map(lambda _: next(it), params)
+    out = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+    for gid, g in grads.items():
+        if "A_log" in g.get("mixer", {}):
+            out.update({f"{gid}/{k}": v for k, v in g["mixer"].items()})
+    out["grads"] = grads
+    return out
+
+
+def max_rel(a, b) -> float:
+    """max |a - b| / max |b| of two tensors (any devices)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def phase_hybrid_train() -> tuple:
+    """11e: the hybrid trains on the card.  K5's backward held against its
+    plain version (``k5_bwd_check``); then Jamba at full width cut to two
+    layers, ``no_experts(with_experts(config(), 2, 3), 1)`` (Mamba/SwiGLU
+    and attention/SwiGLU, d_model 8192, d_inner 16384, vocab 65536; bf16
+    params, f32 moments), HYB_TRAIN_STEPS steps of the reference's
+    mixture with remat, the state donated (updated in place: two copies
+    of it do not fit the card): ms a step, peak memory, the loss falling,
+    and K5's forward twice and its backward once a Mamba layer a step
+    (asserted; no other kernel); last, in f32 (TF32 off) on
+    HYB_CHECK_ROWS x HYB_CHECK_T of each of HYB_CHECK_STEPS batches, the
+    loss, the grad norm and every Mamba parameter's gradient equal the
+    CPU's on the same weights within TRAIN_CPU_TOL (relative), the card's
+    AdamW step between the two (the CPU takes the updated weights: its
+    own AdamW over 2.853 B f32 parameters took minutes).  Returns (the
+    backward's record, the training run's launches)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import (no_experts,
+                                                           with_experts)
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_cuda
     from repro_torch.train import AdamWConfig, init_train_state
-    from repro_torch.train import make_train_step
-    cfg = no_experts(get_smoke_config("jamba-1.5-large-398b"))
+    from repro_torch.train.optimizer import adamw_update, tree_map
+    t0 = time.perf_counter()
+    rec = k5_bwd_check()
+    t0 = took("11e's kernel checks", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = no_experts(with_experts(get_config("jamba-1.5-large-398b"),
+                                  *HYB_TRAIN), 1)
+    n_mamba = sum(b.mixer == "mamba" for b in cfg.block_pattern)
     ts = init_train_state(cfg, seed=0, device="cuda")
-    batch = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33))
-    try:
-        make_train_step(cfg, AdamWConfig())(ts, batch)
-    except NotImplementedError as e:
-        if "K5" not in str(e):
-            raise
-        print(f"  11e: {cfg.name} train step on the card raised: {e}")
-        return
-    raise AssertionError("11e: a Mamba train step on the card did not "
-                         "raise K5's guard")
+    sync()
+    print(f"  {cfg.name}: {[b.mixer + '/' + b.mlp for b in cfg.block_pattern]}"
+          f", d_model {cfg.d_model}, Mamba d_inner {cfg.mamba_d_inner}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_count() / 1e9:.3f}B params "
+          f"bf16, moments f32, {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB, init {time.perf_counter() - t0:.1f} s; B {TRAIN_B} x T "
+          f"{TRAIN_T}, lr {TRAIN_LR}, remat")
+    reset_launches()
+    mamba_scan_bwd_cuda.launches = 0
+    steps = HYB_TRAIN_STEPS
+    # donated: with the functional update's second copy of the 26.6 GiB
+    # state the step overflows the card (75.5 GiB allocated on an H100)
+    ts, losses, per_step, first = train_run(
+        ts, cfg, mixture(steps), max(steps // 10, 1), "11e card",
+        donate=True)
+    launches = dict(read_launches(), mamba_scan_bwd=mamba_scan_bwd_cuda
+                    .launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  11e: {per_step * 1e3:.2f} ms a step after the first "
+          f"({first:.2f} s), {TRAIN_B * TRAIN_T / per_step:.0f} training "
+          f"tokens/s, peak memory {peak:.2f} GiB; K5 a step: forward "
+          f"{launches['mamba_scan'] / steps:g}, backward "
+          f"{launches['mamba_scan_bwd'] / steps:g} ({n_mamba} Mamba layer); "
+          f"launches {launches}")
+    want = dict(mamba_scan=2 * n_mamba * steps,
+                mamba_scan_bwd=n_mamba * steps)
+    if any(launches[k] != n for k, n in want.items()) or any(
+            v for k, v in launches.items() if k not in want):
+        raise AssertionError(f"11e: launches {launches}, want {want} and "
+                             f"no other kernel")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"11e: the loss did not fall: {losses}")
+    del ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = took("11e's bf16 training", t0)
+    # f32 against the CPU: the card draws the weights, the CPU copies them
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ts = init_train_state(cfg32, seed=0, device="cuda")
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=HYB_CHECK_STEPS,
+                      warmup_steps=1)
+    worst = 0.0
+    for i, b in enumerate(mixture(HYB_CHECK_STEPS)):
+        b = b[:HYB_CHECK_ROWS, :HYB_CHECK_T + 1]
+        t1 = time.perf_counter()
+        cpu = tree_map(lambda t: t.cpu(), ts["params"])
+        want = loss_and_grads(cpu, cfg32, b)
+        t_cpu = time.perf_counter() - t1
+        got = loss_and_grads(ts["params"], cfg32, b)
+        rel = {k: max_rel(got[k], want[k]) for k in want if k != "grads"}
+        worst = max([worst] + list(rel.values()))
+        print(f"  11e f32 step {i}: loss card {float(got['loss']):.7f} CPU "
+              f"{float(want['loss']):.7f}; relative differences "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + f" (the CPU's side {t_cpu:.1f} s)")
+        del cpu, want
+        if i + 1 < HYB_CHECK_STEPS:     # the card's AdamW step, in place
+            adamw_update(opt, ts["params"], got["grads"], ts["opt"],
+                         donate=True)
+            ts["opt"]["step"] += 1
+        del got
+    print(f"  11e: f32 card against the CPU over {HYB_CHECK_STEPS} steps of "
+          f"{HYB_CHECK_ROWS} x {HYB_CHECK_T} tokens: max relative "
+          f"difference {worst:.3g} (limit {TRAIN_CPU_TOL})")
+    if worst > TRAIN_CPU_TOL:
+        raise AssertionError("11e: the f32 card steps differ from the CPU's")
+    del ts
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("11e's f32 check", t0)
+    return rec, launches
 
 
-def phase_train() -> dict:
+def phase_train() -> tuple:
     """Phase 11 (see the module docstring).  Returns each serving run's
-    kernel launches."""
+    kernel launches, and 11e's (K5's backward's record, its training
+    run's launches)."""
     t_phase = time.perf_counter()
     runs: dict = {}
+    hybrid = []
     for label, fn in (("11a", lambda: phase_train_bench(runs)),
                       ("11b", lambda: phase_train_lm(runs)),
-                      ("11d", phase_cli), ("11e", phase_guard)):
+                      ("11d", phase_cli),
+                      ("11e", lambda: hybrid.extend(phase_hybrid_train()))):
         t0 = time.perf_counter()
         print(f"phase {label}")
         fn()
         print(f"  phase {label} took {time.perf_counter() - t0:.1f} s")
     print(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
-    return runs
+    return runs, tuple(hybrid)
 
 
 # ---------------------------------------------------------------------------
 # phase 12: the MoE FFN and the xLSTM mixers
 # ---------------------------------------------------------------------------
 MIXTRAL_DEPTH = 4              # of 32 layers; full width, all 8 experts
+# cut by depth to hold the script's time once phases 11e and 15 ran in it:
+# DeepSeek (12a) from its full 28 layers (then 14), xLSTM-125M (12d, 12e)
+# from 12 (then 8) to one period of its pattern (3 mLSTM, 1 sLSTM)
+DEEPSEEK_DEPTH, XLSTM_DEPTH = 7, 4
 JAMBA_EXPERTS = (5, 0)         # with_experts(config(), 5): two MoE FFNs
 JAMBA_EXPERTS_F32 = (3, 2)     # offsets 2-4: one MoE FFN, ~52 GB in f32
 MOE_CONT_N = 8                 # the first 8 requests of phase 5's mix
-MOE_F32_DEPTH = 2              # DeepSeek: dense layer 0 + one MoE layer
+# 12e's f32 depth: DeepSeek's dense layer 0 and one MoE layer; Mixtral's
+# first layer, a MoE layer (2 layers until phase 15 joined the script)
+MOE_F32_DEPTH = {"deepseek-moe-16b": 2, "mixtral-8x7b": 1}
 RANGES = ("moe_ffn", "mlstm_mix", "slstm_mix")
 DROPS: dict = {}               # run -> (MoE-layer calls, dropped, max a call)
 
@@ -3985,7 +4267,7 @@ def moe_serve(label: str, cfg, runs: dict, continuous=None,
 
 
 def moe_capacity(arch: str, tables, label: str) -> None:
-    """12e for a routed attention model at MOE_F32_DEPTH layers, full
+    """12e for a routed attention model at its MOE_F32_DEPTH, full
     width, f32 (TF32 off): phase 3's 8 requests x SERVE_NEW static
     mixed (10, 10), against ``greedy_reference``, at the default capacity
     (printed:
@@ -3999,7 +4281,7 @@ def moe_capacity(arch: str, tables, label: str) -> None:
     from repro_torch.serving.engine import ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = arch_config(arch, MOE_F32_DEPTH, f32=True)
+    cfg = arch_config(arch, MOE_F32_DEPTH[arch], f32=True)
     params = load_model(cfg)
     prompts = smoke_prompts()
     for c in (cfg, no_drop(cfg)):
@@ -4133,7 +4415,8 @@ def graphed_greedy_reference(params, cfg, toks, max_new: int):
 
 
 def xlstm_f32(tables) -> None:
-    """12e: xLSTM-125M at full size in f32 (TF32 off).  With the
+    """12e: xLSTM-125M (XLSTM_DEPTH of its 12 layers, full width) in f32
+    (TF32 off).  With the
     reference's init (sLSTM's ``r`` at fan-in 4, std 0.5) the sLSTM
     recurrence amplifies rounding: the run reads the spread of two f32
     evaluations of phase 3's first 2 prompts (``f32_spread``), and no
@@ -4150,7 +4433,7 @@ def xlstm_f32(tables) -> None:
     from repro_torch.serving.engine import ServingEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = arch_config("xlstm-125m", f32=True)
+    cfg = arch_config("xlstm-125m", XLSTM_DEPTH, f32=True)
     params = load_model(cfg)
     prompts = smoke_prompts()
     eng = ServingEngine(params, cfg, SpecConfig(k=SERVE_K, w=SERVE_W,
@@ -4241,12 +4524,12 @@ def phase_moe() -> dict:
     runs: dict = {}
     gc.collect()
     torch.cuda.empty_cache()
-    print("phase 12a: DeepSeek-MoE-16B (full depth and width, bf16): "
-          "static, continuous paged, profiled")
-    tables = {"deepseek": moe_serve("12a deepseek-moe-16b",
-                                    arch_config("deepseek-moe-16b"), runs,
-                                    continuous=True, profile=True,
-                                    contract="moe")}
+    print(f"phase 12a: DeepSeek-MoE-16B ({DEEPSEEK_DEPTH} of 28 layers, full "
+          f"width, bf16): static, continuous paged, profiled")
+    tables = {"deepseek": moe_serve(
+        "12a deepseek-moe-16b", arch_config("deepseek-moe-16b",
+                                            DEEPSEEK_DEPTH), runs,
+        continuous=True, profile=True, contract="moe")}
     print(f"phase 12b: Mixtral-8x7B ({MIXTRAL_DEPTH} of 32 layers, full "
           f"width, all 8 experts, bf16): static (the window's plain "
           f"verify), continuous linear")
@@ -4259,9 +4542,10 @@ def phase_moe() -> dict:
           f"bf16): static")
     tables["jamba"] = moe_serve("12c jamba with experts", with_experts(
         get_config("jamba-1.5-large-398b"), layers, start), runs)
-    print("phase 12d: xLSTM-125M (full size, bf16): static, continuous "
-          "linear, profiled")
-    tables["xlstm"] = moe_serve("12d xlstm-125m", arch_config("xlstm-125m"),
+    print(f"phase 12d: xLSTM-125M ({XLSTM_DEPTH} of 12 layers, full width, "
+          f"bf16): static, continuous linear, profiled")
+    tables["xlstm"] = moe_serve("12d xlstm-125m",
+                                arch_config("xlstm-125m", XLSTM_DEPTH),
                                 runs, continuous=False, profile=True,
                                 contract="xlstm")
     for label, fn in (
@@ -4480,8 +4764,10 @@ def mesh_run(params, cfg, spec, tables, work, mesh, paged: bool,
     """One continuous run of ``work``, with a mesh or without: tokens/s,
     tokens/call, steps, wall ms a step, peak memory, the kernels' launches
     and plain_verify's calls (none for a config inside K1's contract)."""
+    import gc
     import torch
     from repro_torch.models.attention import plain_verify
+    gc.collect()                    # an earlier run's engine, in its cycles
     eng = cont_engine(params, cfg, spec, tables, paged, mesh=mesh)
     steps = counted_steps(eng)
     torch.cuda.empty_cache()
@@ -4519,7 +4805,7 @@ def mesh_busy(params, cfg, spec, tables, work, mesh, paged: bool,
     return profile_window(label, eng.step, MESH_PROFILE_STEPS)
 
 
-def mesh_placement(host, cfg, spec, tables, mesh) -> dict:
+def mesh_placement(host, cfg, spec, tables, mesh, label="14a") -> dict:
     """A meshed engine built from parameters on the host: the card's bytes
     after it against the shard bytes its report gives (each rank copies
     its shards alone: nothing whole passes through the card), and the
@@ -4534,7 +4820,7 @@ def mesh_placement(host, cfg, spec, tables, mesh) -> dict:
     peak = torch.cuda.max_memory_allocated() - before
     rep = eng.mesh_report()
     shards = rep["params_bytes"]["local"]
-    print(f"  14a: the meshed engine from host parameters placed "
+    print(f"  {label}: the meshed engine from host parameters placed "
           f"{placed / 2**30:.3f} GiB on the card (peak "
           f"{peak / 2**30:.3f}) for {shards / 2**30:.3f} GiB of shards "
           f"({rep['params_bytes']['global'] / 2**30:.3f} GiB whole)")
@@ -4557,7 +4843,7 @@ def host_leaves(tree):
 
 def phase_mesh(tables) -> dict:
     """Phase 14: the mesh (``ServingEngine(mesh=)``) on a (1, 1) NCCL mesh
-    in this process.  14a: StableLM-2-1.6B at full width and depth, bf16,
+    in this process.  14a: StableLM-2-1.6B (phase 3's, MAIN_DEPTH), bf16,
     continuous paged mixed over phase 5's pool, beside the same engine
     without a mesh: the gap is DTensor's dispatch on this card.  The
     meshed engine is built from parameters on the host (its shards alone
@@ -4576,7 +4862,7 @@ def phase_mesh(tables) -> dict:
     t0 = time.perf_counter()
     mesh = mesh_group()
     try:
-        cfg = get_config("stablelm-1.6b")
+        cfg = main_config()
         params = load_model(cfg)
         spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
         work = cont_workload()[:MESH_N]
@@ -4652,9 +4938,152 @@ def phase_mesh(tables) -> dict:
                 print(f"  {label}: meshed == unmeshed == greedy_reference "
                       f"for {len(work)} requests")
         took("phase 14b", t0)
+        del params32, tables32
+        print("phase 15: the recurrent mixers under the (1, 1) mesh")
+        t0 = time.perf_counter()
+        launches.update(phase_mesh_recurrent(mesh))
+        took("phase 15", t0)
         return launches
     finally:
         dist.destroy_process_group()
+
+
+def mesh_kernels_as_unmeshed(label, plain, meshed, n_mamba, n_attn,
+                             admitted) -> None:
+    """15a: the meshed run launched what the run without a mesh did, and
+    what the path asks: K5 once a Mamba layer for each admission's
+    prefill and twice a step (verify, replay), K1 (linear) or K3 (paged)
+    twice an attention layer a step, K2 once a step, no plain_verify."""
+    ln, steps = meshed["launches"], meshed["steps"]
+    paged = "paged" in label
+    want = {"mamba_scan": n_mamba * (admitted + 2 * steps),
+            "paged_spec_attention" if paged else "spec_attention":
+                2 * n_attn * steps,
+            "ngram_match": steps}
+    bad = [k for k, n in want.items() if ln[k] != n]
+    others = [k for k, v in ln.items() if k not in want and v]
+    if bad or others or meshed["plain_verify"] or (
+            plain["steps"] == steps and plain["launches"] != ln):
+        raise AssertionError(
+            f"{label}: meshed launches {ln} (plain_verify "
+            f"{meshed['plain_verify']}), want {want}; without the mesh "
+            f"{plain['launches']} in {plain['steps']} steps")
+
+
+def phase_mesh_recurrent(mesh) -> dict:
+    """Phase 15: the recurrent mixers under the (1, 1) NCCL mesh.  15a:
+    Jamba cut to one period (HYB_PERIODS: 7 Mamba + 1 attention layer at
+    full width, no experts, 9.0 B, bf16) serves phase 5's first MESH_N
+    requests continuously mixed, linear and paged, without and with the mesh (the meshed engine built
+    from host parameters): tokens/s, wall and busy ms a step, device ops,
+    the card's bytes after placement against the shards'; the kernels
+    launch as without the mesh (``mesh_kernels_as_unmeshed``) and the bf16
+    tokens are equal.  15b: in f32 (TF32 off) the hybrid at 2 layers
+    (Mamba and attention, 11e's config) and xLSTM-125M at one period of
+    4 layers (3 mLSTM, 1 sLSTM; sLSTM's r at fan-in dh, as 12e), greedy
+    and mixed, linear: meshed == unmeshed == ``greedy_reference``.
+    Returns 15a's meshed paged launches."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import (no_experts,
+                                                           with_experts)
+    from repro_torch.core.spec_engine import SpecConfig
+    t0 = time.perf_counter()
+    cfg = hybrid_config(HYB_PERIODS)
+    n_mamba = sum(b.mixer == "mamba" for b in cfg.block_pattern)
+    params = load_model(cfg)
+    tables = arch_tables(params, cfg)
+    spec = SpecConfig(k=SERVE_K, w=SERVE_W, strategy="mixed")
+    work = cont_workload()[:MESH_N]
+    runs = {}
+    for paged in (False, True):
+        label = f"15a no mesh {'paged' if paged else 'linear'} mixed"
+        runs[label] = mesh_run(params, cfg, spec, tables, work, None, paged,
+                               label)
+        del runs[label]["engine"]
+    mesh_busy(params, cfg, spec, tables, work, None, True,
+              "15a no mesh paged mixed step")
+    host = _to_host(params)
+    del params
+    gc.collect()
+    mesh_placement(host, cfg, spec, tables, mesh, "15a")
+    launches = {}
+    for paged in (False, True):
+        layout = "paged" if paged else "linear"
+        label = f"15a mesh (1, 1) {layout} mixed"
+        meshed = runs[label] = mesh_run(host, cfg, spec, tables, work, mesh,
+                                        paged, label)
+        plain = runs[f"15a no mesh {layout} mixed"]
+        mesh_kernels_as_unmeshed(label, plain, meshed, n_mamba, 1,
+                                 len(work))
+        same = sum(np.array_equal(a.output_ids, b.output_ids)
+                   for a, b in zip(plain["done"], meshed["done"]))
+        print(f"  {label}: bf16 outputs equal without and with the mesh for "
+              f"{same}/{len(work)} requests; tok/s ratio mesh/no mesh "
+              f"{meshed['tok_s'] / plain['tok_s']:.3f}")
+        if same != len(work):
+            raise AssertionError(f"{label}: bf16 tokens differ under the "
+                                 f"mesh")
+        launches = meshed["launches"]
+        rep = meshed["engine"].mesh_report()
+        del meshed["engine"]
+    print(f"  mesh: {rep['mesh']} params sharded {rep['params_sharded']}"
+          f"/{rep['params_leaves']} state leaves sharded "
+          f"{rep['state_sharded']} kernels {rep['backend']}")
+    t0 = took("phase 15a's runs", t0)
+    mesh_busy(host, cfg, spec, tables, work, mesh, True,
+              "15a mesh (1, 1) paged mixed step")
+    del host, runs, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = took("phase 15a's profile", t0)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    hyb = dataclasses.replace(no_experts(with_experts(
+        get_config("jamba-1.5-large-398b"), *HYB_TRAIN), 1), **f32)
+    xl = dataclasses.replace(arch_config("xlstm-125m", layers=4), **f32)
+    work = cont_workload()[:MESH_F32_N]
+    for cfg32 in (hyb, xl):
+        params32 = load_model(cfg32)
+        if cfg32 is xl:
+            dh = cfg32.d_model // cfg32.num_heads
+            for g in params32.values():
+                if "r" in g.get("mixer", {}):
+                    g["mixer"]["r"].mul_((4 / dh) ** 0.5)  # fan-in 4 -> dh
+        tables32 = arch_tables(params32, cfg32)
+        refs = {}
+        for strategy in ("greedy", "mixed"):
+            sp = SpecConfig(k=SERVE_K, w=SERVE_W, strategy=strategy)
+            tb = tables32 if strategy == "mixed" else None
+            label = f"15b f32 {cfg32.name} linear {strategy}"
+            outs = [mesh_run(params32, cfg32, sp, tb, work, m, False,
+                             f"{label} {'mesh' if m else 'no mesh'}")
+                    ["done"] for m in (None, mesh)]
+            for a, b, (_, mnt) in zip(*outs, work):
+                toks = np.asarray(cont_engine_tokens(a.prompt))
+                if a.request_id not in refs:
+                    refs[a.request_id] = graphed_greedy_reference(
+                        params32, cfg32, torch.as_tensor(
+                            toks[None], device="cuda"), mnt)[0, len(toks):]
+                ref = refs[a.request_id]
+                if not (np.array_equal(a.output_ids, b.output_ids)
+                        and np.array_equal(b.output_ids, ref)):
+                    raise AssertionError(
+                        f"{label}: request {b.request_id}: meshed "
+                        f"{b.output_ids.tolist()} unmeshed "
+                        f"{a.output_ids.tolist()} greedy_reference "
+                        f"{ref.tolist()}")
+            print(f"  {label}: meshed == unmeshed == greedy_reference for "
+                  f"{len(work)} requests")
+        del params32, tables32
+        gc.collect()
+        torch.cuda.empty_cache()
+    took("phase 15b", t0)
+    return {"mamba_scan": launches["mamba_scan"]}
 
 
 def _to_host(tree):
@@ -4730,7 +5159,9 @@ def main() -> int:
     print("phase 1: build")
     t0 = time.perf_counter()
     secs = build.build()
-    print(f"  built {sorted(secs)} in {time.perf_counter() - t0:.2f} s")
+    print(f"  built {sorted(secs)} in {time.perf_counter() - t0:.2f} s ("
+          + ", ".join(f"{n} done at {t:.1f} s" for n, t in secs.items())
+          + ")")
     for name in build.sources():
         log = build.BUILD_DIR / f"{name}.log"
         for kernel, report in ptxas_report(
@@ -4798,8 +5229,8 @@ def main() -> int:
           "f32)")
     adaptive = phase_adaptive(tables, cont_rates)
 
-    print(f"phase 7: the hybrid (Jamba-1.5-Large, {HYB_PERIODS} period, no "
-          f"experts, full width)")
+    print(f"phase 7: the hybrid (Jamba-1.5-Large, offsets {HYB_SERVE[1]}-"
+          f"{sum(HYB_SERVE) - 1} of its period, no experts, full width)")
     t0 = time.perf_counter()
     hyb, hyb_adaptive = phase_hybrid()
     took("phase 7", t0)
@@ -4814,7 +5245,9 @@ def main() -> int:
 
     print("phase 11: training on the card (the reference's bench recipe, "
           "StableLM-2-1.6B at full width), then serving the trained weights")
-    trained = phase_train()
+    trained, (bwd_rec, bwd_launches) = phase_train()
+    rec["mamba_scan_bwd"] = bwd_rec
+    launches["mamba_scan_bwd"] = bwd_launches["mamba_scan_bwd"]
 
     print("phase 12: the MoE FFN and the xLSTM mixers (DeepSeek-MoE-16B, "
           "Mixtral-8x7B, Jamba with its experts, xLSTM-125M)")
@@ -4826,7 +5259,7 @@ def main() -> int:
 
     print("phase 14: the mesh (ServingEngine(mesh=)) on a (1, 1) NCCL mesh: "
           "StableLM-2-1.6B bf16 beside the engine without a mesh, then f32 "
-          "lossless")
+          "lossless; phase 15 (the recurrent mixers) in the same group")
     t0 = time.perf_counter()
     mesh_launches = phase_mesh(tables)
     took("phase 14", t0)
@@ -4845,7 +5278,11 @@ def main() -> int:
                    cu, "src/repro/kernels/spec_attention.py:240"),
                "mamba_scan": (
                    "src/repro_torch/kernels/csrc/mamba_scan.cu",
-                   "src/repro/kernels/mamba_scan.py:61")}
+                   "src/repro/kernels/mamba_scan.py:61"),
+               # the gradient of the XLA scan the reference trains through
+               "mamba_scan_bwd": (
+                   "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+                   "src/repro/models/mamba.py:84")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1], launches=launches[n],
                     launches_adaptive={run: ls[n] for run, ls in
@@ -4856,7 +5293,7 @@ def main() -> int:
                                       trained.items() if ls.get(n)},
                     launches_contract={run: ls[n] for run, ls in
                                        contract.items() if ls.get(n)},
-                    launches_mesh=mesh_launches[n],
+                    launches_mesh=mesh_launches.get(n, 0),
                     **rec[n])
                for n in sources]
     took("the script", t_script)

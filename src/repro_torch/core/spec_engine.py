@@ -885,12 +885,16 @@ def make_sharded_slot_fns(cfg: ModelConfig, spec: SpecConfig,
     specs = shd.decode_state_pspecs(mesh, state)
     placements = {p: shd.to_placements(mesh, sp) for p, sp in specs.items()}
     paged = C.is_paged(state.model)
-    kpath = next(p for p in specs
-                 if p.startswith("model/groups/") and p.endswith("/k"))
-    gid = kpath.split("/")[2]
-    layout = DL.cache_layout(mesh, cfg, specs[kpath],
-                            tuple(state.model["groups"][gid]["k"].shape),
-                            paged=paged)
+    kpath = next((p for p in specs
+                  if p.startswith("model/groups/") and p.endswith("/k")),
+                 None)
+    if kpath is None:           # a recurrent stack (xLSTM): no cache
+        layout = DL.CacheLayout()
+    else:
+        gid = kpath.split("/")[2]
+        layout = DL.cache_layout(
+            mesh, cfg, specs[kpath],
+            tuple(state.model["groups"][gid]["k"].shape), paged=paged)
     rows = DL.rows_for(mesh, state.buf.shape[0], layout)
     # an admission prefills its prompt as one local row on every rank
     scratch = DL.rows_for(mesh, DL.padded(mesh, 1),
@@ -969,13 +973,19 @@ def make_sharded_slot_fns(cfg: ModelConfig, spec: SpecConfig,
                     r = row_model["groups"][g_id]
                     C.paged_kv_write(g["k"], g["v"], r["k"][:, :, :P],
                                      r["v"][:, :, :P], phys)
-        elif own:
+        if own:
+            # the slot's recurrent leaves (the prefill computed this rank's
+            # shards of them), and a linear cache's shard of its sequence
             for g_id, g in loc.model["groups"].items():
+                if paged and "k" in g:
+                    continue
                 for name, leaf in g.items():
                     row = row_model["groups"][g_id][name][:, 0]
-                    lo, hi = DL.shard_range(mesh, row.shape[1], layout.seq)
-                    leaf[:, sl] = row[:, lo:hi]
-        if own:
+                    if name in ("k", "v"):
+                        lo, hi = DL.shard_range(mesh, row.shape[1],
+                                                layout.seq)
+                        row = row[:, lo:hi]
+                    leaf[:, sl] = row
             _write_slot(loc, sl, prompt, first,
                         max_new_tokens, eos_id, temperature, top_p, k_carry)
         return st
@@ -985,6 +995,9 @@ def make_sharded_slot_fns(cfg: ModelConfig, spec: SpecConfig,
         if paged:
             free_pages(loc.model, slot)
         if rows.owns(slot):
+            # the owner empties the slot's shards of the recurrent state
+            # (zeros, the -1e9 stabilisers), as a paged reset_slot does
+            C.reset_recurrent(loc.model, slot - rows.lo)
             _clear_slot(loc, slot - rows.lo)
         return st
 

@@ -4,13 +4,19 @@
 A meshed engine's parameters and state leaves are DTensors placed by
 ``sharding.py``.  The step's row-local work (drafting, acceptance, the
 commit, sampling, the stats) runs unchanged on each rank's LOCAL shard of
-the slot axis: ``local_state`` hands the step the leaves' local tensors,
-views of the DTensors' own storage, so every in-place write lands in the
-sharded state.  Only the model math crosses ranks: the model functions
-``lift`` their local token rows into DTensors, run the layers on DTensor
-activations against DTensor parameters, and ``lower`` the logits back to
-the local rows.  The attention reads and writes the caches' local shards
+the slot axis: ``make_sharded_slot_fns``'s ``local_view`` hands the step
+the leaves' local tensors, views of the DTensors' own storage, so every
+in-place write lands in the sharded state.  Only the model math crosses
+ranks: the model functions ``lift`` their local token rows into DTensors,
+run the layers on DTensor activations against DTensor parameters, and
+``lower`` the logits back to the local rows.  The attention reads and writes the caches' local shards
 (``models/attention.py``'s mesh path), gathering only what a shard lacks.
+The recurrent mixers (``models/mamba.py``, ``models/xlstm.py``) take the
+local rows and their state leaves' shards (``state_dims``,
+``local_leaf``): their projections are ``product``s against the
+parameters' shards, their recurrences run on the rank's channels, heads
+or head dims, and a contraction over a dim the state shards is a partial
+sum (``reduce``), never a gather of the leaf.
 
 ``Rows`` says where this rank's rows sit: the global row count, the mesh
 axes that shard the rows (none when the count does not divide them), and
@@ -27,7 +33,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
-from .sharding import axis_sizes, resolve_axis, to_placements
+from .sharding import axis_sizes, resolve_axis, state_pspec, to_placements
 
 Axes = Tuple[str, ...]
 
@@ -326,6 +332,73 @@ def matmul_rows(x, w):
     return dt.redistribute(r.mesh, r.placements(dt.dim()))
 
 
+def product(x: torch.Tensor, w):
+    """``x @ w`` for this rank's local rows ``x`` (..., K) and a (K, N)
+    DTensor ``w`` left in its shards, as the DTensor of the global rows.
+    ``x``'s last dim is whole, or this rank's shard of K where ``w``
+    shards its K (a row-parallel product: a partial sum over those axes,
+    which DTensor reduces when the result is redistributed).  Along an
+    axis that shards N the result is column-sharded.  No weight is
+    gathered."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    r = _ROWS
+    out = x @ w.to_local().to(x.dtype)
+    last = out.dim() - 1
+    pl = []
+    for px, pw in zip(r.placements(out.dim()), w.placements):
+        pl.append(Partial() if pw.is_shard(0)
+                  else Shard(last) if pw.is_shard(1) else px)
+    shape = (x.shape[0] * (r.B // r.n),) + tuple(x.shape[1:-1]) \
+        + (w.shape[1],)
+    return DTensor.from_local(out, r.mesh, pl, run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def reduce(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """This rank's partial sum ``x`` summed over the mesh ``axes`` (every
+    rank gets the sum): a recurrent cell's contraction over a dim that
+    its state shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = _ROWS.mesh
+    axes = live(mesh, axes)
+    if not axes:
+        return x
+    pl = [Partial() if n in axes else Replicate()
+          for n in mesh.mesh_dim_names]
+    dt = DTensor.from_local(x.contiguous(), mesh, pl, run_check=False)
+    return dt.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def state_dims(name: str, shape: Tuple[int, ...]
+               ) -> Tuple[Tuple[int, int, Axes], ...]:
+    """(lo, hi, live mesh axes) of this rank's shard of each dim of a
+    recurrent state leaf ``name`` of global ``shape`` (R, B, ...) under
+    the state rules (``sharding.state_pspec``).  The mixers read which heads,
+    channels or head dims they own from it, so that their local work
+    always matches the leaves' shards."""
+    mesh = _ROWS.mesh
+    spec = state_pspec(mesh, (name,), torch.empty(shape, device="meta"))
+    return tuple(shard_range(mesh, n, _axes(e)) + (live(mesh, _axes(e)),)
+                 for n, e in zip(shape, spec))
+
+
+def local_leaf(name: str, t: torch.Tensor, stacked: bool = True
+               ) -> torch.Tensor:
+    """A fresh recurrent state leaf made at its global shape as this
+    rank's shard of it, contiguous (as is without a mesh): every dim past
+    the batch's cut by the state rules, the batch dim already this
+    rank's rows.  ``stacked``: ``t`` is (R, B, ...), else (B, ...)."""
+    if _ROWS is None:
+        return t
+    shape = tuple(t.shape) if stacked else (1,) + tuple(t.shape)
+    off = 0 if stacked else 1
+    idx = [slice(None)] * t.dim()
+    for d, (lo, hi, _) in enumerate(state_dims(name, shape)):
+        if d >= 2:
+            idx[d - off] = slice(lo, hi)
+    return t[tuple(idx)].contiguous()
+
+
 def gather(x: torch.Tensor, dim: int, axes: Axes, mesh=None,
            size: Optional[int] = None) -> torch.Tensor:
     """All-gather a local shard along ``dim`` over ``axes`` (a derived
@@ -364,20 +437,6 @@ def gather_rows(x: torch.Tensor, rows: Optional[Rows] = None
     the page growth's per-row needs, a stop flag)."""
     r = rows or _ROWS
     return gather(x, 0, r.axes, r.mesh)
-
-
-def reduce_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Sum a local partial over the "model" axis (the expert-parallel MoE
-    combine)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    mesh = mesh if mesh is not None else _ROWS.mesh
-    names = list(axis_sizes(mesh))
-    if "model" not in names or axis_sizes(mesh)["model"] == 1:
-        return x
-    pl = [Replicate()] * mesh.ndim
-    pl[names.index("model")] = Partial()
-    dt = DTensor.from_local(x, mesh, pl, run_check=False)
-    return dt.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
 
 
 def distribute(x: torch.Tensor, mesh, spec: tuple, device=None):

@@ -15,7 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .mamba_scan import mamba_scan_cuda, mamba_scan_plain
+from .mamba_scan import (mamba_scan_cuda, mamba_scan_plain,
+                         mamba_scan_train)
 from .ngram_match import (ngram_draft_cuda, ngram_draft_plain,
                           ngram_match_plain)
 from .spec_attention import (TreeMask, paged_spec_attention_cuda,
@@ -141,18 +142,22 @@ def selective_scan(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
     ``n_commit[b]`` steps (row b's h0 where it is 0): the replay's commit.
     ``steps`` is the plain version's alone: K5 raises on it.
 
-    K5 has no backward, so on the card a call that autograd would have to
-    differentiate (grad enabled and an input requiring grad) raises rather
-    than hand back a result cut off from the Mamba parameters' gradients:
-    the hybrid trains on the CPU only, through the plain version.
+    A call that autograd differentiates (grad enabled and an input that
+    requires grad: the training forward) runs on the card through
+    ``mamba_scan_train``, K5 with K5's backward kernel as its gradient;
+    its contract is the training call's (h0_rep 1, no ``n_commit``, no
+    ``steps``), and any other differentiated call raises.  On the CPU
+    autograd differentiates the plain version.
     """
     if on_card(u):
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (u, dt, A, B, C, D, h0)):
-            raise NotImplementedError(
-                "K5 (the Mamba selective scan) has no backward kernel: a "
-                "Mamba layer cannot be trained on the card; train the "
-                "hybrid with device='cpu'")
+            if h0_rep != 1 or n_commit is not None or steps:
+                raise ValueError(
+                    "K5's backward takes the training call alone (h0_rep 1, "
+                    "no n_commit, no per-step states); run serving modes "
+                    "under torch.no_grad()")
+            return mamba_scan_train(u, dt, A, B, C, D, h0, final=final)
         fn = mamba_scan_cuda
     else:
         fn = mamba_scan_plain

@@ -8,7 +8,11 @@ and full forward (the bigram table sweep too), decode, verify (B*k rows
 started from their slot's state) and the gated replay, which keeps the
 state after each row's accepted tokens (``n_commit``).  The kernel is
 ``csrc/mamba_scan.cu``; this module holds its wrapper, its launch count
-and its plain version.
+and its plain version.  Training differentiates it: ``mamba_scan_train``
+is an autograd Function whose forward is K5 and whose backward is K5's
+backward kernel (``csrc/mamba_scan_bwd.cu``, which states its own bound
+and design; its wrapper, launch count and plain version are the second
+half of this module).
 
 What bounds it on the H100: at the prefill shape (8, 256, 16384, 16) the
 exps on the special-function units (~0.13 ms); at the verify shape the
@@ -143,3 +147,153 @@ def mamba_scan_cuda(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
 
 
 mamba_scan_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the backward (csrc/mamba_scan_bwd.cu) and the training call
+# ---------------------------------------------------------------------------
+def mamba_scan_bwd_plain(u, dt, A, B, C, D, h0, dy, dhT=None):
+    """Plain PyTorch version of K5's backward: the gradients of the scan
+    ``ref.mamba_scan_ref`` (h0_rep 1, the final state the last one) given
+    ``dy`` (Bt, T, di) and optionally ``dhT`` (Bt, di, ds), by the reverse
+    recurrence the kernel runs (``csrc/mamba_scan_bwd.cu`` states it), in
+    f32.  Returns (du, ddt, dA, dB, dC, dD, dh0), each the shape of its
+    input, all f32 (du too: the training call casts it to u's dtype).  Used by the tests and ``chip_smoke.py`` alone: on
+    the CPU autograd differentiates ``mamba_scan_plain`` itself."""
+    uf, dtf, Af = u.float(), dt.float(), A.float()
+    Bf, Cf, dyf = B.float(), C.float(), dy.float()
+    T = uf.shape[1]
+    h, prev, decay = h0.float(), [], []
+    for t in range(T):
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        prev.append(h)
+        decay.append(a)
+        h = a * h + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+    g = torch.zeros_like(h) if dhT is None else dhT.float().clone()
+    du, ddt, dB, dC = ([None] * T for _ in range(4))
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(T)):
+        a, hp = decay[t], prev[t]
+        ht = a * hp + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        g = g + dyf[:, t, :, None] * Cf[:, t, None, :]
+        gB = torch.einsum("bds,bs->bd", g, Bf[:, t])
+        gha = g * a * hp
+        du[t] = dyf[:, t] * D.float() + dtf[:, t] * gB
+        ddt[t] = uf[:, t] * gB + (gha * Af).sum(-1)
+        dA = dA + (gha * dtf[:, t, :, None]).sum(0)
+        dB[t] = torch.einsum("bds,bd->bs", g, dtf[:, t] * uf[:, t])
+        dC[t] = torch.einsum("bds,bd->bs", ht, dyf[:, t])
+        g = a * g
+    dD = (dyf * uf).sum((0, 1))
+    st = lambda xs: torch.stack(xs, dim=1)
+    return st(du), st(ddt), dA, st(dB), st(dC), dD, g
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("mamba_scan_bwd")
+    fn = lib.mamba_scan_bwd_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i] + [p] * 20 + [i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.mamba_scan_bwd_blocks.argtypes = [i, i]
+        lib.mamba_scan_bwd_blocks.restype = i
+        lib.mamba_scan_bwd_chunk.argtypes = []
+        lib.mamba_scan_bwd_chunk.restype = i
+    return lib
+
+
+def mamba_scan_bwd_cuda(u, dt, A, B, C, D, h0, dy, dhT=None):
+    """Launch K5's backward (``csrc/mamba_scan_bwd.cu``): arguments and
+    results as ``mamba_scan_bwd_plain``.  Operands as ``mamba_scan_cuda``
+    takes them with h0_rep 1 (B and C any strides: copied contiguous), dy
+    and dhT float32.  Scratch (the state checkpoints and the partial sums,
+    so that no float atomic is used) is allocated here.  Counts launches
+    in ``launches`` (the main kernel and its reduction count as one)."""
+    ops = (u, dt, A, B, C, D, h0, dy) + (() if dhT is None else (dhT,))
+    if any(not t.is_cuda or t.device != u.device for t in ops):
+        raise ValueError("mamba_scan_bwd_cuda needs every operand on one "
+                         "CUDA device")
+    if u.dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != torch.float32 for t in ops[1:]):
+        raise TypeError(f"mamba_scan_bwd_cuda takes u float32 or bfloat16 "
+                        f"and float32 otherwise, got "
+                        f"{[t.dtype for t in ops]}")
+    Bt, T, di = u.shape
+    ds = A.shape[-1]
+    if not 1 <= ds <= MAX_DS or T < 1:
+        raise ValueError(f"unsupported scan: ds={ds} (1..{MAX_DS}), T={T}")
+    want = {"dt": (dt, (Bt, T, di)), "A": (A, (di, ds)),
+            "B": (B, (Bt, T, ds)), "C": (C, (Bt, T, ds)), "D": (D, (di,)),
+            "h0": (h0, (Bt, di, ds)), "dy": (dy, (Bt, T, di))}
+    if dhT is not None:
+        want["dhT"] = (dhT, (Bt, di, ds))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+    u, dt, A, B, C, D, h0, dy = (t.contiguous() for t in
+                                 (u, dt, A, B, C, D, h0, dy))
+    dhT = None if dhT is None else dhT.contiguous()
+    lib = _bwd_lib()
+    nbx = lib.mamba_scan_bwd_blocks(di, ds)
+    n_chunks = -(-T // lib.mamba_scan_bwd_chunk())
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddt = torch.empty((Bt, T, di), **f32), torch.empty((Bt, T, di),
+                                                           **f32)
+    dh0 = torch.empty((Bt, di, ds), **f32)
+    dA, dD = torch.empty((di, ds), **f32), torch.empty((di,), **f32)
+    dB, dC = torch.empty((Bt, T, ds), **f32), torch.empty((Bt, T, ds),
+                                                          **f32)
+    ckpt = torch.empty((Bt, n_chunks, di, ds), **f32)
+    pB, pC = (torch.empty((nbx, Bt, T, ds), **f32) for _ in range(2))
+    pA, pD = torch.empty((Bt, di, ds), **f32), torch.empty((Bt, di), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = lib.mamba_scan_bwd_launch(
+        u.data_ptr(), int(u.dtype == torch.bfloat16), dt.data_ptr(),
+        A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+        h0.data_ptr(), dy.data_ptr(), ptr(dhT), ckpt.data_ptr(),
+        du.data_ptr(), ddt.data_ptr(), dh0.data_ptr(), pB.data_ptr(),
+        pC.data_ptr(), pA.data_ptr(), pD.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), Bt, T, di, ds,
+        torch.cuda.current_stream(u.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan_bwd kernel launch failed: CUDA "
+                           f"error {rc}")
+    mamba_scan_bwd_cuda.launches += 1
+    return du, ddt, dA, dB, dC, dD, dh0
+
+
+mamba_scan_bwd_cuda.launches = 0
+
+
+class _TrainScan(torch.autograd.Function):
+    """K5 as autograd sees it: the forward is K5, the backward K5's
+    backward kernel.  ``final``: the forward also returns the final state,
+    whose gradient the backward takes as ``dhT``."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, B, C, D, h0, final):
+        y, hT, _ = mamba_scan_cuda(u, dt, A, B, C, D, h0, final=final)
+        ctx.save_for_backward(u, dt, A, B, C, D, h0)
+        return (y, hT) if final else y
+
+    @staticmethod
+    def backward(ctx, dy, dhT=None):
+        u, dt, A, B, C, D, h0 = ctx.saved_tensors
+        dy = torch.zeros(u.shape, dtype=torch.float32, device=u.device) \
+            if dy is None else dy.float()
+        du, *rest = mamba_scan_bwd_cuda(u, dt, A, B, C, D, h0, dy,
+                                        None if dhT is None else dhT.float())
+        return (du.to(u.dtype), *rest, None)
+
+
+def mamba_scan_train(u, dt, A, B, C, D, h0, *, final: bool = False):
+    """The training call on the card: K5 under autograd, differentiated by
+    K5's backward.  Operands as ``mamba_scan_cuda`` takes them with h0_rep
+    1, no ``n_commit`` and no per-step states; returns (y, the final state
+    or None, None) as it does.  The gradient of u comes back in u's
+    dtype."""
+    out = _TrainScan.apply(u, dt, A, B, C, D, h0, final)
+    y, hT = out if final else (out, None)
+    return y, hT, None

@@ -11,6 +11,8 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+from ..device import resolve_device
+
 AXES_2D = ("data", "model")
 AXES_3D = ("pod", "data", "model")
 
@@ -27,11 +29,13 @@ def parse_mesh_shape(s: str) -> Tuple[int, ...]:
     return dims
 
 
-def make_debug_mesh(shape=(2, 2), device: str = "cpu", axes=None):
+def make_debug_mesh(shape=(2, 2), device="cuda", axes=None):
     """A ``DeviceMesh`` of ``shape`` over the initialised process group,
     its dims named like the reference's axes: 2 dims ("data", "model"), 3
     ("pod", "data", "model"), so that every sharding rule applies.
-    ``device``: "cpu" (gloo) or "cuda" (NCCL, one card a rank)."""
+    ``device``: the card by default ("cuda": NCCL, one card a rank; raises
+    without one, as every entry point of the port does), or "cpu" (gloo)
+    when the caller asks for it."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     shape = tuple(shape)
@@ -49,4 +53,5 @@ def make_debug_mesh(shape=(2, 2), device: str = "cpu", axes=None):
             f"mesh {shape} needs {need} ranks but the process group has "
             f"{world}: start {need} ranks, or pick a mesh whose dims "
             f"multiply to {world}")
-    return init_device_mesh(device, shape, mesh_dim_names=tuple(axes))
+    dev = resolve_device(device)
+    return init_device_mesh(dev.type, shape, mesh_dim_names=tuple(axes))

@@ -53,11 +53,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     if args.paged and not args.continuous:
         raise SystemExit("--paged applies to --continuous serving")
     if args.mesh:
-        from ..serving.engine import mesh_unsupported
-        cfg = get_smoke_config(args.arch)
-        why = "" if cfg.encoder_only else mesh_unsupported(cfg)
-        if why:
-            raise SystemExit(f"--mesh: {why}")
         return _serve_meshed(args, argv)
     return _serve(args)
 

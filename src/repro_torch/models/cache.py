@@ -119,8 +119,13 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int,
     """Allocate an empty decode state for ``batch`` sequences."""
     dev = resolve_device(device)
     S = cache_buffer_len(cfg, max_len)
-    groups = {gid: _init_group(cfg, spec, R, batch, S, dev)
-              for gid, spec, R in group_ids(cfg)}
+    groups = {}
+    for gid, spec, R in group_ids(cfg):
+        g = _init_group(cfg, spec, R, batch, S, dev)
+        # under a mesh a rank allocates its rows; its recurrent leaves are
+        # its shards of them (the attention caches follow the caller's cfg)
+        groups[gid] = g if spec.mixer == ATTN else {
+            n: L.local_leaf(n, t) for n, t in g.items()}
     return {"cur_len": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "groups": groups}
 
@@ -153,6 +158,16 @@ def zero_slot_stats(stats: Dict[str, torch.Tensor], slot: int) -> Dict:
     return stats
 
 
+def reset_recurrent(state: Dict, slot: int) -> Dict:
+    """Slot ``slot``'s recurrent leaves to the empty state, IN PLACE:
+    zeros, and -1e9 for the xLSTM stabilisers "m" (the leaves may be a
+    rank's shards: every element of a shard is reset the same way)."""
+    for g in _recurrent_groups(state).values():
+        for name, leaf in g.items():
+            leaf[:, slot] = M_EMPTY if name == "m" else 0
+    return state
+
+
 def reset_slot(cfg: ModelConfig, state: Dict, slot: int) -> Dict:
     """Reset slot ``slot`` to the empty state, IN PLACE.  Paged states free
     the slot's pages instead of zeroing KV (a freed page is never read:
@@ -161,9 +176,7 @@ def reset_slot(cfg: ModelConfig, state: Dict, slot: int) -> Dict:
     stabilisers' -1e9)."""
     if is_paged(state):
         free_slot_pages(state, slot)
-        for g in _recurrent_groups(state).values():
-            for name, leaf in g.items():     # "m": an xLSTM stabiliser
-                leaf[:, slot] = M_EMPTY if name == "m" else 0
+        reset_recurrent(state, slot)
         state["cur_len"][slot] = 0
         return state
     S = next((g["k"].shape[2] for g in attn_groups(state).values()), 1)

@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import local as L
 from ..kernels.dispatch import selective_scan
 from .config import ModelConfig
 
@@ -73,6 +74,12 @@ def _conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(u.dtype), ext
 
 
+def _local(t):
+    """A parameter as this rank's shard (a mixer's per-channel leaves
+    under a mesh; the tensor itself without one)."""
+    return t.to_local() if L.is_dtensor(t) else t
+
+
 def _mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
          conv_state: torch.Tensor, ssm_state: torch.Tensor, *, rep: int,
          final: bool, steps: bool, n_commit=None):
@@ -80,23 +87,46 @@ def _mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     state serving rows b*rep .. b*rep+rep-1.  Returns (y (B*rep, T, d),
     conv ext, final ssm state (after ``n_commit`` steps where given) or
     None, per-step states or None).  u goes to the scan in the compute
-    dtype (K5 upcasts it, as the reference kernel does)."""
+    dtype (K5 upcasts it, as the reference kernel does).
+
+    Under a mesh (``distributed/local.py``) x is this rank's local rows
+    and the states this rank's channel shard (d_inner over "model" by the
+    rules): the projections are products against the parameters' shards
+    (``in_proj``'s output gathered over its columns, ``x_proj`` and
+    ``out_proj`` reduced over the channels: partial sums), the conv and
+    the scan run on the rank's channels alone, with no collective, and y
+    is the DTensor of the global rows."""
     cd = cfg.compute_dtype
     dtr, ds = cfg.resolved_dt_rank, cfg.mamba_d_state
-    xz = x.to(cd) @ params["in_proj"].to(cd)
-    u, z = xz.chunk(2, dim=-1)
+    rows = L.current()
+    if rows is None:
+        xz = x.to(cd) @ params["in_proj"].to(cd)
+        u, z = xz.chunk(2, dim=-1)
+    else:
+        lo, hi, _ = L.state_dims("ssm", (1, 1, cfg.mamba_d_inner, ds))[2]
+        u, z = L.lower(L.product(x.to(cd), params["in_proj"])).chunk(2, -1)
+        u, z = u[..., lo:hi], z[..., lo:hi]
     if rep > 1:
         conv_state = conv_state.repeat_interleave(rep, dim=0)
-    u, ext = _conv(u, params["conv_w"], params["conv_b"], conv_state)
+    u, ext = _conv(u, _local(params["conv_w"]), _local(params["conv_b"]),
+                   conv_state)
     u = F.silu(u)
-    proj = (u @ params["x_proj"].to(cd)).float()
+    if rows is None:
+        proj = (u @ params["x_proj"].to(cd)).float()
+    else:
+        proj = L.lower(L.product(u, params["x_proj"])).float()
     dt_low, Bm, Cm = proj.split([dtr, ds, ds], dim=-1)
-    dt = F.softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
-    y, hT, hs = selective_scan(u, dt, A, Bm, Cm, params["D"], ssm_state,
-                               h0_rep=rep, final=final, steps=steps,
-                               n_commit=n_commit)
-    y = (y.to(cd) * F.silu(z)) @ params["out_proj"].to(cd)
+    dt = F.softplus(dt_low @ _local(params["dt_proj"]).float()
+                    + _local(params["dt_bias"]))
+    A = -torch.exp(_local(params["A_log"]))
+    y, hT, hs = selective_scan(u, dt, A, Bm, Cm, _local(params["D"]),
+                               ssm_state, h0_rep=rep, final=final,
+                               steps=steps, n_commit=n_commit)
+    y = y.to(cd) * F.silu(z)
+    if rows is None:
+        y = y @ params["out_proj"].to(cd)
+    else:
+        y = L.to_rows(L.product(y, params["out_proj"]))
     return y, ext, hT, hs
 
 
@@ -146,8 +176,11 @@ def mamba_mix_commit(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Empty (conv, ssm) states of ``batch`` rows (under a mesh: this
+    rank's rows and channel shard)."""
     conv = torch.zeros((batch, cfg.mamba_d_conv - 1, cfg.mamba_d_inner),
                        dtype=cfg.compute_dtype, device=device)
     ssm = torch.zeros((batch, cfg.mamba_d_inner, cfg.mamba_d_state),
                       dtype=torch.float32, device=device)
-    return conv, ssm
+    return (L.local_leaf("conv", conv, stacked=False),
+            L.local_leaf("ssm", ssm, stacked=False))

@@ -233,7 +233,7 @@ def _routed_mesh(params: Params, x, cfg: ModelConfig):
         e_lo = L.coord(mesh, "model") * local["w_gate"].shape[0]
     impl = moe_dense if cfg.moe_impl == "dense" else moe_scatter
     y, aux = impl(local, x.redistribute(mesh, rep).to_local(), cfg, e_lo)
-    y = DTensor.from_local(L.reduce_model(y, mesh), mesh, rep,
+    y = DTensor.from_local(L.reduce(y, ("model",)), mesh, rep,
                            run_check=False)
     return y.redistribute(mesh, L.current().placements(y.dim())), aux
 

@@ -279,6 +279,10 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
     tails = aux = None
     if L.current() is not None:
         h = L.to_rows(h)
+        if spec.mixer != ATTN:
+            # a recurrent mixer takes this rank's local rows and states
+            # and returns the DTensor of the global rows
+            h = h.to_local()
     if spec.mixer == ATTN:
         y, tails = _attn_mixer(bp["mixer"], h, cfg, mode, gst, ctx)
     else:

@@ -30,8 +30,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import local as L
 from .config import ModelConfig
-from .mamba import _conv
+from .mamba import _conv, _local
 
 Params = Dict[str, torch.Tensor]
 
@@ -111,6 +112,22 @@ def _keep(t: int, n_commit, new, old):
 # ----------------------------------------------------------------------------
 # mLSTM
 # ----------------------------------------------------------------------------
+def _mlstm_gates(log_i, log_f, m0):
+    """The stabiliser's (B, H) recurrence over the log gates, then every
+    step's gates at once, with the reference's operands and order
+    (``exp(lf + m - m_new)``): (m after each step (a list), i' (B, T, H,
+    1), f' (B, T, H, 1), the floor exp(-m) (B, T, H))."""
+    m, ms = m0, []
+    for lf, li in zip(log_f.unbind(1), log_i.unbind(1)):
+        m = torch.maximum(lf + m, li)
+        ms.append(m)
+    m_all = torch.stack(ms, dim=1)                            # (B, T, H)
+    m_prev = torch.cat([m0[:, None], m_all[:, :-1]], dim=1)
+    i_p = torch.exp(log_i - m_all)[..., None]                # (B, T, H, 1)
+    f_p = torch.exp(log_f + m_prev - m_all)[..., None]
+    return ms, i_p, f_p, torch.exp(-m_all)
+
+
 def _mlstm_cell_scan(q, k, v, log_i, log_f, C0, n0, m0,
                      n_commit: Optional[torch.Tensor] = None,
                      per_step: bool = False):
@@ -130,15 +147,8 @@ def _mlstm_cell_scan(q, k, v, log_i, log_f, C0, n0, m0,
     them and one product reads num and n . q together."""
     dh = q.shape[-1]
     k = k / (dh ** 0.5)
-    m, ms = m0, []
-    for lf, li in zip(log_f.unbind(1), log_i.unbind(1)):
-        m = torch.maximum(lf + m, li)
-        ms.append(m)
-    m_all = torch.stack(ms, dim=1)                            # (B, T, H)
-    m_prev = torch.cat([m0[:, None], m_all[:, :-1]], dim=1)
-    i_p = torch.exp(log_i - m_all)[..., None]                # (B, T, H, 1)
-    f_p = torch.exp(log_f + m_prev - m_all)[..., None]
-    floor = torch.exp(-m_all)                                 # (B, T, H)
+    ms, i_p, f_p, floor = _mlstm_gates(log_i, log_f, m0)
+    m = ms[-1]
     iv = i_p * torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     # each step's operands as views made once: (B, H, dh+1, 1) columns,
     # (B, H, 1, dh) rows, (B, H, dh, 1) queries
@@ -239,6 +249,9 @@ def mlstm_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     whose rows t..t+dc-2 are the conv state after t steps).  With
     ``n_commit`` the new state is each row's after its first n_commit
     steps."""
+    if L.current() is not None:
+        return _mlstm_mix_mesh(params, x, cfg, state, conv_state, rep=rep,
+                               n_commit=n_commit)
     cd = cfg.compute_dtype
     nh = cfg.num_heads
     if rep > 1:
@@ -269,6 +282,92 @@ def mlstm_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return y, new_state, ext
 
 
+def _mlstm_cell_dh(q, k, v, log_i, log_f, C0, n0, m0, kdims, n_commit=None):
+    """The mLSTM cell of a rank that holds a shard of every head's dims
+    (the rules' fallback when the heads divide no "model" axis): C0 (B,
+    H, dv, dh) its value dims' rows, n0 (B, H, dk) its key dims
+    ``kdims`` = (lo, hi, mesh axes) of n, m0 (B, H) whole.  q/k (B, T, H,
+    dh) whole, v (B, T, H, dv) the rank's value dims.  The same
+    arithmetic as ``_mlstm_cell_scan`` on those rows, except that n . q
+    is this rank's partial sum, reduced over ``kdims``' axes once after
+    the loop.  Returns (h (B, T, H, dv), the kept (C, n, m))."""
+    dh = q.shape[-1]
+    lo, hi, axes = kdims
+    k = k / (dh ** 0.5)
+    ms, i_p, f_p, floor = _mlstm_gates(log_i, log_f, m0)
+    m = ms[-1]
+    iv, ik = i_p * v, i_p * torch.ones_like(k[..., lo:hi])
+    C, n = C0, n0
+    kept = (C0, n0, m0)
+    reads, nqs = [], []
+    for t in range(q.shape[1]):
+        kt, qt, f = k[:, t], q[:, t], f_p[:, t]
+        C = torch.addcmul(iv[:, t].unsqueeze(-1) * kt.unsqueeze(-2),
+                          f.unsqueeze(-1), C)
+        n = torch.addcmul(ik[:, t] * kt[..., lo:hi], f, n)
+        reads.append((C @ qt.unsqueeze(-1)).squeeze(-1))
+        nqs.append((n * qt[..., lo:hi]).sum(-1))
+        if n_commit is not None:
+            kept = tuple(_keep(t, n_commit, new, old)
+                         for new, old in zip((C, n, ms[t]), kept))
+    nq = L.reduce(torch.stack(nqs, dim=1), axes)              # (B, T, H)
+    den = torch.maximum(nq.abs(), floor).unsqueeze(-1)
+    h = torch.stack(reads, dim=1) / den
+    return h, ((C, n, m) if n_commit is None else kept)
+
+
+def _mlstm_mix_mesh(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                    state: Tuple, conv_state: torch.Tensor, *, rep: int,
+                    n_commit: Optional[torch.Tensor]):
+    """``mlstm_mix`` under a mesh: x is this rank's local rows, the states
+    its shards (C, n, m over the heads on "model", else C's value dims and
+    n's key dims; the conv over the inner channels).  The projections are
+    products against the parameters' shards, gathered to whole rows of
+    the activation; the conv runs on the rank's channels, the cell on its
+    heads (or head dims); y is the DTensor of the global rows."""
+    cd = cfg.compute_dtype
+    nh = cfg.num_heads
+    di = mlstm_inner(cfg)
+    dh = di // nh
+    heads, vdims = L.state_dims("C", (1, 1, nh, dh, dh))[2:4]
+    kdims = L.state_dims("n", (1, 1, nh, dh))[3]
+    clo, chi, caxes = L.state_dims(
+        "conv", (1, 1, cfg.xlstm_conv_kernel - 1, di))[3]
+    if rep > 1:
+        state = tuple(a.repeat_interleave(rep, dim=0) for a in state)
+        conv_state = conv_state.repeat_interleave(rep, dim=0)
+    B, T, _ = x.shape
+    whole = lambda t, w: L.lower(L.product(t, params[w]))
+    xm, z = whole(x.to(cd), "up_proj").chunk(2, dim=-1)
+    xc, ext = _conv(xm[..., clo:chi], _local(params["conv_w"]),
+                    _local(params["conv_b"]), conv_state)
+    xc = L.gather(F.silu(xc), 2, caxes)
+    q = whole(xc, "wq").reshape(B, T, nh, dh).float()
+    k = whole(xc, "wk").reshape(B, T, nh, dh).float()
+    v = whole(xm, "wv").reshape(B, T, nh, dh).float()
+    if_gates = whole(xc, "w_if").float()
+    log_i = if_gates[..., :nh] + _local(params["b_i"])
+    log_f = F.logsigmoid(if_gates[..., nh:] + _local(params["b_f"]))
+    (hlo, hhi, haxes), (vlo, vhi, vaxes) = heads, vdims
+    if vaxes:
+        h, new_state = _mlstm_cell_dh(q, k, v[..., vlo:vhi], log_i, log_f,
+                                      *state, kdims, n_commit=n_commit)
+        h = L.gather(h, 3, vaxes)
+    else:
+        sl = slice(hlo, hhi)
+        h, new_state = _mlstm_cell_scan(q[:, :, sl], k[:, :, sl],
+                                        v[:, :, sl], log_i[..., sl],
+                                        log_f[..., sl], *state,
+                                        n_commit=n_commit)
+        h = L.gather(h, 2, haxes)
+    h = h.reshape(B, T, di).to(cd)
+    h = _groupnorm_heads(h, _local(params["gn_scale"]), nh)
+    h = h + _local(params["skip"]).to(cd) * xc
+    y = L.to_rows(L.product((h * F.silu(z))[..., clo:chi],
+                            params["down_proj"]))
+    return y, new_state, ext
+
+
 def init_mlstm_state(cfg: ModelConfig, batch: int, device):
     nh = cfg.num_heads
     di = mlstm_inner(cfg)
@@ -279,7 +378,9 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device):
     m = torch.full((batch, nh), M_EMPTY, **f32)
     conv = torch.zeros((batch, cfg.xlstm_conv_kernel - 1, di),
                        dtype=cfg.compute_dtype, device=device)
-    return (C, n, m), conv
+    # under a mesh, this rank's shards (``local.local_leaf``)
+    mine = lambda name, t: L.local_leaf(name, t, stacked=False)
+    return ((mine("C", C), mine("n", n), mine("m", m)), mine("conv", conv))
 
 
 # ----------------------------------------------------------------------------
@@ -287,7 +388,8 @@ def init_mlstm_state(cfg: ModelConfig, batch: int, device):
 # ----------------------------------------------------------------------------
 def _slstm_cell(pre: torch.Tensor, R: torch.Tensor, state: Tuple,
                 n_commit: Optional[torch.Tensor] = None,
-                per_step: bool = False):
+                per_step: bool = False,
+                dims: Optional[Tuple[int, int, Tuple[str, ...]]] = None):
     """The headwise sLSTM recurrence.  pre: (B, T, 4, H, dh) f32 gate
     pre-activations; R: (4, H, dh, dh) f32; state (c, n, h, m).  Returns
     the outputs (B, T, H, dh) and the final state, or with ``n_commit``
@@ -295,15 +397,27 @@ def _slstm_cell(pre: torch.Tensor, R: torch.Tensor, state: Tuple,
     (B, T, ...) states after every step (tests only).
 
     A step's recurrent term ``einsum("ghij,bhj->bghi", R, h)`` is one f32
-    batched product over the heads, R laid out (H, 4 dh, dh) once."""
+    batched product over the heads, R laid out (H, 4 dh, dh) once.
+
+    ``dims`` = (lo, hi, mesh axes): under a mesh whose "model" axis the
+    heads do not divide, this rank holds head dims lo:hi of every head
+    (the rules' fallback; the state's leaves (B, H, hi - lo)).  The
+    recurrent term sums over the previous h's dims, which the ranks share
+    out: each multiplies its own dims' columns of R by its own h, the
+    partial sums are reduced over the axes (no rank gathers h), and the
+    rank's dims of the gates update its c, n, h, m."""
     c, n, h, m = state
     G, H, dh = R.shape[0], R.shape[1], R.shape[2]
-    Rh = R.permute(1, 0, 2, 3).reshape(H, G * dh, dh)
+    lo, hi, axes = dims or (0, dh, ())
+    Rh = R[..., lo:hi].permute(1, 0, 2, 3).reshape(H, G * dh, hi - lo)
     kept = state
     hs, steps = [], []
     for t, pt in enumerate(pre.unbind(1)):
         rec = (Rh @ h.permute(1, 2, 0)).view(H, G, dh, -1)   # (H, 4, dh, B)
-        g = pt + rec.permute(3, 1, 0, 2)                     # (B, 4, H, dh)
+        rec = rec.permute(3, 1, 0, 2)                        # (B, 4, H, dh)
+        if dims is not None:
+            rec, pt = L.reduce(rec, axes)[..., lo:hi], pt[..., lo:hi]
+        g = pt + rec
         zt = torch.tanh(g[:, 0])
         it = g[:, 1]
         ft = F.logsigmoid(g[:, 2])
@@ -336,6 +450,9 @@ def slstm_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     Returns (y, new state), the new state each row's after its first
     n_commit steps when ``n_commit`` is given."""
+    if L.current() is not None:
+        return _slstm_mix_mesh(params, x, cfg, state, rep=rep,
+                               n_commit=n_commit)
     cd = cfg.compute_dtype
     nh = cfg.num_heads
     if rep > 1:
@@ -352,11 +469,50 @@ def slstm_mix(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return (g * u) @ params["ffn_down"].to(cd), new_state
 
 
+def _slstm_mix_mesh(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                    state: Tuple, *, rep: int,
+                    n_commit: Optional[torch.Tensor]):
+    """``slstm_mix`` under a mesh: x is this rank's local rows, the state
+    its shard (the heads over "model", else every head's dims).  ``w_in``'s
+    4 d output columns are gate-major (4, H, dh), so a "model" shard of
+    them is not a set of heads: the gate pre-activations are gathered to
+    whole rows of the activation and each rank runs the recurrence of its
+    own heads (or dims) alone.  The gated FFN is column- then
+    row-parallel; y is the DTensor of the global rows."""
+    cd = cfg.compute_dtype
+    nh = cfg.num_heads
+    B, T, d = x.shape
+    dh = d // nh
+    (hlo, hhi, haxes), dims = L.state_dims("h", (1, 1, nh, dh))[2:4]
+    if rep > 1:
+        state = tuple(a.repeat_interleave(rep, dim=0) for a in state)
+    pre = (L.lower(L.product(x.to(cd), params["w_in"])).float()
+           + _local(params["b"])).reshape(B, T, 4, nh, dh)
+    R = _local(params["r"])
+    if dims[2]:
+        hs, new_state = _slstm_cell(pre, R, state, n_commit=n_commit,
+                                    dims=dims)
+        hs = L.gather(hs, 3, dims[2])
+    else:
+        hs, new_state = _slstm_cell(pre[:, :, :, hlo:hhi], R[:, hlo:hhi],
+                                    state, n_commit=n_commit)
+        hs = L.gather(hs, 2, haxes)
+    y = hs.reshape(B, T, d).to(cd)
+    y = _groupnorm_heads(y, _local(params["gn_scale"]), nh)
+    g = F.gelu(y @ _local(params["ffn_gate"]).to(cd), approximate="tanh")
+    u = y @ _local(params["ffn_up"]).to(cd)
+    return L.to_rows(L.product(g * u, params["ffn_down"])), new_state
+
+
 def init_slstm_state(cfg: ModelConfig, batch: int, device):
+    """Empty (c, n, h, m) of ``batch`` rows (under a mesh: this rank's
+    rows and shard)."""
     nh = cfg.num_heads
     dh = cfg.d_model // nh
     z = lambda: torch.zeros((batch, nh, dh), dtype=torch.float32,
                             device=device)
-    return (z(), z(), z(),
-            torch.full((batch, nh, dh), M_EMPTY, dtype=torch.float32,
-                       device=device))
+    st = (z(), z(), z(),
+          torch.full((batch, nh, dh), M_EMPTY, dtype=torch.float32,
+                     device=device))
+    return tuple(L.local_leaf(name, t, stacked=False)
+                 for name, t in zip(("c", "n", "h", "m"), st))

@@ -73,15 +73,6 @@ from ..models.config import ModelConfig
 from .scheduler import DEFAULT_BUCKETS, Batch, Request, Scheduler, SlotMap
 
 
-def mesh_unsupported(cfg: ModelConfig) -> str:
-    """Why ``cfg`` cannot be served over a mesh ('' when it can): the mesh
-    serves attention stacks with dense or MoE FFNs."""
-    if M.has_recurrent(cfg):
-        return (f"{cfg.name}: recurrent mixers have no mesh path yet; serve "
-                f"it without a mesh")
-    return ""
-
-
 class ServingEngine:
     def __init__(self, params, cfg: ModelConfig,
                  spec: Optional[SpecConfig] = None,
@@ -128,15 +119,12 @@ class ServingEngine:
         ``mesh``: serve over a ``DeviceMesh`` (module docstring).  The
         ``params`` may then lie anywhere, the host say: each rank copies
         only its own shard of each to ``device``, so that no card holds the
-        whole model.  Attention stacks with dense or MoE FFNs; the kernels
-        take the same route as without a mesh, on each rank's local
-        tensors."""
+        whole model.  Every architecture of the registry: attention with
+        dense or MoE FFNs and the recurrent mixers (Mamba, mLSTM, sLSTM)
+        alike; the kernels take the same route as without a mesh, on each
+        rank's local tensors."""
         self.device = resolve_device(device)
         self.mesh = mesh
-        if mesh is not None:
-            why = mesh_unsupported(cfg)
-            if why:
-                raise NotImplementedError(why)
         self.params = params
         self.cfg = cfg
         self.spec = (spec or SpecConfig(strategy="greedy")).validate()

@@ -72,10 +72,14 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
-                 opt_state: Dict[str, Any]
+                 opt_state: Dict[str, Any], donate: bool = False
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new params, new optimizer state, metrics
-    {"grad_norm", "lr"}); the inputs are left as they are."""
+    {"grad_norm", "lr"}); the inputs are left as they are, unless
+    ``donate``: then each leaf's new values are copied into the params and
+    moments passed in, one leaf at a time, and those tensors are returned
+    (the same bits; the step then holds one state and one leaf's
+    temporaries, where the functional update holds two states)."""
     step = opt_state["step"]
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -91,7 +95,12 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
         delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         if p.dim() >= 2:  # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m_new, v_new
+        new = (p.float() - lr * delta).to(p.dtype), m_new, v_new
+        if donate:
+            for old, n in zip((p, m, v), new):
+                old.copy_(n)
+            return p, m, v
+        return new
 
     with torch.no_grad():
         out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])

@@ -5,10 +5,12 @@ layers), remat and the train-step factory (port of
 
 The step runs the full forward (``models.model.forward_hidden``, attention
 through ``attention.masked_attention``), autograd and AdamW in plain torch
-ops: no kernel of ``kernels/`` takes part, as none of the reference's
-Pallas kernels does in its training.  A Mamba layer's selective scan is
-differentiable only on the CPU (its plain version): on the card K5 has no
-backward and ``dispatch.selective_scan`` raises.
+ops, as the reference's training runs XLA, with one exception: a Mamba
+layer's selective scan.  The reference differentiates its XLA scan; the
+port's scan is K5, so on the card the scan trains through K5 and K5's
+backward kernel (``kernels/mamba_scan.mamba_scan_train``: with remat, K5
+runs twice a Mamba layer a step, its backward once), and on the CPU
+through autograd of K5's plain version.
 """
 from __future__ import annotations
 
@@ -80,14 +82,18 @@ def encoder_loss(params, cfg: ModelConfig, embeds: torch.Tensor,
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    remat: bool = True) -> Callable:
+                    remat: bool = True, donate: bool = False) -> Callable:
     """Returns train_step(train_state, batch) -> (train_state, metrics).
 
     train_state = {"params": ..., "opt": ...}; batch is the (B, T+1) token
     block (a tensor or a numpy array, moved to the parameters' device), or
     (embeds, targets) for an embedding-input config.  The state passed in
-    is left as it is.  Metrics are 0-dim tensors on the device (reading one
-    waits for the step): loss, aux_loss, ppl, grad_norm, lr, total_loss.
+    is left as it is, unless ``donate``: then its tensors are updated in
+    place and returned (the same values; ``adamw_update``), as a jit that
+    donates its state would, so that a step holds one copy of the
+    parameters and moments (a model whose two copies overflow the card).
+    Metrics are 0-dim tensors on the device (reading one waits for the
+    step): loss, aux_loss, ppl, grad_norm, lr, total_loss.
     """
     def train_step(train_state, batch):
         params = train_state["params"]
@@ -109,7 +115,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
         new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, params, grads, train_state["opt"])
+            opt_cfg, params, grads, train_state["opt"], donate=donate)
         metrics = {**metrics, **opt_metrics, "total_loss": loss.detach()}
         return {"params": new_params, "opt": new_opt}, metrics
 

@@ -26,6 +26,11 @@ token for token (tiny f32 model), with a tree too.  K5 f32 rtol = atol =
 2e-4 (the reference's kernel tolerance), and a tiny f32 hybrid served
 through K5 equals its greedy reference, paged and linear.  K5 computes a
 token with the same bits whatever the chunking of its calls (torch.equal).
+K5's backward: f32 relative 1e-4 of its plain version on every gradient
+(the same f32 recurrence in another summation order, ~1e-6 measured),
+the same bits on a second run; the smoke hybrid's f32 train steps on the
+card (K5 forward, K5's backward) give the CPU's losses and grad norms
+within 1e-4 (TRAIN_CPU_TOL's limit).
 The bf16 verify kernel keeps P to ~16 bits for P.V (a bf16 head and
 remainder): its max abs error at the main verify shape stays within
 P_SPLIT_ERR, half of what one bf16 P allowed.  Sampling: the threefry
@@ -877,28 +882,79 @@ def test_plain_window_verify_on_the_card_equals_the_cpu(cuda_device):
 
 
 @pytest.mark.gpu
-def test_mamba_training_on_the_card_raises(cuda_device):
-    """K5 has no backward: a train step of the hybrid on the card raises
-    the selective scan's guard, while a scan without gradients still runs
-    K5."""
+@pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bt,T,di,ds,final", [
+    (8, 128, 16384, 16, False),       # the hybrid's training shape
+    (8, 127, 16384, 16, True),        # T past a checkpoint's edge
+    (3, 37, 200, 8, True), (4, 5, 130, 4, False), (2, 20, 72, 12, True)])
+def test_mamba_scan_bwd_cuda_matches_plain(cuda_device, Bt, T, di, ds,
+                                           final, u_dtype):
+    """K5's backward against its plain version: f32 relative 1e-4 on every
+    gradient (du in f32, before the training call casts it to u's dtype),
+    and the same bits on a second run (no float atomics)."""
+    from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                                mamba_scan_bwd_plain)
+    ops = _scan_inputs(cuda_device, Bt, T, di, ds, 1, 5, u_dtype, seed=T)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dy = torch.randn((Bt, T, di), generator=g, device=cuda_device)
+    dhT = (torch.randn((Bt, di, ds), generator=g, device=cuda_device)
+           if final else None)
+    n = mamba_scan_bwd_cuda.launches
+    got = mamba_scan_bwd_cuda(*ops, dy, dhT)
+    again = mamba_scan_bwd_cuda(*ops, dy, dhT)
+    torch.cuda.synchronize()
+    assert mamba_scan_bwd_cuda.launches == n + 2
+    want = mamba_scan_bwd_plain(*ops, dy, dhT)
+    for name, a, b, c in zip(("du", "ddt", "dA", "dB", "dC", "dD", "dh0"),
+                             got, want, again):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err < 1e-4, (name, err)
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.gpu
+def test_mamba_training_on_the_card_equals_the_cpu(cuda_device):
+    """Three f32 train steps of the smoke hybrid (TF32 off) on the card,
+    its scan K5 with K5's backward kernel as the gradient, give the CPU's
+    losses and grad norms within 1e-4; K5 runs twice a Mamba layer a step
+    (the forward and remat's recompute), the backward once.  A
+    differentiated call outside the training contract raises, and a scan
+    without gradients still runs K5 alone."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.jamba_1_5_large_398b import no_experts
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_cuda
     from repro_torch.train import AdamWConfig, init_train_state
     from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import tree_map
     cfg = no_experts(get_smoke_config("jamba-1.5-large-398b"))
-    ts = init_train_state(cfg, seed=0, device=cuda_device)
-    batch = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 17))
-    step = make_train_step(cfg, AdamWConfig(total_steps=2, warmup_steps=1))
-    with pytest.raises(NotImplementedError, match="K5"):
-        step(ts, batch)
-    ops = _scan_inputs(cuda_device, 2, 5, 64, 8, 1, 8, "float32", seed=0)
+    n_mamba = sum(b.mixer == "mamba" for b in cfg.block_pattern) \
+        * cfg.num_periods
+    cpu_ts = init_train_state(cfg, seed=0, device="cpu")
+    ts = tree_map(lambda t: t.to(cuda_device), cpu_ts)
+    batch = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33))
+    step = make_train_step(cfg, AdamWConfig(total_steps=3, warmup_steps=1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for _ in range(3):
+            f0, b0 = mamba_scan_cuda.launches, mamba_scan_bwd_cuda.launches
+            ts, m = step(ts, batch)
+            cpu_ts, cm = step(cpu_ts, batch)
+            assert mamba_scan_cuda.launches - f0 == 2 * n_mamba
+            assert mamba_scan_bwd_cuda.launches - b0 == n_mamba
+            for k in ("loss", "grad_norm"):
+                a, b = float(m[k]), float(cm[k])
+                assert abs(a - b) <= 1e-4 * abs(b), (k, a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ops = _scan_inputs(cuda_device, 4, 5, 64, 8, 2, 8, "float32", seed=0)
     ops[0].requires_grad_()
-    with pytest.raises(NotImplementedError, match="no backward"):
-        dispatch.selective_scan(*ops)
+    with pytest.raises(ValueError, match="training call"):
+        dispatch.selective_scan(*ops, h0_rep=2)
     n = mamba_scan_cuda.launches
     with torch.no_grad():
-        dispatch.selective_scan(*ops)
+        dispatch.selective_scan(*ops, h0_rep=2)
     assert mamba_scan_cuda.launches == n + 1
 
 

@@ -150,7 +150,7 @@ def test_kernel_build_needs_nvcc(tmp_path, monkeypatch):
     """Each CUDA source is a kernel; without nvcc the build raises instead
     of leaving a wrapper with no kernel."""
     assert set(build.sources()) == {"spec_attention", "ngram_match",
-                                    "mamba_scan"}
+                                    "mamba_scan", "mamba_scan_bwd"}
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)

@@ -118,9 +118,6 @@ def test_serve_cli_refuses_the_mesh(monkeypatch):
         serve.main(["--arch", ARCH, "--mesh", "2x2"])
     with pytest.raises(SystemExit, match="DxM"):
         serve.main(["--arch", ARCH, "--mesh", "2by2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="recurrent"):
-        serve.main(["--arch", "jamba-1.5-large-398b", "--mesh", "1x1",
-                    "--device", "cpu"])
     # under a launcher's one-rank group (torchrun's environment)
     for k, v in dict(WORLD_SIZE="1", RANK="0", MASTER_ADDR="localhost",
                      MASTER_PORT=str(_free_port())).items():
@@ -147,6 +144,32 @@ def test_serve_cli_mesh_prints_the_same_texts(trained):
     assert lines[:-1] == drop_id(out)
     assert lines[-1].startswith("mesh: {'data': 2, 'model': 2} params "
                                 "sharded ")
+    for a, b in zip(plain, meshed):
+        np.testing.assert_array_equal(a.output_ids, b.output_ids)
+    assert not torch.distributed.is_initialized()
+
+
+def test_serve_cli_mesh_serves_the_hybrid(tmp_path):
+    """The recurrent mixers serve under ``--mesh``: jamba-smoke (Mamba with
+    its MoE FFN, plus attention), trained two steps and saved, served over
+    ``--mesh 1x1 --device cpu`` prints what the call without ``--mesh``
+    prints, then the mesh line."""
+    arch = "jamba-1.5-large-398b"
+    path = str(tmp_path / "jamba-smoke.npz")
+    _run(train.main, ["--arch", arch, "--steps", "2", "--batch", "2",
+                      "--device", "cpu", "--save", path])
+    argv = ["--arch", arch, "--ckpt", path, "--device", "cpu",
+            "--n-prompts", str(N_PROMPTS), "--max-new", str(MAX_NEW),
+            "--continuous"]
+    plain, out = _run(serve.main, argv)
+    meshed, out_m = _run(serve.main, argv + ["--mesh", "1x1"])
+    drop_id = lambda text: [re.sub(r"^\[req \d+\] ", "", ln)
+                            for ln in text.splitlines()]
+    lines = drop_id(out_m)
+    assert lines[:-1] == drop_id(out)
+    assert lines[-1].startswith("mesh: {'data': 1, 'model': 1} params "
+                                "sharded ")
+    assert len(meshed) == N_PROMPTS
     for a, b in zip(plain, meshed):
         np.testing.assert_array_equal(a.output_ids, b.output_ids)
     assert not torch.distributed.is_initialized()

@@ -362,6 +362,23 @@ def test_mesh_shape_parsing_and_clear_error_without_a_group():
         make_debug_mesh((2, 2))
 
 
+def test_debug_mesh_defaults_to_the_card(tmp_path):
+    """``make_debug_mesh`` is an entry point: its default device is the
+    card, so without one it raises unless the caller asks for the CPU."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make_debug_mesh((1, 1))
+        mesh = make_debug_mesh((1, 1), "cpu")
+        assert mesh.device_type == "cpu"
+        assert tuple(mesh.mesh_dim_names) == ("data", "model")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_every_arch_has_full_param_coverage():
     """Every leaf of every published config gets a spec of its rank whose
     axes divide the dim, on both production meshes."""

@@ -226,6 +226,31 @@ def test_remat_equals_no_remat(dense_run):
                                    atol=1e-6, err_msg=k)
 
 
+def test_donated_step_equals_the_functional_step(tiny_dense_cfg):
+    """``donate=True`` writes the new parameters and moments into the
+    state passed in (the same tensors come back) with the functional
+    step's bits, two steps running."""
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = ModelConfig.from_reference(tiny_dense_cfg)
+    opt = O.AdamWConfig(lr=1e-3, total_steps=4, warmup_steps=1)
+    batches = _tokens(cfg.vocab_size, 2, seed=5)
+    runs = {}
+    for donate in (False, True):
+        ts = T.init_train_state(cfg, seed=0, device="cpu")
+        held = [t for t in tree_leaves(ts["params"])]
+        step = T.make_train_step(cfg, opt, donate=donate)
+        for b in batches:
+            ts, m = step(ts, b)
+        same = all(a is b for a, b in zip(tree_leaves(ts["params"]), held))
+        assert same == donate
+        runs[donate] = (ts, m)
+    (a, ma), (b, mb) = runs[False], runs[True]
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)
+
+
 def test_remat_is_for_the_full_forward_only(tiny_dense_cfg):
     cfg = ModelConfig.from_reference(tiny_dense_cfg)
     params = M.init_params(cfg, device="cpu")

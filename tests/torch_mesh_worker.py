@@ -90,7 +90,8 @@ COLLECTIVES = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all",
 
 
 class CollectiveBytes:
-    """CommDebugMode plus the bytes of every collective's output."""
+    """CommDebugMode plus the bytes of every collective's output and the
+    storages of its tensor inputs."""
 
     def __init__(self):
         from torch.distributed.tensor.debug import CommDebugMode
@@ -108,8 +109,12 @@ class CollectiveBytes:
                                        else [out])
                              if isinstance(t, torch.Tensor))
                     outer.ops.append((kind, int(nb)))
+                    outer.inputs.update(
+                        t.untyped_storage().data_ptr() for t in args
+                        if isinstance(t, torch.Tensor))
                 return out
         self.ops = []
+        self.inputs = set()
         self.mode = Mode()
 
     def __enter__(self):
@@ -239,7 +244,7 @@ def cases(rank, data):
     from repro_torch.models import attention
     from repro_torch.serving.engine import ServingEngine
     cfg, params, tables = data["cfg"], data["params"], data["tables"]
-    mesh = make_debug_mesh((2, 2))
+    mesh = make_debug_mesh((2, 2), "cpu")
     res, secs = {}, {}
 
     def timed(name, fn):
@@ -307,7 +312,7 @@ def cases(rank, data):
     # (2 kv heads divide 4 ranks not), so its reads gather the sequence
     # and its writes land on the shard that holds their slot
     for shape, cap in (((1, 4), 19), ((4, 1), 16)):
-        m = make_debug_mesh(shape)
+        m = make_debug_mesh(shape, "cpu")
         e = eng("mixed", m=m, max_new_cap=cap)
         timed(f"shape/{shape[0]}x{shape[1]}",
               lambda: serve(e, prompts=PROMPTS[:3]))
@@ -327,7 +332,105 @@ def cases(rank, data):
     return res
 
 
-def run(rank, world, init, data_path, out_path):
+RECURRENT = ("jamba", "xlstm")
+RECURRENT_LEAVES = ("conv", "ssm", "C", "n", "m", "c", "h")
+
+
+def recurrent_step_collectives(eng, paged=False):
+    """Admit the prompts, then count one continuous mixed step's
+    collectives; whether any took a recurrent state leaf's local storage
+    as its input (a leaf gathered), and the parameters' gathers."""
+    from repro_torch.distributed import local as L
+    from repro_torch.distributed.sharding import state_leaf_items
+    for p, m in PROMPTS[:4]:
+        eng.submit(p, max_new_tokens=m)
+    eng.step()
+    leaves = {"/".join(p): t.to_local().untyped_storage().data_ptr()
+              for p, t in state_leaf_items(eng._cont_state)
+              if p[0] == "model" and p[-1] in RECURRENT_LEAVES}
+    L.PARAM_GATHERS = []
+    try:
+        with CollectiveBytes() as cb:
+            eng._cont_state = eng._run_step(eng._cont_state)
+        gathers = L.PARAM_GATHERS
+    finally:
+        L.PARAM_GATHERS = None
+    eng.serve_continuous()
+    from repro_torch.distributed.sharding import walk
+    unsplit = sorted({t.numel() * t.element_size()
+                      for p, t in walk(eng.params) if p[-1] == "router"})
+    return dict(cb.summary(), paged=paged, param_gathers=gathers,
+                router_bytes=unsplit, leaves=sorted(leaves),
+                leaves_gathered=sorted(p for p, ptr in leaves.items()
+                                       if ptr in cb.inputs))
+
+
+def recurrent_cases(rank, data):
+    """The recurrent mixers under the mesh: jamba-smoke (Mamba with its
+    MoE FFN, attention) and xlstm-smoke (mLSTM, sLSTM), and xlstm-smoke
+    with two heads on (1, 4), whose C falls to the head-dim sharding."""
+    from repro_torch.distributed import local as L
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serving.engine import ServingEngine
+    meshes = {"2x2": make_debug_mesh((2, 2), "cpu")}
+    res, secs = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        secs[name] = time.perf_counter() - t0
+
+    def eng(arch, strategy, m="2x2", **kw):
+        cfg, params, tables = data[arch]
+        tb = tables if strategy != "greedy" or kw.get("adaptive") else None
+        return ServingEngine(params, cfg, spec(strategy), tables=tb,
+                             mesh=meshes[m], **engine_kw(**kw))
+
+    for arch in RECURRENT:
+        for s in ("greedy", "mixed"):
+            timed(f"{arch}/static/{s}", lambda: serve(eng(arch, s),
+                                                      "static"))
+        timed(f"{arch}/continuous/greedy",
+              lambda: serve(eng(arch, "greedy")))
+        e = eng(arch, "mixed")
+        bad, calls = watch_fixed_point(e)
+        timed(f"{arch}/continuous/mixed", lambda: serve(e))
+        res[f"{arch}/fixed_point/linear"] = (bad, calls)
+        res[f"{arch}/report/2x2"] = e.mesh_report()
+    for s in ("greedy", "mixed"):
+        e = eng("jamba", s, paged=True, page_size=8)
+        bad, calls = watch_fixed_point(e)
+        timed(f"jamba/paged/{s}", lambda: serve(e))
+        res[f"jamba/fixed_point/paged/{s}"] = (bad, calls)
+        res[f"jamba/pool/paged/{s}"] = e.pool_stats()
+    timed("jamba/adaptive", lambda: serve(eng("jamba", "mixed",
+                                              adaptive=True, arms=ARMS)))
+    for shape in ((1, 4), (4, 1)):
+        name = f"{shape[0]}x{shape[1]}"
+        meshes[name] = make_debug_mesh(shape, "cpu")
+        for arch in RECURRENT:
+            e = eng(arch, "mixed", m=name)
+            timed(f"{arch}/shape/{name}",
+                  lambda: serve(e, prompts=PROMPTS[:3]))
+            res[f"{arch}/report/{name}"] = e.mesh_report()
+    e = eng("xlstm-h2", "mixed", m="1x4")
+    timed("xlstm-h2/shape/1x4", lambda: serve(e, prompts=PROMPTS[:3]))
+    res["xlstm-h2/report/1x4"] = e.mesh_report()
+    for arch, m in (("jamba", "2x2"), ("xlstm", "2x2"), ("xlstm-h2", "1x4")):
+        cfg, params, _ = data[arch]
+        mesh = meshes[m]
+        params_dt = shd.rebuild(params, lambda p, t: L.distribute(
+            t, mesh, shd.param_pspec(mesh, p, t)))
+        timed(f"{arch}/logits", lambda: logits_gap(params_dt, params, cfg,
+                                                   mesh))
+        timed(f"{arch}/collectives", lambda: recurrent_step_collectives(
+            eng(arch, "mixed", m=m)))
+    res["seconds"] = secs
+    return res
+
+
+def run(rank, world, init, data_path, out_path, which="attention"):
     torch.set_num_threads(1)
     warnings.simplefilter("ignore")
     # a collective that waits past the timeout raises: a hang fails
@@ -338,7 +441,8 @@ def run(rank, world, init, data_path, out_path):
         with open(data_path, "rb") as f:
             data = pickle.load(f)
         try:
-            res = cases(rank, data)
+            res = (cases if which == "attention"
+                   else recurrent_cases)(rank, data)
         except Exception:
             res = {"error": traceback.format_exc()}
         if rank == 0:
