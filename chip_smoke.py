@@ -173,16 +173,21 @@ Phases (any failure raises and the script exits non-zero):
                launches; 11e: the hybrid trains on the card: K5's
                backward (``csrc/mamba_scan_bwd.cu``) against its plain
                version at the training shape (8 x 128, d_inner 16384,
-               d_state 16; bf16 and f32 u, a ragged T, odd shapes; f32
+               d_state 16; bf16 and f32 u, a ragged T, 1 x 1024 steps
+               with a gradient into the final state, odd shapes; f32
                relative K5_BWD_TOL on every gradient, a second run
-               bit-equal), timed beside its bound; then
+               bit-equal), K5's training instance (the checkpoints the
+               backward reads) bit-equal to K5's own states, the backward
+               timed beside its bound; then
                ``no_experts(with_experts(config(), 2, 3), 1)`` (Mamba and
                attention with SwiGLU FFNs at full width, 2.853 B, bf16
                params and f32 moments, the state donated) trains
                HYB_TRAIN_STEPS steps of the mixture with remat: ms a step,
                peak memory, the loss falling, K5 twice and its backward
-               once a Mamba layer a step and no other kernel (asserted);
-               then in f32 (TF32 off), on 1 x 32 tokens of 2 batches with
+               once a Mamba layer a step and no other kernel (asserted),
+               and two more steps under torch.profiler (busy share, top
+               kernels, K5's backward's share); then in f32 (TF32 off),
+               on 1 x 32 tokens of 2 batches with
                the card's AdamW step between, the loss, grad norm and
                every Mamba parameter's gradient equal the CPU's on the
                same weights (TRAIN_CPU_TOL, relative).
@@ -1557,16 +1562,16 @@ def profile_steps(params, cfg, spec, tables, prompts, steps: int = 4,
 
 
 def profile_window(label: str, one_step, steps: int = 4, focus: str = "",
-                   ranges: tuple = ()):
-    """``steps`` calls of ``one_step`` under torch.profiler after two warm
-    ones: wall ms per step, the device-busy share (kernel time / wall),
+                   ranges: tuple = (), warm: int = 2):
+    """``steps`` calls of ``one_step`` under torch.profiler after ``warm``
+    warm ones: wall ms per step, the device-busy share (kernel time / wall),
     device ops per step and the kernels with the most device time; with
     ``focus``, also the device ms per step of the kernels whose name holds
     it; for each name in ``ranges`` (a ``named_ranges`` range), the device
     ms per step of the kernels launched inside it.  Returns those
     numbers."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
+    for _ in range(warm):
         one_step()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3958,23 +3963,60 @@ def k5_bwd_bound_ms(Bt, T, di, ds, u_bytes, final) -> tuple:
                                  else "operations")
 
 
+def k5_ckpt_check(ops) -> None:
+    """K5's training instance on ``ops`` (h0_rep 1): y and the final state
+    the serving instance's bits, and each checkpoint (the state before
+    every CHUNK-th step) the final state of K5 run on that prefix, bit for
+    bit; prints its device ms beside the serving instance's."""
+    import torch
+    from repro_torch.kernels.mamba_scan import (CHUNK, mamba_scan_cuda,
+                                                n_chunks)
+    u, dt, A, B, C, D, h0 = ops
+    Bt, T, di = u.shape
+    ckpt = torch.empty((Bt, n_chunks(T), di, A.shape[-1]), device="cuda")
+    y, hT, _ = mamba_scan_cuda(*ops, ckpt=ckpt)
+    y0, hT0, _ = mamba_scan_cuda(*ops)
+    same = [torch.equal(ckpt[:, 0], h0)]
+    for c in range(1, n_chunks(T)):
+        t = c * CHUNK
+        same.append(torch.equal(ckpt[:, c], mamba_scan_cuda(
+            u[:, :t].contiguous(), dt[:, :t].contiguous(), A, B[:, :t],
+            C[:, :t], D, h0)[1]))
+    if not (torch.equal(y, y0) and torch.equal(hT, hT0) and all(same)):
+        raise AssertionError(f"K5's training instance: y {torch.equal(y, y0)}"
+                             f", hT {torch.equal(hT, hT0)}, checkpoints "
+                             f"{same}")
+    ms = [device_ms(lambda: mamba_scan_cuda(*ops, ckpt=ckpt), iters=10),
+          device_ms(lambda: mamba_scan_cuda(*ops), iters=10)]
+    print(f"  K5 training instance Bt={Bt} T={T} di={di}: y and hT equal the "
+          f"serving instance's, {len(same)} checkpoints equal K5's prefix "
+          f"states (torch.equal); device ms {fmt_ms(ms[0])} against "
+          f"{fmt_ms(ms[1])} without checkpoints")
+
+
 def k5_bwd_check() -> dict:
     """11e: K5's backward against its plain version on the card, at the
     training shape (TRAIN_B x TRAIN_T, d_inner 16384, d_state 16) with bf16
     and f32 u, at a ragged T past a checkpoint's edge with a gradient into
-    the final state, and at odd shapes: f32 relative K5_BWD_TOL on every
-    gradient (du before its cast to u's dtype), and a second run bit-equal
-    (no float atomics).  Then its time at the training shape (bf16 u)
-    beside its bound and its plain version's.  Returns its record."""
+    the final state, at 1 x 1024 steps (64 chunks of the pipeline) and at
+    odd shapes: f32 relative K5_BWD_TOL on every gradient (du before its
+    cast to u's dtype), and a second run bit-equal (no float atomics; the
+    first takes the checkpoints of K5's training instance, as training
+    does, the second makes its own).  K5's training instance against its
+    serving one (``k5_ckpt_check``).  Then the backward's time at the
+    training shape (bf16 u) beside its bound and its plain version's.
+    Returns its record."""
     import torch
     from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
-                                                mamba_scan_bwd_plain)
+                                                mamba_scan_bwd_plain,
+                                                mamba_scan_cuda, n_chunks)
     di, ds = 16384, 16
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, Bt, T, di, ds, u dtype, a gradient into hT, dt rank
         ("train", TRAIN_B, TRAIN_T, di, ds, bf16, False, 512),
         ("train f32 u", TRAIN_B, TRAIN_T, di, ds, f32, False, 512),
         ("ragged T", TRAIN_B, TRAIN_T - 1, di, ds, bf16, True, 512),
+        ("T=1024", 1, 1024, di, ds, bf16, True, 512),
         ("T=37 di=200 ds=8", 3, 37, 200, 8, f32, True, 7),
         ("T=5 di=130 ds=3", 4, 5, 130, 3, bf16, False, 5)]
     err = 0.0
@@ -3985,7 +4027,9 @@ def k5_bwd_check() -> dict:
         dy = torch.randn((Bt, T, d_), generator=g, device="cuda")
         dhT = (torch.randn((Bt, d_, s_), generator=g, device="cuda")
                if final else None)
-        got = mamba_scan_bwd_cuda(*ops, dy, dhT)
+        ckpt = torch.empty((Bt, n_chunks(T), d_, s_), device="cuda")
+        mamba_scan_cuda(*ops, final=False, ckpt=ckpt)
+        got = mamba_scan_bwd_cuda(*ops, dy, dhT, ckpt)
         again = mamba_scan_bwd_cuda(*ops, dy, dhT)
         want = mamba_scan_bwd_plain(*ops, dy, dhT)
         sync()
@@ -4004,8 +4048,12 @@ def k5_bwd_check() -> dict:
               f"{str(udt)[6:]} dhT={final}: relative {', '.join(rel)} "
               f"(tol {K5_BWD_TOL}), second run bit-equal")
     ops = k5_inputs(TRAIN_B, TRAIN_T, di, ds, seed=5, u_dtype=bf16)
+    k5_ckpt_check(ops)
     dy = torch.randn((TRAIN_B, TRAIN_T, di), device="cuda")
-    run = lambda: mamba_scan_bwd_cuda(*ops, dy)
+    ckpt = torch.empty((TRAIN_B, n_chunks(TRAIN_T), di, ds), device="cuda")
+    mamba_scan_cuda(*ops, final=False, ckpt=ckpt)
+    # the training call's: the forward's checkpoints handed over
+    run = lambda: mamba_scan_bwd_cuda(*ops, dy, ckpt=ckpt)
     bound, by = k5_bwd_bound_ms(TRAIN_B, TRAIN_T, di, ds, 2, False)
     r = dict(max_abs_err=err, ms=time_ms(run, iters=10),
              device_ms=device_ms(run, iters=10),
@@ -4062,7 +4110,8 @@ def phase_hybrid_train() -> tuple:
     mixture with remat, the state donated (updated in place: two copies
     of it do not fit the card): ms a step, peak memory, the loss falling,
     and K5's forward twice and its backward once a Mamba layer a step
-    (asserted; no other kernel); last, in f32 (TF32 off) on
+    (asserted; no other kernel), then two more steps under torch.profiler
+    (K5's backward's share of the step); last, in f32 (TF32 off) on
     HYB_CHECK_ROWS x HYB_CHECK_T of each of HYB_CHECK_STEPS batches, the
     loss, the grad norm and every Mamba parameter's gradient equal the
     CPU's on the same weights within TRAIN_CPU_TOL (relative), the card's
@@ -4119,6 +4168,25 @@ def phase_hybrid_train() -> tuple:
                              f"no other kernel")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"11e: the loss did not fall: {losses}")
+    # two more steps under torch.profiler (warm already): where a step's
+    # device time goes, and K5's backward's share of it
+    from repro_torch.train import make_train_step
+    step = make_train_step(cfg, AdamWConfig(
+        lr=TRAIN_LR, total_steps=steps + 2, warmup_steps=max(steps // 10, 1)),
+        remat=True, donate=True)
+    box, batch = [ts], mixture(steps)[-1]
+    del ts
+
+    def one_step():
+        box[0] = step(box[0], batch)[0]
+    print("phase 11e: where a hybrid train step's time goes (torch.profiler)")
+    prof = profile_window("11e hybrid train step", one_step, steps=2,
+                          focus="mamba_scan_bwd", warm=0)
+    print(f"  11e: K5's backward (kernel and reduction) "
+          f"{prof['focus_ms']:.3f} device ms a step, "
+          f"{prof['focus_ms'] / max(prof['busy_ms'], 1e-9):.2%} of the "
+          f"step's device-busy time")
+    ts = box.pop()
     del ts
     gc.collect()
     torch.cuda.empty_cache()
@@ -5126,15 +5194,22 @@ def ptxas_report(log: str) -> list:
     spill report) for every entry function of an nvcc log; the bf16
     verify kernel's instances read spec_attention_mma_kernel<head-dim
     capacity, fragments a warp, paged>, K5's mamba_scan_kernel<state
-    capacity, u's type, keeps the state after n_commit>."""
+    capacity, u's type, keeps the state after n_commit, writes the
+    training checkpoints>, its backward's mamba_scan_bwd_kernel<state
+    capacity, u's type>."""
     out, kernel, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled, kernel = m.group(1), m.group(1)
-            for d in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
-                ident = mangled[d.end():d.end() + int(d.group(1))]
-                if ident.endswith("_kernel"):
+            # a length prefix may follow a namespace hash's digits: try
+            # every suffix of each run of digits
+            for d in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+                k = next((k for k in range(d.start(), d.end()) if mangled[
+                    d.end():d.end() + int(mangled[k:d.end()])].endswith(
+                        ("_kernel", "_reduce"))), None)
+                if k is not None:
+                    ident = mangled[d.end():d.end() + int(mangled[k:d.end()])]
                     rest = mangled[d.end() + len(ident):]
                     args = template_args(rest[1:]) \
                         if rest.startswith("I") else []

@@ -55,6 +55,11 @@
 // refused.  Whether the final state is the last one or the one after
 // n_commit steps selects the instance (kSelect).  No tensor cores: the
 // scan has no matrix product.
+// * Training's instance (kCkpt) also writes the state before every kChunk-th
+//   step, (Bt, n_chunks, di, ds), for K5's backward (mamba_scan_bwd.cu),
+//   which rebuilds each chunk's states from it instead of walking the
+//   scan again: one 16-byte store a lane a chunk, y's and hT's arithmetic
+//   unchanged.  The serving instances (kCkpt false) compile as before.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +82,7 @@ struct Args {
   const int* n_commit; // (Bt,) or null
   float* y;            // (Bt, T, di)
   float* hT;           // (Bt, di, ds) or null
+  float* ckpt;         // (Bt, n_chunks, di, ds), kCkpt only
   long long b_sb, b_st, c_sb, c_st;
   int T, di, ds, h0_rep;
   int vec_tile;        // u, dt, B and C rows 16-byte aligned: cp.async
@@ -216,7 +222,8 @@ __device__ __forceinline__ void stage(Stage<DS, TU>& sm, const Args& a,
 // double-buffered pipeline, so a verify block's rows overlap their loads
 // like a long prefill, and the rows share one read of h0, A and D.
 // kSelect: hT is the state after n_commit[b] steps, not the last one.
-template <int DS, typename TU, bool kSelect>
+// kCkpt: write the state before each chunk to ckpt (h0_rep 1).
+template <int DS, typename TU, bool kSelect, bool kCkpt>
 __global__ void __launch_bounds__(kThreads) mamba_scan_kernel(const Args a) {
   using S = Stage<DS, TU>;
   constexpr int kG = S::kG;
@@ -265,6 +272,9 @@ __global__ void __launch_bounds__(kThreads) mamba_scan_kernel(const Args a) {
       for (int k = 0; k < 4; ++k) h[k] = hk[k] = h0[k];
       if (kSelect) keep = max(0, min(a.n_commit[b], T));
     }
+    if (kCkpt && live)
+      store4(a.ckpt + (((long long)b * n_chunks + ci) * a.di + d) * ds, h,
+             s0, ds, vs);
     const long long row_t0 = (long long)b * T + t0;  // (b, t0) in y
     const int n = min(kChunk, T - t0);
     // steps j0 .. j0+kGroup-1, of which the first m are real: the others
@@ -339,10 +349,12 @@ template <int DS, typename TU>
 cudaError_t launch_out(const Args& a, int Bt, cudaStream_t st) {
   constexpr int kCh = Stage<DS, TU>::kCh;
   const dim3 grid((a.di + kCh - 1) / kCh, Bt / a.h0_rep);
-  if (a.n_commit != nullptr)
-    mamba_scan_kernel<DS, TU, true><<<grid, kThreads, 0, st>>>(a);
+  if (a.ckpt != nullptr)
+    mamba_scan_kernel<DS, TU, false, true><<<grid, kThreads, 0, st>>>(a);
+  else if (a.n_commit != nullptr)
+    mamba_scan_kernel<DS, TU, true, false><<<grid, kThreads, 0, st>>>(a);
   else
-    mamba_scan_kernel<DS, TU, false><<<grid, kThreads, 0, st>>>(a);
+    mamba_scan_kernel<DS, TU, false, false><<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -361,8 +373,9 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // Returns cudaGetLastError() of the launch (cudaErrorInvalidValue for a ds
-// outside 1..16, which launches nothing).  u_bf16: u is bf16, else f32.
-// n_commit (device, int32 (Bt,)) or null; hT may be null.
+// outside 1..16, or for ckpt with n_commit or h0_rep > 1, which launches
+// nothing).  u_bf16: u is bf16, else f32.  n_commit (device, int32 (Bt,))
+// or null; hT may be null; ckpt (Bt, ceil(T / 16), di, ds) or null.
 extern "C" int mamba_scan_launch(const void* u, int u_bf16, const float* dt,
                                  const float* A, const float* Bm,
                                  long long b_sb, long long b_st,
@@ -370,17 +383,20 @@ extern "C" int mamba_scan_launch(const void* u, int u_bf16, const float* dt,
                                  long long c_st, const float* D,
                                  const float* h0, int h0_rep,
                                  const int* n_commit, float* y, float* hT,
-                                 int Bt, int T, int di, int ds,
+                                 float* ckpt, int Bt, int T, int di, int ds,
                                  void* stream) {
+  if (ckpt != nullptr && (n_commit != nullptr || h0_rep != 1))
+    return (int)cudaErrorInvalidValue;
   const int u_size = u_bf16 ? 2 : 4;
   const bool tile = aligned16(u) && aligned16(dt) && aligned16(Bm) &&
                     aligned16(Cm) && (di * u_size) % 16 == 0 && di % 4 == 0 &&
                     ds % 4 == 0 && b_sb % 4 == 0 && b_st % 4 == 0 &&
                     c_sb % 4 == 0 && c_st % 4 == 0;
-  const bool state =
-      ds % 4 == 0 && aligned16(h0) && (hT == nullptr || aligned16(hT));
-  Args a{u,    dt,   A,    Bm,   Cm, D,  h0, n_commit, y,      hT,
-         b_sb, b_st, c_sb, c_st, T,  di, ds, h0_rep,   tile,   state};
+  const bool state = ds % 4 == 0 && aligned16(h0) &&
+                     (hT == nullptr || aligned16(hT)) &&
+                     (ckpt == nullptr || aligned16(ckpt));
+  Args a{u,    dt,   A,    Bm, Cm, D,      h0,   n_commit, y,    hT, ckpt,
+         b_sb, b_st, c_sb, c_st, T, di, ds, h0_rep, tile,     state};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(u_bf16 ? launch_ds<__nv_bfloat16>(a, Bt, st)
                       : launch_ds<float>(a, Bt, st));

@@ -20,27 +20,42 @@
 //   dh0   = a_0 * g_0
 //
 // What bounds it on the H100, at the hybrid's training shape (Bt, T, di, ds) =
-// (8, 128, 16384, 16): the bytes of u, dt, dy, du and ddt (~0.29 GB with bf16
-// u, ~0.09 ms) above the 268 M exps of the a_t (~0.06 ms on the special-
-// function units).  This first kernel is simple and right, not fast: it
-// computes every exp three times and moves a checkpoint of the states.
+// (8, 128, 16384, 16): not the bytes of u, dt, dy, du and ddt (~0.29 GB with
+// bf16 u, ~0.086 ms) but the SMs.  Each (b, t, d, s) takes two exps on the
+// special-function units (16 a clock an SM: ~0.13 ms for 537 M) and ~23
+// instructions in all (~13 of them FP32), ~0.21 ms at one warp instruction
+// a clock a scheduler.  The kept states need ~250 registers a lane, so an
+// SM holds 8 warps, and the latency those cannot hide is the rest (PERF.md
+// has the measured split: the channel sums' shared-memory round trip is
+// the largest single part).
 //
-// Design.  The forward's thread layout: each (row, channel) carries its DS
-// states split over G = DS / 4 neighbouring lanes, 4 states a lane, so a
-// state recomputed here has the forward's arithmetic bit for bit (one FMUL
-// and one ex2.approx for the exp, one FMA for the update).
-// * Recompute, not store: pass 1 walks the steps forward from h0 and writes
-//   the state before every kChunk-th step to a scratch checkpoint (Bt,
-//   n_chunks, di, ds); pass 2 walks the chunks in reverse, rebuilds each
-//   chunk's states from its checkpoint into shared memory (each lane its own
-//   slots, so no barrier) and then walks the chunk's steps in reverse.
-// * No float atomics: the sums over channels (dB, dC) go through warp
-//   shuffles and a fixed-order sum over the block's warps to one partial a
-//   channel block (nbx, Bt, T, ds); the sums over rows (dA, dD) to one
-//   partial a row (Bt, di, ds) and (Bt, di).  A second kernel adds the
-//   partials up in a fixed order, so two runs give the same bits.
-// * The dot products over a channel's states (g . B and the dt term) are
-//   shuffles across its G lanes; the channel's first lane writes du and ddt.
+// Design.  Each (row, channel) carries its DS states split over G = DS / E
+// neighbouring lanes, E = 8 states a lane (4 at ds 4): a lane's per-step
+// work (its operands, the sums over its channel, du and ddt) is spread
+// over 8 states.  128 lanes a block, two blocks an SM.  A state rebuilt here
+// has the forward's arithmetic bit for bit (one FMUL and one ex2.approx.ftz
+// for the exp, one FMA for the update).
+// * Checkpoints, not a second walk: K5's training instance (mamba_scan.cu,
+//   kCkpt) wrote the state before every kChunk-th step, ckpt (Bt, n_chunks,
+//   di, ds).  The chunks go in reverse; each chunk's states are rebuilt from
+//   its checkpoint with every h_{t-1} kept in registers (kChunk x E), then
+//   walked in reverse, a_t taken again: two exps a (b, t, d, s), and no
+//   state goes through memory.
+// * Operands staged: the chunk's u, dt and dy tiles (kChunk x channels), its
+//   B and C rows and each lane's checkpoint by 16-byte cp.async,
+//   double-buffered, so that chunk c-1 is in flight while chunk c computes
+//   (plain loads where a row is not 16-byte aligned); one barrier a chunk.
+// * Sums over a channel's states (g . B, and the A term of ddt) go over its
+//   G lanes as one reduce-scatter of two values: one shuffle a step.
+// * Sums over channels (dB, dC) off the shuffle path: each lane stores its
+//   terms of a step to shared memory (16-byte stores, each channel's row
+//   swizzled so that a quarter warp's stores hit every bank once); every
+//   kSub steps the warp adds its channels in a fixed order, and at the next
+//   chunk the block adds its warps in a fixed order into one partial a block
+//   (nbx, Bt, T, ds).  The sums over rows (dA, dD) go to one partial a row
+//   (Bt, di, ds) and (Bt, di).  No float atomics: a second kernel, launched
+//   to wait on this one (programmatic dependent launch), adds the partials
+//   in a fixed order, so two runs give the same bits.
 // ds is a template capacity (4, 8 or 16) with a run-time guard, as in the
 // forward.  u is f32 or bf16; every gradient is written in f32 (the wrapper
 // casts du to u's dtype).
@@ -50,22 +65,23 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // lanes a block
+constexpr int kThreads = 128;   // lanes a block (two blocks an SM)
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 16;      // steps a checkpoint; states kept in smem
+constexpr int kChunk = 16;      // steps a checkpoint: mamba_scan.cu's kChunk
+constexpr int kSub = 4;         // steps between the warps' channel sums
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
   const void* u;       // (Bt, T, di) contiguous, f32 or bf16
   const float* dt;     // (Bt, T, di)
   const float* A;      // (di, ds)
-  const float* Bm;     // (Bt, T, ds) contiguous
-  const float* Cm;     // (Bt, T, ds) contiguous
+  const float* Bm;     // (Bt, T, ds), strides (b_sb, b_st, 1)
+  const float* Cm;     // (Bt, T, ds), strides (c_sb, c_st, 1)
   const float* D;      // (di,)
-  const float* h0;     // (Bt, di, ds)
   const float* dy;     // (Bt, T, di)
   const float* dhT;    // (Bt, di, ds) or null
-  float* ckpt;         // (Bt, n_chunks, di, ds) scratch
+  const float* ckpt;   // (Bt, n_chunks, di, ds): the state before each chunk
   float* du;           // (Bt, T, di)
   float* ddt;          // (Bt, T, di)
   float* dh0;          // (Bt, di, ds)
@@ -73,7 +89,9 @@ struct Args {
   float* pC;           // (nbx, Bt, T, ds)
   float* pA;           // (Bt, di, ds) partials over rows
   float* pD;           // (Bt, di)
+  long long b_sb, b_st, c_sb, c_st;
   int Bt, T, di, ds, n_chunks;
+  int vec_tile;        // u, dt, dy, B and C rows 16-byte aligned: cp.async
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -87,196 +105,389 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// 4 states s0..s0+3 of a state vector at p (zeros past ds)
-__device__ __forceinline__ void load4(float (&h)[4], const float* p, int s0,
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok (src is
+// then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// *p = v where ok, as one predicated store (no branch)
+__device__ __forceinline__ void st_if(float* p, float v, bool ok) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q st.global.f32 [%0], "
+      "%1;\n}" ::"l"(p),
+      "f"(v), "r"((int)ok)
+      : "memory");
+}
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void sts4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// N states s0..s0+N-1 of a state vector at p (zeros past ds), and back
+template <int N>
+__device__ __forceinline__ void loadn(float (&h)[N], const float* p, int s0,
                                       int ds) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) h[k] = s0 + k < ds ? p[s0 + k] : 0.f;
+  for (int k = 0; k < N; ++k) h[k] = s0 + k < ds ? p[s0 + k] : 0.f;
 }
-__device__ __forceinline__ void store4(float* p, const float (&h)[4], int s0,
+template <int N>
+__device__ __forceinline__ void storen(float* p, const float (&h)[N], int s0,
                                        int ds) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int k = 0; k < N; ++k)
     if (s0 + k < ds) p[s0 + k] = h[k];
 }
 
-// The sum of v over the G lanes of a channel (every lane gets it).
-template <int G>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-// The sum of v over the warp's channels, lane by lane of a channel's group
-// (lanes i and i + G hold the same state slot).
-template <int G>
-__device__ __forceinline__ float channel_sum(float v) {
-#pragma unroll
-  for (int o = G; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int DS>
+template <int DS, typename TU>
 struct Smem {
-  static constexpr int kG = DS / 4;
-  float hist[kChunk][kThreads][4];        // h_{t-1} of each step of a chunk
-  float red[2][kChunk][kWarps][DS];       // warp sums of dB, dC a step
+  static constexpr int kE = DS < 8 ? DS : 8;  // states a lane
+  static constexpr int kG = DS / kE;          // lanes a channel
+  static constexpr int kCh = kThreads / kG;   // channels a block
+  static constexpr int kW = 32 / kG;          // channels a warp
+  static constexpr int kOut = 2 * DS;         // dB and dC terms a step
+  TU u[2][kChunk][kCh];
+  float dt[2][kChunk][kCh];
+  float dy[2][kChunk][kCh];
+  float B[2][kChunk][DS];
+  float C[2][kChunk][DS];
+  float ck[2][kThreads][kE];          // each lane's states before the chunk
+  // kSub steps' terms of each warp: kW rows (channels) of kOut
+  float red[kWarps][kSub][kW * kOut];
+  float red2[2][kChunk][kWarps][kOut];   // each warp's channel sums a step
+  // the 16-byte group of a row's terms that a channel w of the warp keeps
+  // at group o / 4: o ^ swz(w), so that the kG lanes of 8 / kG channels
+  // (a quarter warp) store to 8 different groups of 4 banks
+  static __device__ __forceinline__ int swz(int w) {
+    return DS == 16 ? 4 * ((w & 1) | ((w & 2) << 1))
+           : DS == 8 ? 4 * ((w >> 1) & 3)
+                     : 4 * ((w >> 2) & 1);
+  }
 };
 
-// One block: kCh channels of batch row blockIdx.y.
+// Stage chunk c (steps t0 = c * kChunk ..) of row b for the block's
+// channels c0.. into buffer buf, with each lane's states of the checkpoint
+// before it: zeros past T, past di and past ds.
 template <int DS, typename TU>
-__global__ void __launch_bounds__(kThreads)
-    mamba_scan_bwd_kernel(const Args a) {
-  using S = Smem<DS>;
-  constexpr int kG = S::kG;
-  constexpr int kCh = kThreads / kG;
-  __shared__ __align__(16) S sm;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int c0 = blockIdx.x * kCh;
-  const int d = c0 + tid / kG;
-  const int s0 = 4 * (tid % kG);
-  const bool live = d < a.di;
-  const int b = blockIdx.y, T = a.T, di = a.di, ds = a.ds;
-  const TU* u = static_cast<const TU*>(a.u);
-  const long long row = (long long)b * T;   // (b, 0) in (Bt, T, .)
-
-  float Ad[4] = {0.f, 0.f, 0.f, 0.f}, A2[4], h[4] = {0.f, 0.f, 0.f, 0.f};
-  float Dd = 0.f;
-  if (live) {
-    load4(Ad, a.A + (long long)d * ds, s0, ds);
-    load4(h, a.h0 + ((long long)b * di + d) * ds, s0, ds);
-    Dd = a.D[d];
+__device__ __forceinline__ void stage(Smem<DS, TU>& sm, const Args& a,
+                                      int buf, int b, int c0, int c) {
+  using S = Smem<DS, TU>;
+  constexpr int kCh = S::kCh, kG = S::kG, kE = S::kE;
+  const int t0 = c * kChunk, n = min(kChunk, a.T - t0), cn = a.di - c0;
+  const int di = a.di, ds = a.ds, tid = threadIdx.x;
+  const long long e0 = ((long long)b * a.T + t0) * di + c0;  // (b, t0, c0)
+  const TU* const u = static_cast<const TU*>(a.u) + e0;
+  const float* const dt = a.dt + e0;
+  const float* const dy = a.dy + e0;
+  const float* const Bb =
+      a.Bm + (long long)b * a.b_sb + (long long)t0 * a.b_st;
+  const float* const Cb =
+      a.Cm + (long long)b * a.c_sb + (long long)t0 * a.c_st;
+  const int b_st = (int)a.b_st, c_st = (int)a.c_st;
+  // the checkpoint (b, c, c0, 0), and the lane's channel and first state
+  const float* const ck =
+      a.ckpt + (((long long)b * a.n_chunks + c) * di + c0) * ds;
+  const int cl = tid / kG, s0 = kE * (tid % kG);
+  if (a.vec_tile) {  // di, ds multiples of 16 bytes' elements: all or none
+    constexpr int kUp = 16 / sizeof(TU);            // u elements a piece
+    constexpr int kUr = kCh / kUp, kFr = kCh / 4, kBr = DS / 4;
+#pragma unroll
+    for (int k = 0; k < kE; k += 4) {
+      const bool ok = cl < cn && s0 + k < ds;
+      cp_async16(&sm.ck[buf][tid][k], ok ? ck + cl * ds + s0 + k : a.ckpt,
+                 ok);
+    }
+#pragma unroll
+    for (int p = 0; p < (kChunk * kUr + kThreads - 1) / kThreads; ++p) {
+      const int i = p * kThreads + tid;
+      const int tt = i / kUr, cc = (i % kUr) * kUp;
+      const bool ok = tt < n && cc < cn;
+      if (i < kChunk * kUr)
+        cp_async16(&sm.u[buf][tt][cc], u + (ok ? tt * di + cc : 0), ok);
+    }
+#pragma unroll
+    for (int p = 0; p < (kChunk * kFr + kThreads - 1) / kThreads; ++p) {
+      const int i = p * kThreads + tid;
+      const int tt = i / kFr, cc = (i % kFr) * 4;
+      const bool ok = tt < n && cc < cn;
+      const int off = ok ? tt * di + cc : 0;
+      if (i < kChunk * kFr) {
+        cp_async16(&sm.dt[buf][tt][cc], dt + off, ok);
+        cp_async16(&sm.dy[buf][tt][cc], dy + off, ok);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < (2 * kChunk * kBr + kThreads - 1) / kThreads; ++p) {
+      const int i = p * kThreads + tid;
+      const int m = i / (kChunk * kBr), k = i % (kChunk * kBr);
+      const int tt = k / kBr, ss = (k % kBr) * 4;
+      const bool ok = tt < n && ss < ds;
+      const float* src = m ? Cb + (ok ? tt * c_st + ss : 0)
+                           : Bb + (ok ? tt * b_st + ss : 0);
+      if (i < 2 * kChunk * kBr)
+        cp_async16(m ? &sm.C[buf][tt][ss] : &sm.B[buf][tt][ss], src, ok);
+    }
+    return;
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) A2[k] = Ad[k] * kLog2e;
+  for (int k = 0; k < kE; ++k)
+    sm.ck[buf][tid][k] =
+        cl < cn && s0 + k < ds ? ck[cl * ds + s0 + k] : 0.f;
+#pragma unroll
+  for (int p = 0; p < (kChunk * kCh + kThreads - 1) / kThreads; ++p) {
+    const int i = p * kThreads + tid;
+    const int tt = i / kCh, cc = i % kCh;
+    const bool ok = tt < n && cc < cn;
+    if (i < kChunk * kCh) {
+      sm.u[buf][tt][cc] = ok ? u[tt * di + cc] : TU(0.f);
+      sm.dt[buf][tt][cc] = ok ? dt[tt * di + cc] : 0.f;
+      sm.dy[buf][tt][cc] = ok ? dy[tt * di + cc] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < (kChunk * DS + kThreads - 1) / kThreads; ++p) {
+    const int i = p * kThreads + tid;
+    const int tt = i / DS, ss = i % DS;
+    const bool ok = tt < n && ss < ds;
+    if (i < kChunk * DS) {
+      sm.B[buf][tt][ss] = ok ? Bb[tt * b_st + ss] : 0.f;
+      sm.C[buf][tt][ss] = ok ? Cb[tt * c_st + ss] : 0.f;
+    }
+  }
+}
 
-  // step t's operands (zeros for a dead channel)
-  auto operands = [&](int t, float& dtv, float& uv, float (&Bs)[4]) {
-    const long long i = (row + t) * di + d;
-    dtv = live ? a.dt[i] : 0.f;
-    uv = live ? to_f32(u[i]) : 0.f;
-    load4(Bs, a.Bm + (row + t) * ds, s0, ds);
+// One block: kCh channels of batch row blockIdx.y, every chunk in reverse.
+// Steps past T (a last chunk's, zero-filled: dt = 0, so a = 1 and nothing
+// is added) leave every state and sum as they are, and store nothing.
+template <int DS, typename TU>
+__global__ void __launch_bounds__(kThreads, 2)
+    mamba_scan_bwd_kernel(const Args a) {
+  using S = Smem<DS, TU>;
+  constexpr int kE = S::kE, kG = S::kG, kCh = S::kCh, kW = S::kW;
+  constexpr int kOut = S::kOut;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S& sm = *reinterpret_cast<S*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c0 = blockIdx.x * kCh, cl = tid / kG, q = tid % kG, s0 = kE * q;
+  const int d = c0 + cl;
+  const bool live = d < a.di;
+  const int b = blockIdx.y, T = a.T, di = a.di, ds = a.ds, nc = a.n_chunks;
+
+  stage<DS, TU>(sm, a, (nc - 1) & 1, b, c0, nc - 1);
+  cp_async_commit();
+  // the reduction's blocks may launch (they wait for this grid to finish)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  float A2[kE], g[kE], accA[kE], accD = 0.f, Dd = 0.f;
+#pragma unroll
+  for (int k = 0; k < kE; ++k) A2[k] = g[k] = accA[k] = 0.f;
+  if (live) {
+    loadn(A2, a.A + (long long)d * ds, s0, ds);
+#pragma unroll
+    for (int k = 0; k < kE; ++k) A2[k] *= kLog2e;
+    Dd = a.D[d];
+    if (a.dhT != nullptr)
+      loadn(g, a.dhT + ((long long)b * di + d) * ds, s0, ds);
+  }
+  // this lane's du (q == 0) or ddt (q == 1; with kG == 1 the one lane
+  // writes both) at step t: col[t * di]
+  float* const col = (q == 0 ? a.du : a.ddt) + (long long)b * T * di + d;
+  // this lane's row of a step's terms: g_t * dt_t * u_t at s0.., dy_t * h_t
+  // at DS + s0..
+  const int w = lane / kG;
+  float* const rw = sm.red[warp][0] + w * kOut;
+  const int sw = S::swz(w);
+  // the warp's sums: lane < kOut adds terms o0..o0+3 of step jw of kSub
+  const int jw = lane / (kOut / 4), o0 = 4 * (lane % (kOut / 4));
+  const float* const rs = sm.red[warp][jw];
+
+  // the block's sums over its warps of chunk cc's steps, in order
+  auto block_sum = [&](const int cc) {
+    const int tc = cc * kChunk, nn = min(kChunk, T - tc);
+    float* const pBt =
+        a.pB + (((long long)blockIdx.x * a.Bt + b) * T + tc) * ds;
+    float* const pCt =
+        a.pC + (((long long)blockIdx.x * a.Bt + b) * T + tc) * ds;
+#pragma unroll
+    for (int i0 = 0; i0 < kChunk * kOut; i0 += kThreads) {
+      const int i = i0 + tid, j = i / kOut, o = i % kOut, s = o % DS;
+      if (i < kChunk * kOut && j < nn && s < ds) {
+        float sum = sm.red2[cc & 1][j][0][o];
+#pragma unroll
+        for (int ww = 1; ww < kWarps; ++ww) sum += sm.red2[cc & 1][j][ww][o];
+        (o < DS ? pBt : pCt)[j * ds + s] = sum;
+      }
+    }
   };
 
-  // pass 1: the state before every kChunk-th step
-  float* ck = a.ckpt + ((long long)b * a.n_chunks * di + d) * ds;
-  const long long ck_stride = (long long)di * ds;   // one chunk
-  for (int t = 0; t < T; ++t) {
-    if (t % kChunk == 0 && live)
-      store4(ck + (t / kChunk) * ck_stride, h, s0, ds);
-    float dtv, uv, Bs[4];
-    operands(t, dtv, uv, Bs);
-    const float dtu = dtv * uv;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      h[k] = fmaf(ex2(dtv * A2[k]), h[k], dtu * Bs[k]);
-  }
-
-  // pass 2: the chunks in reverse
-  float g[4] = {0.f, 0.f, 0.f, 0.f};   // a_{t+1} * g_{t+1}: the carry
-  if (a.dhT != nullptr && live)
-    load4(g, a.dhT + ((long long)b * di + d) * ds, s0, ds);
-  float accA[4] = {0.f, 0.f, 0.f, 0.f}, accD = 0.f;
-  for (int c = a.n_chunks - 1; c >= 0; --c) {
-    const int t0 = c * kChunk, n = min(kChunk, T - t0);
-    float hp[4] = {0.f, 0.f, 0.f, 0.f};
-    if (live) load4(hp, ck + c * ck_stride, s0, ds);
-    for (int j = 0; j < n; ++j) {     // rebuild the chunk's states
-#pragma unroll
-      for (int k = 0; k < 4; ++k) sm.hist[j][tid][k] = hp[k];
-      float dtv, uv, Bs[4];
-      operands(t0 + j, dtv, uv, Bs);
-      const float dtu = dtv * uv;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        hp[k] = fmaf(ex2(dtv * A2[k]), hp[k], dtu * Bs[k]);
+  for (int c = nc - 1; c >= 0; --c) {
+    const int buf = c & 1, t0 = c * kChunk, n = min(kChunk, T - t0);
+    cp_async_wait_all();
+    __syncthreads();  // chunk c is staged; chunk c + 1 is done
+    if (c > 0) {
+      stage<DS, TU>(sm, a, buf ^ 1, b, c0, c - 1);
+      cp_async_commit();
     }
-    for (int j = n - 1; j >= 0; --j) {
-      const int t = t0 + j;
-      float dtv, uv, Bs[4], Cs[4], prev[4], ex[4], ht[4];
-      operands(t, dtv, uv, Bs);
-      load4(Cs, a.Cm + (row + t) * ds, s0, ds);
-      const float dyv = live ? a.dy[(row + t) * di + d] : 0.f;
-      const float dtu = dtv * uv;
-      float gB = 0.f, gA = 0.f, cB[4], cC[4];
+    if (c + 1 < nc) block_sum(c + 1);
+    const float* const dtp = &sm.dt[buf][0][cl];
+    const TU* const up = &sm.u[buf][0][cl];
+    const float* const dyp = &sm.dy[buf][0][cl];
+    const float* const Bp = &sm.B[buf][0][s0];
+    const float* const Cp = &sm.C[buf][0][s0];
+
+    // the chunk's states, rebuilt from its checkpoint: h_{t-1} of each step
+    float hp[kChunk][kE], h[kE];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        prev[k] = sm.hist[j][tid][k];
-        ex[k] = ex2(dtv * A2[k]);
-        ht[k] = fmaf(ex[k], prev[k], dtu * Bs[k]);
-        g[k] = fmaf(dyv, Cs[k], g[k]);               // g_t
-        gB = fmaf(g[k], Bs[k], gB);
-        const float gha = g[k] * ex[k] * prev[k];
-        gA = fmaf(gha, Ad[k], gA);
-        accA[k] = fmaf(gha, dtv, accA[k]);
-        cB[k] = g[k] * dtu;
-        cC[k] = dyv * ht[k];
-        g[k] *= ex[k];                               // the carry to t-1
-      }
-      gB = group_sum<kG>(gB);
-      gA = group_sum<kG>(gA);
-      if (live && tid % kG == 0) {
-        const long long i = (row + t) * di + d;
-        a.du[i] = fmaf(dyv, Dd, dtv * gB);
-        a.ddt[i] = fmaf(uv, gB, gA);
-        accD = fmaf(dyv, uv, accD);
-      }
+    for (int k = 0; k < kE; ++k) h[k] = sm.ck[buf][tid][k];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        cB[k] = channel_sum<kG>(cB[k]);
-        cC[k] = channel_sum<kG>(cC[k]);
-      }
-      if (lane < kG) {
+    for (int j = 0; j < kChunk; ++j) {
+      const float dtv = dtp[j * kCh];
+      const float dtu = dtv * to_f32(up[j * kCh]);
+#pragma unroll
+      for (int k4 = 0; k4 < kE; k4 += 4) {
+        const float4 Bv = lds4(Bp + j * DS + k4);
+        const float Bs[4] = {Bv.x, Bv.y, Bv.z, Bv.w};
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          sm.red[0][j][warp][s0 + k] = cB[k];
-          sm.red[1][j][warp][s0 + k] = cC[k];
+          hp[j][k4 + k] = h[k4 + k];
+          h[k4 + k] = fmaf(ex2(dtv * A2[k4 + k]), h[k4 + k], dtu * Bs[k]);
         }
       }
     }
-    __syncthreads();   // the chunk's warp sums are in shared memory
-    for (int i = tid; i < 2 * n * DS; i += kThreads) {
-      const int m = i / (n * DS), r = i % (n * DS), j = r / DS, s = r % DS;
-      if (s >= ds) continue;
-      float sum = 0.f;
+
+    // the reverse walk; the warp sums its channels' terms every kSub steps
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += sm.red[m][j][w][s];
-      float* p = m ? a.pC : a.pB;
-      p[(((long long)blockIdx.x * a.Bt + b) * T + t0 + j) * ds + s] = sum;
+    for (int j0 = kChunk - kSub; j0 >= 0; j0 -= kSub) {
+      if (j0 >= n) continue;   // the same for the whole block
+      float* const cs = col + (long long)(t0 + j0) * di;   // step j0's row
+#pragma unroll
+      for (int jj = kSub - 1; jj >= 0; --jj) {
+        const int j = j0 + jj;
+        const float dtv = dtp[j * kCh], uv = to_f32(up[j * kCh]);
+        const float dyv = dyp[j * kCh];
+        const float dtu = dtv * uv;
+        float v1 = 0.f, gA = 0.f, cB[kE], cC[kE];
+#pragma unroll
+        for (int k4 = 0; k4 < kE; k4 += 4) {
+          const float4 Bv = lds4(Bp + j * DS + k4);
+          const float4 Cv = lds4(Cp + j * DS + k4);
+          const float Bs[4] = {Bv.x, Bv.y, Bv.z, Bv.w};
+          const float Cs[4] = {Cv.x, Cv.y, Cv.z, Cv.w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int k = k4 + kk;
+            const float ht =                             // h_t
+                j == kChunk - 1 ? h[k] : hp[j + 1 < kChunk ? j + 1 : j][k];
+            const float ea = ex2(dtv * A2[k]);           // a_t, again
+            g[k] = fmaf(dyv, Cs[kk], g[k]);              // g_t
+            v1 = fmaf(g[k], Bs[kk], v1);
+            const float ga = g[k] * ea;                  // the carry to t-1
+            const float gha = ga * hp[j][k];
+            gA = fmaf(gha, A2[k], gA);
+            accA[k] = fmaf(gha, dtv, accA[k]);
+            cB[k] = g[k] * dtu;
+            cC[k] = dyv * ht;
+            g[k] = ga;
+          }
+        }
+        float* const r = rw + jj * (kW * kOut);
+#pragma unroll
+        for (int k4 = 0; k4 < kE; k4 += 4) {
+          sts4(r + ((s0 + k4) ^ sw), cB + k4);
+          sts4(r + ((DS + s0 + k4) ^ sw), cC + k4);
+        }
+        accD = fmaf(dyv, uv, accD);   // 0 past T
+        // the channel's sums over its kG lanes: lane 0 gets g . B, lane 1
+        // u * (g . B) + the A term (= ddt)
+        float v2 = fmaf(uv, v1, gA * kLn2);
+        if (kG == 2) {
+          const bool hi = q == 1;
+          float keep = hi ? v2 : v1;
+          keep += __shfl_xor_sync(0xffffffffu, hi ? v1 : v2, 1);
+          v1 = v2 = keep;
+        }
+        const float duv = fmaf(dyv, Dd, dtv * v1);
+        st_if(cs + jj * di, q == 0 ? duv : v2, live && j < n);
+        if constexpr (kG == 1)   // the one lane writes ddt too
+          st_if(a.ddt + (cs - a.du) + jj * di, v2, live && j < n);
+      }
+      __syncwarp();
+      // the warp's sums over its kW channels, in order, 4 terms a lane
+      if (lane < kOut) {
+        float4 acc = lds4(rs + (o0 ^ S::swz(0)));
+#pragma unroll
+        for (int ww = 1; ww < kW; ++ww) {
+          const float4 v = lds4(rs + ww * kOut + (o0 ^ S::swz(ww)));
+          acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+        }
+        const float vs[4] = {acc.x, acc.y, acc.z, acc.w};
+        sts4(&sm.red2[buf][j0 + jw][warp][o0], vs);
+      }
+      __syncwarp();   // red is free for the next kSub steps
     }
-    __syncthreads();   // red is free for the next chunk
   }
+  __syncthreads();
+  block_sum(0);
   if (live) {
-    store4(a.dh0 + ((long long)b * di + d) * ds, g, s0, ds);
-    store4(a.pA + ((long long)b * di + d) * ds, accA, s0, ds);
-    if (tid % kG == 0) a.pD[(long long)b * di + d] = accD;
+    storen(a.dh0 + ((long long)b * di + d) * ds, g, s0, ds);
+    storen(a.pA + ((long long)b * di + d) * ds, accA, s0, ds);
+    if (q == 0) a.pD[(long long)b * di + d] = accD;
   }
 }
 
 // The partials added up in a fixed order: dB, dC over the nbx channel
-// blocks; dA, dD over the Bt rows.
-__global__ void mamba_scan_bwd_reduce(const float* pB, const float* pC,
-                                      const float* pA, const float* pD,
-                                      float* dB, float* dC, float* dA,
-                                      float* dD, int nbx, int Bt,
-                                      long long n_bc, long long n_a,
-                                      long long n_d) {
-  const long long total = 2 * n_bc + n_a + n_d;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
+// blocks (a block of kRed x 32 lanes: lane x of output k adds partials x,
+// x + kRed, ... in order, then one lane adds the kRed sums in order); dA,
+// dD over the Bt rows (a lane an output).  Launched to overlap the main
+// kernel's tail, it waits for that grid's writes first.
+constexpr int kRed = 16;
+__global__ void __launch_bounds__(kRed * 32)
+    mamba_scan_bwd_reduce(const float* pB, const float* pC, const float* pA,
+                          const float* pD, float* dB, float* dC, float* dA,
+                          float* dD, int nbx, int Bt, long long n_bc,
+                          long long n_a, long long n_d, int bc_blocks) {
+  __shared__ float part[kRed][32];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int kk = threadIdx.x % 32, xs = threadIdx.x / 32;
+  if (blockIdx.x < bc_blocks) {
+    const long long k = blockIdx.x * 32LL + kk;
+    const bool ok = k < 2 * n_bc, isC = k >= n_bc;
+    const long long m = isC ? k - n_bc : k;
+    const float* p = isC ? pC : pB;
     float sum = 0.f;
-    if (i < 2 * n_bc) {
-      const bool isC = i >= n_bc;
-      const long long k = isC ? i - n_bc : i;
-      const float* p = isC ? pC : pB;
-      for (int x = 0; x < nbx; ++x) sum += p[x * n_bc + k];
-      (isC ? dC : dB)[k] = sum;
-    } else if (i < 2 * n_bc + n_a) {
-      const long long k = i - 2 * n_bc;
-      for (int r = 0; r < Bt; ++r) sum += pA[r * n_a + k];
-      dA[k] = sum;
+    if (ok)
+      for (int x = xs; x < nbx; x += kRed) sum += p[x * n_bc + m];
+    part[xs][kk] = sum;
+    __syncthreads();
+    if (xs == 0 && ok) {
+      sum = part[0][kk];
+#pragma unroll
+      for (int r = 1; r < kRed; ++r) sum += part[r][kk];
+      (isC ? dC : dB)[m] = sum;
+    }
+    return;
+  }
+  for (long long i = (blockIdx.x - bc_blocks) * (long long)blockDim.x +
+                     threadIdx.x;
+       i < n_a + n_d; i += (long long)(gridDim.x - bc_blocks) * blockDim.x) {
+    float sum = 0.f;
+    if (i < n_a) {
+      for (int r = 0; r < Bt; ++r) sum += pA[r * n_a + i];
+      dA[i] = sum;
     } else {
-      const long long k = i - 2 * n_bc - n_a;
+      const long long k = i - n_a;
       for (int r = 0; r < Bt; ++r) sum += pD[r * n_d + k];
       dD[k] = sum;
     }
@@ -285,9 +496,14 @@ __global__ void mamba_scan_bwd_reduce(const float* pB, const float* pC,
 
 template <int DS, typename TU>
 cudaError_t launch_out(const Args& a, cudaStream_t st) {
-  constexpr int kCh = kThreads / (DS / 4);
-  const dim3 grid((a.di + kCh - 1) / kCh, a.Bt);
-  mamba_scan_bwd_kernel<DS, TU><<<grid, kThreads, 0, st>>>(a);
+  using S = Smem<DS, TU>;
+  const int bytes = static_cast<int>(sizeof(S));   // past 48 KB: opt in
+  const cudaError_t e = cudaFuncSetAttribute(
+      mamba_scan_bwd_kernel<DS, TU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.di + S::kCh - 1) / S::kCh, a.Bt);
+  mamba_scan_bwd_kernel<DS, TU><<<grid, kThreads, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -299,44 +515,66 @@ cudaError_t launch_ds(const Args& a, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
 // The channel blocks of the main kernel for ds (the partials' leading dim
 // nbx, which the caller allocates), or 0 for a ds outside 1..16.
 extern "C" int mamba_scan_bwd_blocks(int di, int ds) {
-  const int g = ds <= 4 ? 1 : ds <= 8 ? 2 : ds <= 16 ? 4 : 0;
+  const int g = ds <= 8 ? 1 : ds <= 16 ? 2 : 0;   // lanes a channel
   if (ds < 1 || g == 0) return 0;
   const int ch = kThreads / g;
   return (di + ch - 1) / ch;
 }
 
-// The checkpoint interval (the scratch's n_chunks = ceil(T / it)).
+// The checkpoint interval (ckpt's n_chunks = ceil(T / it)).
 extern "C" int mamba_scan_bwd_chunk() { return kChunk; }
 
-// Launches the main kernel, then the reduction; returns cudaGetLastError()
-// of the first launch that failed (cudaErrorInvalidValue for a ds outside
-// 1..16, which launches nothing).  dhT may be null.
+// Launches the main kernel, then the reduction; returns the CUDA error of
+// the first launch that failed (cudaErrorInvalidValue for a ds outside
+// 1..16, which launches nothing).  dhT may be null; ckpt is K5's training
+// instance's (mamba_scan_launch with ckpt).
 extern "C" int mamba_scan_bwd_launch(
     const void* u, int u_bf16, const float* dt, const float* A,
-    const float* Bm, const float* Cm, const float* D, const float* h0,
-    const float* dy, const float* dhT, float* ckpt, float* du, float* ddt,
-    float* dh0, float* pB, float* pC, float* pA, float* pD, float* dB,
-    float* dC, float* dA, float* dD, int Bt, int T, int di, int ds,
-    void* stream) {
+    const float* Bm, long long b_sb, long long b_st, const float* Cm,
+    long long c_sb, long long c_st, const float* D, const float* dy,
+    const float* dhT, const float* ckpt, float* du, float* ddt, float* dh0,
+    float* pB, float* pC, float* pA, float* pD, float* dB, float* dC,
+    float* dA, float* dD, int Bt, int T, int di, int ds, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_chunks = (T + kChunk - 1) / kChunk;
-  Args a{u,  dt, A,   Bm, Cm, D,  h0, dy, dhT, ckpt, du,      ddt,
-         dh0, pB, pC, pA, pD, Bt, T,  di, ds,  n_chunks};
+  const int u_size = u_bf16 ? 2 : 4;
+  const bool tile = aligned16(u) && aligned16(dt) && aligned16(dy) &&
+                    aligned16(Bm) && aligned16(Cm) && aligned16(ckpt) &&
+                    (di * u_size) % 16 == 0 && di % 4 == 0 && ds % 4 == 0 &&
+                    b_sb % 4 == 0 && b_st % 4 == 0 && c_sb % 4 == 0 &&
+                    c_st % 4 == 0;
+  Args a{u,    dt,   A,    Bm,   Cm, D,  dy, dhT, ckpt, du, ddt,      dh0,
+         pB,   pC,   pA,   pD,   b_sb, b_st, c_sb, c_st, Bt, T,  di,
+         ds,   n_chunks, tile};
   cudaError_t e = u_bf16 ? launch_ds<__nv_bfloat16>(a, st)
                          : launch_ds<float>(a, st);
   if (e != cudaSuccess) return (int)e;
   const int nbx = mamba_scan_bwd_blocks(di, ds);
   const long long n_bc = (long long)Bt * T * ds, n_a = (long long)di * ds;
-  const long long total = 2 * n_bc + n_a + di;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 4096 ? want : 4096);
-  mamba_scan_bwd_reduce<<<blocks, threads, 0, st>>>(
-      pB, pC, pA, pD, dB, dC, dA, dD, nbx, Bt, n_bc, n_a, di);
-  return (int)cudaGetLastError();
+  const int bc_blocks = (int)((2 * n_bc + 31) / 32);
+  const long long want = (n_a + di + kRed * 32 - 1) / (kRed * 32);
+  // launched while the main kernel runs (programmatic dependent launch):
+  // its blocks wait in griddepcontrol.wait for the partials
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bc_blocks + (int)(want < 1024 ? want : 1024));
+  cfg.blockDim = dim3(kRed * 32);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(
+      &cfg, mamba_scan_bwd_reduce, (const float*)pB, (const float*)pC,
+      (const float*)pA, (const float*)pD, dB, dC, dA, dD, nbx, Bt, n_bc, n_a,
+      (long long)di, bc_blocks);
 }

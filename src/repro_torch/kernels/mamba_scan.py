@@ -12,7 +12,9 @@ and its plain version.  Training differentiates it: ``mamba_scan_train``
 is an autograd Function whose forward is K5 and whose backward is K5's
 backward kernel (``csrc/mamba_scan_bwd.cu``, which states its own bound
 and design; its wrapper, launch count and plain version are the second
-half of this module).
+half of this module).  The training forward runs K5's checkpointing
+instance, which also writes the state before every ``CHUNK``-th step for
+the backward to rebuild its states from.
 
 What bounds it on the H100: at the prefill shape (8, 256, 16384, 16) the
 exps on the special-function units (~0.13 ms); at the verify shape the
@@ -37,6 +39,13 @@ import torch
 from . import build, ref
 
 MAX_DS = 16
+CHUNK = 16        # steps a checkpoint of the training forward (both kernels)
+
+
+def n_chunks(T: int) -> int:
+    """Checkpoints of a T-step scan: the states before steps 0, CHUNK,
+    2 CHUNK, ..."""
+    return -(-T // CHUNK)
 
 
 def mamba_scan_plain(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
@@ -73,17 +82,20 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [p, i, p, p, p, ll, ll, p, ll, ll, p, p, i, p, p, p,
-                       i, i, i, i, p]
+                       p, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def mamba_scan_cuda(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
                     final: bool = True, steps: bool = False,
-                    n_commit=None):
+                    n_commit=None, ckpt=None):
     """Launch K5; arguments and results as ``mamba_scan_plain``, except
     that it writes no per-step states (``steps`` must be False: the replay
-    passes ``n_commit``).
+    passes ``n_commit``).  Given ``ckpt``, a contiguous float32 (Bt,
+    n_chunks(T), di, ds) tensor on u's device, the training instance also
+    fills it with the state before every CHUNK-th step (h0_rep 1, no
+    ``n_commit``): the checkpoints K5's backward reads.
 
     u float32 or bfloat16, every other operand float32 (``n_commit``
     int32), all on one CUDA device; u, dt, A, D, h0 and n_commit
@@ -107,6 +119,9 @@ def mamba_scan_cuda(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
                         f"{[t.dtype for t in ops]}")
     if n_commit is not None and not final:
         raise ValueError("n_commit selects the final state: final=True")
+    if ckpt is not None and (h0_rep != 1 or n_commit is not None):
+        raise ValueError("checkpoints are the training forward's: h0_rep 1 "
+                         "and no n_commit")
     if u.dim() != 3:
         raise ValueError(f"u must be (Bt, T, di), got {tuple(u.shape)}")
     Bt, T, di = u.shape
@@ -119,14 +134,19 @@ def mamba_scan_cuda(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
             "h0": (h0, (Bt // h0_rep, di, ds))}
     if n_commit is not None:
         want["n_commit"] = (n_commit, (Bt,))
+    if ckpt is not None:
+        want["ckpt"] = (ckpt, (Bt, n_chunks(T), di, ds))
+        if ckpt.dtype != torch.float32 or ckpt.device != u.device:
+            raise ValueError("ckpt must be float32 on u's device")
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
     if not all(t.is_contiguous() for t in ops if t is not B and t is not C) \
-            or B.stride(2) != 1 or C.stride(2) != 1:
-        raise ValueError("u, dt, A, D, h0 and n_commit must be contiguous; "
-                         "B and C need a contiguous last dim")
+            or B.stride(2) != 1 or C.stride(2) != 1 \
+            or (ckpt is not None and not ckpt.is_contiguous()):
+        raise ValueError("u, dt, A, D, h0, n_commit and ckpt must be "
+                         "contiguous; B and C need a contiguous last dim")
     f32 = dict(dtype=torch.float32, device=u.device)
     y = torch.empty((Bt, T, di), **f32)
     hT = torch.empty((Bt, di, ds), **f32) if final else None
@@ -137,7 +157,7 @@ def mamba_scan_cuda(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
         u.data_ptr(), int(u.dtype == torch.bfloat16), dt.data_ptr(),
         A.data_ptr(), B.data_ptr(), B.stride(0), B.stride(1), C.data_ptr(),
         C.stride(0), C.stride(1), D.data_ptr(), h0.data_ptr(), h0_rep,
-        ptr(n_commit), y.data_ptr(), ptr(hT), Bt, T, di, ds,
+        ptr(n_commit), y.data_ptr(), ptr(hT), ptr(ckpt), Bt, T, di, ds,
         torch.cuda.current_stream(u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error "
@@ -158,8 +178,9 @@ def mamba_scan_bwd_plain(u, dt, A, B, C, D, h0, dy, dhT=None):
     ``dy`` (Bt, T, di) and optionally ``dhT`` (Bt, di, ds), by the reverse
     recurrence the kernel runs (``csrc/mamba_scan_bwd.cu`` states it), in
     f32.  Returns (du, ddt, dA, dB, dC, dD, dh0), each the shape of its
-    input, all f32 (du too: the training call casts it to u's dtype).  Used by the tests and ``chip_smoke.py`` alone: on
-    the CPU autograd differentiates ``mamba_scan_plain`` itself."""
+    input, all f32 (du too: the training call casts it to u's dtype).  Used
+    by the tests and ``chip_smoke.py`` alone: on the CPU autograd
+    differentiates ``mamba_scan_plain`` itself."""
     uf, dtf, Af = u.float(), dt.float(), A.float()
     Bf, Cf, dyf = B.float(), C.float(), dy.float()
     T = uf.shape[1]
@@ -194,7 +215,9 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.mamba_scan_bwd_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i] + [p] * 20 + [i, i, i, i, p]
+        ll = ctypes.c_longlong
+        fn.argtypes = [p, i, p, p, p, ll, ll, p, ll, ll] + [p] * 15 \
+            + [i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.mamba_scan_bwd_blocks.argtypes = [i, i]
         lib.mamba_scan_bwd_blocks.restype = i
@@ -203,22 +226,17 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def mamba_scan_bwd_cuda(u, dt, A, B, C, D, h0, dy, dhT=None):
+def mamba_scan_bwd_cuda(u, dt, A, B, C, D, h0, dy, dhT=None, ckpt=None):
     """Launch K5's backward (``csrc/mamba_scan_bwd.cu``): arguments and
-    results as ``mamba_scan_bwd_plain``.  Operands as ``mamba_scan_cuda``
-    takes them with h0_rep 1 (B and C any strides: copied contiguous), dy
-    and dhT float32.  Scratch (the state checkpoints and the partial sums,
-    so that no float atomic is used) is allocated here.  Counts launches
+    results as ``mamba_scan_bwd_plain``, plus ``ckpt``, the checkpoints K5's
+    training instance wrote in the forward of the same operands
+    (``mamba_scan_cuda(..., ckpt=)``); when it is None, that instance runs
+    here first (a K5 launch, counted as such).  Operands as
+    ``mamba_scan_cuda`` takes them with h0_rep 1 (B and C any strides
+    with a contiguous last dim), dy and dhT float32.  The partial sums
+    (so that no float atomic is used) are allocated here.  Counts launches
     in ``launches`` (the main kernel and its reduction count as one)."""
     ops = (u, dt, A, B, C, D, h0, dy) + (() if dhT is None else (dhT,))
-    if any(not t.is_cuda or t.device != u.device for t in ops):
-        raise ValueError("mamba_scan_bwd_cuda needs every operand on one "
-                         "CUDA device")
-    if u.dtype not in (torch.float32, torch.bfloat16) \
-            or any(t.dtype != torch.float32 for t in ops[1:]):
-        raise TypeError(f"mamba_scan_bwd_cuda takes u float32 or bfloat16 "
-                        f"and float32 otherwise, got "
-                        f"{[t.dtype for t in ops]}")
     Bt, T, di = u.shape
     ds = A.shape[-1]
     if not 1 <= ds <= MAX_DS or T < 1:
@@ -228,34 +246,52 @@ def mamba_scan_bwd_cuda(u, dt, A, B, C, D, h0, dy, dhT=None):
             "h0": (h0, (Bt, di, ds)), "dy": (dy, (Bt, T, di))}
     if dhT is not None:
         want["dhT"] = (dhT, (Bt, di, ds))
+    if ckpt is not None:
+        want["ckpt"] = (ckpt, (Bt, n_chunks(T), di, ds))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
-    u, dt, A, B, C, D, h0, dy = (t.contiguous() for t in
-                                 (u, dt, A, B, C, D, h0, dy))
+    if any(not t.is_cuda or t.device != u.device for t in ops):
+        raise ValueError("mamba_scan_bwd_cuda needs every operand on one "
+                         "CUDA device")
+    if u.dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != torch.float32 for t in ops[1:]):
+        raise TypeError(f"mamba_scan_bwd_cuda takes u float32 or bfloat16 "
+                        f"and float32 otherwise, got "
+                        f"{[t.dtype for t in ops]}")
+    u, dt, A, D, h0, dy = (t.contiguous() for t in (u, dt, A, D, h0, dy))
+    B, C = (t if t.stride(2) == 1 else t.contiguous() for t in (B, C))
     dhT = None if dhT is None else dhT.contiguous()
-    lib = _bwd_lib()
-    nbx = lib.mamba_scan_bwd_blocks(di, ds)
-    n_chunks = -(-T // lib.mamba_scan_bwd_chunk())
     f32 = dict(dtype=torch.float32, device=u.device)
+    if ckpt is None:
+        ckpt = torch.empty((Bt, n_chunks(T), di, ds), **f32)
+        mamba_scan_cuda(u, dt, A, B, C, D, h0, final=False, ckpt=ckpt)
+    elif ckpt.dtype != torch.float32 or ckpt.device != u.device \
+            or not ckpt.is_contiguous():
+        raise ValueError("ckpt must be contiguous float32 on u's device")
+    lib = _bwd_lib()
+    if lib.mamba_scan_bwd_chunk() != CHUNK:
+        raise RuntimeError("mamba_scan_bwd.cu's checkpoint interval is not "
+                           "CHUNK")
+    nbx = lib.mamba_scan_bwd_blocks(di, ds)
     du, ddt = torch.empty((Bt, T, di), **f32), torch.empty((Bt, T, di),
                                                            **f32)
     dh0 = torch.empty((Bt, di, ds), **f32)
     dA, dD = torch.empty((di, ds), **f32), torch.empty((di,), **f32)
     dB, dC = torch.empty((Bt, T, ds), **f32), torch.empty((Bt, T, ds),
                                                           **f32)
-    ckpt = torch.empty((Bt, n_chunks, di, ds), **f32)
     pB, pC = (torch.empty((nbx, Bt, T, ds), **f32) for _ in range(2))
     pA, pD = torch.empty((Bt, di, ds), **f32), torch.empty((Bt, di), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = lib.mamba_scan_bwd_launch(
         u.data_ptr(), int(u.dtype == torch.bfloat16), dt.data_ptr(),
-        A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-        h0.data_ptr(), dy.data_ptr(), ptr(dhT), ckpt.data_ptr(),
-        du.data_ptr(), ddt.data_ptr(), dh0.data_ptr(), pB.data_ptr(),
-        pC.data_ptr(), pA.data_ptr(), pD.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), Bt, T, di, ds,
+        A.data_ptr(), B.data_ptr(), B.stride(0), B.stride(1), C.data_ptr(),
+        C.stride(0), C.stride(1), D.data_ptr(), dy.data_ptr(), ptr(dhT),
+        ckpt.data_ptr(), du.data_ptr(), ddt.data_ptr(), dh0.data_ptr(),
+        pB.data_ptr(), pC.data_ptr(), pA.data_ptr(), pD.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dD.data_ptr(),
+        Bt, T, di, ds,
         torch.cuda.current_stream(u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan_bwd kernel launch failed: CUDA "
@@ -268,23 +304,31 @@ mamba_scan_bwd_cuda.launches = 0
 
 
 class _TrainScan(torch.autograd.Function):
-    """K5 as autograd sees it: the forward is K5, the backward K5's
-    backward kernel.  ``final``: the forward also returns the final state,
-    whose gradient the backward takes as ``dhT``."""
+    """K5 as autograd sees it: the forward is K5's training instance, which
+    also writes the checkpoints that autograd keeps (Bt x n_chunks(T) x di
+    x ds f32 a Mamba layer; under remat only for the layer being
+    differentiated), the backward K5's backward kernel.  ``final``: the
+    forward also returns the final state, whose gradient the backward
+    takes as ``dhT``."""
 
     @staticmethod
     def forward(ctx, u, dt, A, B, C, D, h0, final):
-        y, hT, _ = mamba_scan_cuda(u, dt, A, B, C, D, h0, final=final)
-        ctx.save_for_backward(u, dt, A, B, C, D, h0)
+        Bt, T, di = u.shape
+        ckpt = torch.empty((Bt, n_chunks(T), di, A.shape[-1]),
+                           dtype=torch.float32, device=u.device)
+        y, hT, _ = mamba_scan_cuda(u, dt, A, B, C, D, h0, final=final,
+                                   ckpt=ckpt)
+        ctx.save_for_backward(u, dt, A, B, C, D, h0, ckpt)
         return (y, hT) if final else y
 
     @staticmethod
     def backward(ctx, dy, dhT=None):
-        u, dt, A, B, C, D, h0 = ctx.saved_tensors
+        u, dt, A, B, C, D, h0, ckpt = ctx.saved_tensors
         dy = torch.zeros(u.shape, dtype=torch.float32, device=u.device) \
             if dy is None else dy.float()
         du, *rest = mamba_scan_bwd_cuda(u, dt, A, B, C, D, h0, dy,
-                                        None if dhT is None else dhT.float())
+                                        None if dhT is None else dhT.float(),
+                                        ckpt)
         return (du.to(u.dtype), *rest, None)
 
 

@@ -28,7 +28,10 @@ through K5 equals its greedy reference, paged and linear.  K5 computes a
 token with the same bits whatever the chunking of its calls (torch.equal).
 K5's backward: f32 relative 1e-4 of its plain version on every gradient
 (the same f32 recurrence in another summation order, ~1e-6 measured),
-the same bits on a second run; the smoke hybrid's f32 train steps on the
+the same bits on a second run; K5's training instance writes, as its
+checkpoints, the bits of K5's own final state at every CHUNK-th step, and
+leaves y and hT as the serving instance has them; the smoke hybrid's f32
+train steps on the
 card (K5 forward, K5's backward) give the CPU's losses and grad norms
 within 1e-4 (TRAIN_CPU_TOL's limit).
 The bf16 verify kernel keeps P to ~16 bits for P.V (a bf16 head and
@@ -910,6 +913,41 @@ def test_mamba_scan_bwd_cuda_matches_plain(cuda_device, Bt, T, di, ds,
         err = float((a - b).abs().max() / b.abs().max())
         assert err < 1e-4, (name, err)
         assert torch.equal(a, c), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtr", [512, 5])
+def test_mamba_scan_training_checkpoints(cuda_device, dtr):
+    """K5's training instance (``ckpt=``): y and the final state carry the
+    serving instance's bits; checkpoint c, the state before step CHUNK * c,
+    equals bit for bit the final state of K5 run on that prefix, and the
+    plain version's state after those steps within K5's tolerance (its exp
+    is torch.exp, not ex2.approx); the backward given those checkpoints
+    equals, bit for bit, the backward that makes its own.  dtr 5 leaves B
+    and C rows unaligned (plain-load staging in both kernels)."""
+    from repro_torch.kernels.mamba_scan import (CHUNK, mamba_scan_bwd_cuda,
+                                                n_chunks)
+    Bt, T, di, ds = 3, 3 * CHUNK + 5, 200, 16
+    ops = _scan_inputs(cuda_device, Bt, T, di, ds, 1, dtr, "bfloat16",
+                       seed=9)
+    u, dt, A, B, C, D, h0 = ops
+    ckpt = torch.empty((Bt, n_chunks(T), di, ds), device=cuda_device)
+    y, hT, _ = mamba_scan_cuda(*ops, ckpt=ckpt)
+    y0, hT0, _ = mamba_scan_cuda(*ops)
+    assert torch.equal(y, y0) and torch.equal(hT, hT0)
+    _, _, hs = mamba_scan_plain(*ops, steps=True)
+    assert torch.equal(ckpt[:, 0], h0)
+    for c in range(1, n_chunks(T)):
+        t = c * CHUNK
+        kept = mamba_scan_cuda(u[:, :t].contiguous(), dt[:, :t].contiguous(),
+                               A, B[:, :t], C[:, :t], D, h0)[1]
+        assert torch.equal(ckpt[:, c], kept), c
+        _close(ckpt[:, c], hs[:, t - 1], 2e-4)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    dy = torch.randn((Bt, T, di), generator=g, device=cuda_device)
+    for a, b in zip(mamba_scan_bwd_cuda(*ops, dy, None, ckpt),
+                    mamba_scan_bwd_cuda(*ops, dy)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

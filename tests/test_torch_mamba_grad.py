@@ -6,9 +6,12 @@ whose XLA scan the reference's training differentiates) and against
 autograd of the port's oracle, on the same inputs drawn with numpy.
 
 Cases: d_state 4, 8 and 16 (the kernel's capacities) and 3 (a ragged
-one), T inside one checkpoint chunk of the kernel (16 steps) and across
-chunks with a ragged last one, u in f32 and bf16, with and without a
-gradient flowing into the final state.  Tolerance: f32 1e-5 relative to
+one), T inside one checkpoint chunk of the kernel (16 steps), across
+chunks with a ragged last one, at a whole number of chunks (32) and one
+step past it (33: the kernel's checkpoints, which the training forward
+writes, end there), u in f32 and bf16, with and without a gradient
+flowing into the final state.  The backward kernel's wrapper raises on
+operands it does not take before it launches anything.  Tolerance: f32 1e-5 relative to
 each gradient's largest magnitude (both sides run the same f32
 recurrence; they differ by summation order, ~1e-7 here).  On the CPU the
 scan's gradient stays autograd of the plain version: a training step
@@ -22,7 +25,8 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import dispatch, ref
-from repro_torch.kernels.mamba_scan import mamba_scan_bwd_plain
+from repro_torch.kernels.mamba_scan import (CHUNK, mamba_scan_bwd_cuda,
+                                           mamba_scan_bwd_plain, n_chunks)
 
 TOL = 1e-5
 NAMES = ("du", "ddt", "dA", "dB", "dC", "dD", "dh0")
@@ -57,7 +61,7 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T", [5, 37])
+@pytest.mark.parametrize("T", [5, 37, 2 * CHUNK, 2 * CHUNK + 1])
 @pytest.mark.parametrize("ds", [4, 8, 16, 3])
 def test_plain_backward_equals_jax_gradient(ds, T, u_dtype):
     ops, dy, dhT = _inputs(ds * 100 + T, 2, T, 12, ds,
@@ -101,3 +105,35 @@ def test_cpu_training_call_differentiates_the_plain_version():
     got = mamba_scan_bwd_plain(*(ops[k] for k in names), dy)
     for name, g, w in zip(NAMES, got, want):
         assert _rel(g.numpy(), w.numpy()) < TOL, name
+
+
+@pytest.mark.parametrize("case", ["cpu operands", "ds 17", "ds 0",
+                                  "ckpt shape"])
+def test_bwd_kernel_wrapper_raises(case):
+    """``mamba_scan_bwd_cuda`` refuses what its kernel does not take: CPU
+    operands (the CPU's training path is autograd of the plain version),
+    a state size outside 1..16 and checkpoints of the wrong shape, each
+    with a ValueError before any launch."""
+    ds = {"ds 17": 17, "ds 0": 0}.get(case, 8)
+    ops, dy, _ = _inputs(5, 2, 20, 8, max(ds, 1), torch.float32)
+    names = ("u", "dt", "A", "B", "C", "D", "h0")
+    args = [ops[k] for k in names]
+    if ds == 0:
+        args[2], args[3], args[4], args[6] = (t[..., :0] for t in (
+            args[2], args[3], args[4], args[6]))
+    ckpt = None
+    if case == "ckpt shape":
+        ckpt = torch.zeros(2, n_chunks(20) + 1, 8, ds)
+    match = "CUDA device" if case in ("cpu operands", "ckpt shape") \
+        else "unsupported scan"
+    if case == "ckpt shape":
+        match = "ckpt has shape"
+    with pytest.raises(ValueError, match=match):
+        mamba_scan_bwd_cuda(*args, dy, None, ckpt)
+
+
+def test_checkpoint_count():
+    """The training forward keeps the state before steps 0, CHUNK, ...: a
+    T-step scan has ceil(T / CHUNK) checkpoints."""
+    assert [n_chunks(T) for T in (1, CHUNK, CHUNK + 1, 8 * CHUNK)] == \
+        [1, 1, 2, 8]

@@ -19,8 +19,11 @@ the device ops one call runs and their summed device time
 that tree's model path calls it: a tree whose K5 wrapper takes no
 ``n_commit`` got u cast to f32 and replayed by writing every step's state
 (its path then selected one), so that kernel is what is timed there (the
-cast is made before the timing).  Correctness is ``chip_smoke.py``'s
-business, not this script's.
+cast is made before the timing).  K5's backward runs at the hybrid's
+training shape (bf16 u): a tree whose wrapper takes ``ckpt`` gets the
+checkpoints its training forward wrote (made before the timing, as the
+training call hands them over); an older one walks the scan itself.
+Correctness is ``chip_smoke.py``'s business, not this script's.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-NAMES = ("spec_attention", "mamba_scan", "ngram_match")
+NAMES = ("spec_attention", "mamba_scan", "ngram_match")   # modules
+BUILDS = NAMES + ("mamba_scan_bwd",)                      # libraries
 
 
 def load_other(root: str) -> dict:
@@ -111,7 +115,29 @@ def cases():
         ops32 = (ops5[0].float(),) + ops5[1:]
         out.append((name, lambda m, o=ops5, o32=ops32, r=rep, f=final, n=nc:
                     scan(m["mamba_scan"].mamba_scan_cuda, o, o32, r, f, n)))
+    out.append(("K5 backward train", backward_case(di, ds)))
     return out + drafting_cases(S, cur)
+
+
+def backward_case(di, ds):
+    """K5's backward at chip_smoke's timing shape (TRAIN_B x TRAIN_T, bf16
+    u, no gradient into the final state), each tree's wrapper called as its
+    training call calls it (``ckpt`` where it takes one)."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda, n_chunks
+    ops = cs.k5_inputs(cs.TRAIN_B, cs.TRAIN_T, di, ds, seed=5,
+                       u_dtype=torch.bfloat16)
+    dy = torch.randn((cs.TRAIN_B, cs.TRAIN_T, di), device="cuda")
+    ckpt = torch.empty((cs.TRAIN_B, n_chunks(cs.TRAIN_T), di, ds),
+                       device="cuda")
+    mamba_scan_cuda(*ops, final=False, ckpt=ckpt)
+
+    def call(m):
+        fn = m["mamba_scan"].mamba_scan_bwd_cuda
+        if "ckpt" in inspect.signature(fn).parameters:
+            return fn(*ops, dy, ckpt=ckpt)
+        return fn(*ops, dy)
+    return call
 
 
 def drafting_cases(S, cur):
@@ -181,14 +207,14 @@ def main() -> int:
     other = load_other(args.other)
     built = []
     th = threading.Thread(target=lambda: built.append(
-        other["build"].build(NAMES)))
+        other["build"].build(BUILDS)))
     th.start()
-    build.build(NAMES)
+    build.build(BUILDS)
     th.join()
     if not built:
         raise RuntimeError(f"the kernels in {args.other} did not build")
     for label, mods in (("this", this), ("other", other)):
-        for name in NAMES:
+        for name in BUILDS:
             log = mods["build"].BUILD_DIR / f"{name}.log"
             for kernel, report in cs.ptxas_report(log.read_text()):
                 print(f"  {label} {name}: {kernel}: {report}")
