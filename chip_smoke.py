@@ -5154,6 +5154,198 @@ def phase_mesh_recurrent(mesh) -> dict:
     return {"mamba_scan": launches["mamba_scan"]}
 
 
+# phase 16: the dry-run.  Its cases on the reference's meshes, through
+# the CLI (a process each, its own placeholder group; this one held NCCL's):
+# (arch, shape, flags, the kernels whose instances the trace records).
+# Mistral's window verifies by the plain path and a prefill's attention
+# is no kernel, so those two record none.
+DRYRUN_CASES = (
+    ("jamba-1.5-large-398b", "decode_32k", ("--spec",), {"K1", "K5"}),
+    ("nemotron-4-340b", "decode_32k", ("--multi-pod",), {"K1"}),
+    ("mistral-7b", "long_500k", ("--spec",), set()),
+    ("stablelm-1.6b", "prefill_32k", (), set()),
+)
+DRYRUN_ANCHOR_B = 8              # 16c: phase 3's batch, at MAIN_DEPTH
+DRYRUN_TIMEOUT_S = 600
+
+
+def shape_function_check() -> None:
+    """16a: each shape function against its real kernel on the same
+    inputs (the fake copies of the real operands): equal shapes, dtypes,
+    strides and device, and the instance it records is the one the card
+    launched (K1 by the rule of ``launch_mma_hd``, K5 by ``launch_ds``)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+    from repro_torch.kernels.spec_attention import spec_attention_cuda
+
+    def same(label, fn, ops, kw, calls, want):
+        real = [t for t in fn(*ops, **kw) if t is not None] \
+            if fn is mamba_scan_cuda else [fn(*ops, **kw)]
+        torch.cuda.synchronize()
+        mode = FakeTensorMode()
+        fakes = [None if t is None else mode.from_tensor(t) for t in ops]
+        calls.clear()
+        with mode:
+            fake = fn(*fakes, **{k: mode.from_tensor(v)
+                                 if isinstance(v, torch.Tensor) else v
+                                 for k, v in kw.items()})
+            fake = [t for t in fake if t is not None] \
+                if fn is mamba_scan_cuda else [fake]
+        meta = lambda t: (tuple(t.shape), t.dtype, t.stride(), t.device)
+        got = [c["instance"] for c in calls]
+        if [meta(t) for t in fake] != [meta(t) for t in real] \
+                or got != [want]:
+            raise AssertionError(f"16a {label}: fake {[meta(t) for t in fake]}"
+                                 f" {got}, real {[meta(t) for t in real]} "
+                                 f"{want}")
+        print(f"  16a {label}: {[meta(t)[:3] for t in real]} on "
+              f"{real[0].device}, instance {want}")
+
+    S = 4096
+    for label, (B, K, W1, H, KV, hd), want in (
+            ("K1 StableLM verify", (8, 10, 11, 32, 32, 64), "<64, 2, false>"),
+            ("K1 StableLM decode", (8, 1, 1, 32, 32, 64), "<64, 1, false>"),
+            ("K1 hybrid verify", (8, 10, 11, 64, 8, 128), "<128, 2, false>"),
+            ("K1 Nemotron decode", (8, 1, 1, 96, 8, 192),
+             "<256, 1, false>")):
+        ops = k1_inputs(B, K, W1, H, KV, hd, S, [S // 2] * B, torch.bfloat16,
+                        seed=16)
+        same(label, spec_attention_cuda, ops, {"w1": W1},
+             spec_attention_cuda.shape_calls, want)
+    di, ds = 16384, 16
+    for label, (Bt, T, rep, final) in (("K5 prefill", (8, 256, 1, True)),
+                                       ("K5 verify", (80, 11, 10, False)),
+                                       ("K5 decode", (8, 1, 1, True))):
+        ops = k5_inputs(Bt, T, di, ds, seed=16, h0_rep=rep,
+                        u_dtype=torch.bfloat16)
+        same(label, mamba_scan_cuda, ops, {"h0_rep": rep, "final": final},
+             mamba_scan_cuda.shape_calls, "<16, bf16, false, false>")
+
+
+def dryrun_anchor() -> None:
+    """16c: the dry-run at mesh (1, 1) beside the same program on real
+    tensors: StableLM-2-1.6B at MAIN_DEPTH, decode_32k at phase 3's batch.
+    The dry-run's argument bytes equal the bytes of the real params, state
+    and tokens placed on the card by the same rules (asserted); its peak
+    (arguments plus temp) is printed beside ``max_memory_allocated`` over
+    the real call."""
+    import torch
+    from repro_torch.distributed import local as DL
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, input_specs
+    from repro_torch.launch.hostdev import ensure_placeholder_ranks
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    ensure_placeholder_ranks(1)
+    mesh = make_debug_mesh((1, 1))
+    case = input_specs.resolve_case("stablelm-1.6b", "decode_32k", mesh,
+                                    num_layers=MAIN_DEPTH,
+                                    batch=DRYRUN_ANCHOR_B)
+    rec = dryrun.trace_case(case)
+    mem = rec["memory"]
+    cfg = main_config()
+    B, T = DRYRUN_ANCHOR_B, input_specs.SHAPES["decode_32k"]["seq"]
+    params = M.init_params(cfg, seed=0)
+    state = M.init_state(cfg, B, T)
+    toks = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    place = lambda tree, rule: shd.rebuild(tree, lambda p, t: DL.distribute(
+        t, mesh, rule(mesh, p, t)))
+    args = (place(params, shd.param_pspec), place(state, shd.state_pspec),
+            DL.distribute(toks, mesh, shd.batch_pspec(mesh, (B, 1))))
+    del params, state
+    real = sum(t.to_local().numel() * t.to_local().element_size()
+               for t in dryrun._tensors(args))
+    if real != mem["argument_size_in_bytes"]:
+        raise AssertionError(f"16c: dry-run argument bytes "
+                             f"{mem['argument_size_in_bytes']}, placed "
+                             f"{real}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        case.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    temp = mem["temp_size_in_bytes"]
+    fake_peak = real + temp
+    print(f"  16c (1, 1) StableLM-2-1.6B {MAIN_DEPTH} layers decode_32k "
+          f"B={B}: argument bytes {real} (dry-run == placed); dry-run peak "
+          f"{fake_peak / 2**30:.3f} GiB (arguments + temp "
+          f"{temp / 2**30:.3f}), real max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB, ratio {fake_peak / peak:.4f}; "
+          f"total_hbm {mem['total_hbm_bytes'] / 2**30:.3f} GiB; kernels "
+          f"{rec['kernels']}; trace {rec['compile_s']} s")
+
+
+def phase16_card() -> int:
+    """16a and 16c, in a process of their own (``chip_smoke.py
+    --phase16``): 16c starts a placeholder group."""
+    from repro_torch.kernels import build
+    build.build()
+    shape_function_check()
+    dryrun_anchor()
+    return 0
+
+
+def phase_dryrun() -> None:
+    """Phase 16: the dry-run (``launch/dryrun.py``) on the card.  16b runs
+    DRYRUN_CASES through ``python -m repro_torch.launch.dryrun`` (fake
+    CUDA tensors on the reference's 256- and 512-rank meshes), a process
+    each, beside one process for 16a and 16c; each record is ok with the
+    kernels' instances it should record (asserted)."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    pipe = dict(cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".dryrun-") as out:
+        t0 = time.perf_counter()
+        procs = {(a, s): subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", s, "--out", out, *flags], **pipe)
+            for a, s, flags, _ in DRYRUN_CASES}
+        procs["16a/16c"] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase16"], **pipe)
+        res = {}
+        try:
+            for key, p in procs.items():
+                so, se = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+                res[key] = (p.returncode, so, se)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        print(f"  16: {len(procs)} processes in "
+              f"{time.perf_counter() - t0:.1f} s")
+        rc, so, se = res.pop("16a/16c")
+        for line in so.strip().splitlines():
+            print(line)
+        if rc != 0:
+            raise AssertionError(f"16a/16c failed:\n{se[-3000:]}")
+        for arch, shape, flags, want in DRYRUN_CASES:
+            rc, so, se = res[(arch, shape)]
+            mp = "--multi-pod" in flags
+            name = (f"{arch}__{shape}__{'multipod' if mp else 'pod'}__"
+                    f"{'spec' if '--spec' in flags else 'base'}.json")
+            print(f"  16b {' '.join(flags) or '(base)'}: "
+                  f"{so.strip().splitlines()[-1] if so.strip() else ''}")
+            path = os.path.join(out, name)
+            rec = json.load(open(path)) if os.path.exists(path) else {}
+            got = {k.split()[0] for k in rec.get("kernels", {})}
+            if rc != 0 or rec.get("status") != "ok" or got != want:
+                raise AssertionError(
+                    f"16b {arch} {shape} {flags}: exit {rc}, record "
+                    f"{json.dumps(rec)[:1500]}, kernels {got} want {want}:"
+                    f"\n{se[-3000:]}")
+            mem, coll = rec["memory"], rec["collectives"]
+            print(f"    {rec['mesh']}: argument "
+                  f"{mem['argument_size_in_bytes'] / 2**30:.3f} GiB, "
+                  f"total_hbm {mem['total_hbm_bytes'] / 2**30:.3f} GiB, "
+                  f"flops {rec['cost']['flops']:.4g}, collectives "
+                  f"{coll['total'] / 2**20:.1f} MiB {coll['counts']}, "
+                  f"kernels {rec['kernels']}, trace {rec['compile_s']} s")
+
+
 def _to_host(tree):
     """A parameter tree's copy on the host."""
     if isinstance(tree, dict):
@@ -5339,6 +5531,13 @@ def main() -> int:
     mesh_launches = phase_mesh(tables)
     took("phase 14", t0)
 
+    print("phase 16: the dry-run (fake CUDA tensors on the reference's "
+          "256- and 512-rank meshes), the shape functions against their "
+          "kernels and a (1, 1) anchor on real tensors")
+    t0 = time.perf_counter()
+    phase_dryrun()
+    took("phase 16", t0)
+
     cu = "src/repro_torch/kernels/csrc/spec_attention.cu"
     sources = {"spec_attention": (
                    cu, "src/repro/kernels/spec_attention.py:137"),
@@ -5381,4 +5580,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase16_card() if sys.argv[1:] == ["--phase16"] else main())

@@ -32,6 +32,7 @@ _MODULES = {
 }
 
 ALL_ARCHS: List[str] = list(_MODULES)
+ASSIGNED_ARCHS: List[str] = [a for a in _MODULES if a != "mistral-7b"]
 
 LONG_CONTEXT_WINDOW = 8192
 

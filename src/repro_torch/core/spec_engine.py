@@ -901,20 +901,15 @@ def make_sharded_slot_fns(cfg: ModelConfig, spec: SpecConfig,
                           DL.CacheLayout(kv=layout.kv))
 
     def local_view(st: DecodeState) -> DecodeState:
-        loc = map_state(st, lambda p, t: t.to_local())
-        if rows.axes:           # the replicated cur_len, this rank's rows
-            loc.model["cur_len"] = loc.model["cur_len"][rows.lo:rows.hi]
-        return loc
-
-    def sync_cur_len(st: DecodeState) -> None:
-        if rows.axes:
-            full = st.model["cur_len"].to_local()
-            full.copy_(DL.gather_rows(full[rows.lo:rows.hi].clone(), rows))
+        return dataclasses.replace(
+            map_state(dataclasses.replace(st, model={}),
+                      lambda p, t: t.to_local()),
+            model=DL.local_model(st.model, rows))
 
     def step(params, st: DecodeState, tables=None) -> DecodeState:
         with DL.active(rows):
             spec_step(params, cfg, spec, local_view(st), tables)
-        sync_cur_len(st)
+        DL.sync_cur_len(st.model, rows)
         return st
 
     def slot_pages(model: Dict, slot: int):

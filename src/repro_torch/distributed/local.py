@@ -171,6 +171,29 @@ def rows_for(mesh, B: int, cache: CacheLayout) -> Rows:
     return Rows(mesh, B, axes, lo, hi, cache)
 
 
+def local_model(model: Dict[str, Any], rows: Rows) -> Dict[str, Any]:
+    """A model state of DTensors (``cur_len``, the caches, the recurrent
+    leaves) as this rank's local tensors: views of the DTensors' own
+    storage, so every in-place write of a call lands in the sharded state;
+    the replicated ``cur_len`` cut to this rank's rows."""
+    def walk(t):
+        return ({k: walk(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to_local())
+    loc = walk(model)
+    if rows.axes:
+        loc["cur_len"] = loc["cur_len"][rows.lo:rows.hi]
+    return loc
+
+
+def sync_cur_len(model: Dict[str, Any], rows: Rows) -> None:
+    """After a call advanced this rank's rows of the replicated
+    ``cur_len`` (``local_model``'s cut), every rank's rows of it, gathered
+    in place."""
+    if rows.axes:
+        full = model["cur_len"].to_local()
+        full.copy_(gather_rows(full[rows.lo:rows.hi].clone(), rows))
+
+
 _ROWS: Optional[Rows] = None
 
 
@@ -466,10 +489,12 @@ def owned_write(flat: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     n = idx.shape[0]
     if n == 0:
         return
-    first = torch.argmax(ok.to(torch.int32))
+    # the first kept entry by index_select (a 0-dim index tensor would be
+    # read on the host where it lies on the CPU)
+    first = torch.argmax(ok.to(torch.int32)).view(1)
     any_ok = ok.any()
-    idx0 = torch.where(any_ok, idx[first], 0)
-    val0 = torch.where(any_ok, vals[first], flat[0])
+    idx0 = torch.where(any_ok, idx.index_select(0, first)[0], 0)
+    val0 = torch.where(any_ok, vals.index_select(0, first)[0], flat[0])
     sel = ok.view((n,) + (1,) * (vals.dim() - 1))
     flat.index_put_((torch.where(ok, idx, idx0).long(),),
                     torch.where(sel, vals.to(flat.dtype), val0))

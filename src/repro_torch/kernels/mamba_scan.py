@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build, ref
 
@@ -152,6 +153,8 @@ def mamba_scan_cuda(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
     hT = torch.empty((Bt, di, ds), **f32) if final else None
     if y.numel() == 0:
         return y, hT, None
+    if isinstance(y, FakeTensor):
+        return _k5_shape(y, hT, ops, ckpt)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = _lib().mamba_scan_launch(
         u.data_ptr(), int(u.dtype == torch.bfloat16), dt.data_ptr(),
@@ -167,6 +170,40 @@ def mamba_scan_cuda(u, dt, A, B, C, D, h0, *, h0_rep: int = 1,
 
 
 mamba_scan_cuda.launches = 0
+mamba_scan_cuda.shape_calls = []
+
+
+def k5_instance(u_dtype, ds: int, select: bool) -> str:
+    """The template instance K5 launches, as ``csrc/mamba_scan.cu`` picks
+    it: ``<ds capacity, u's type, n_commit's select, checkpoints>``."""
+    cap = 4 if ds <= 4 else 8 if ds <= 8 else 16
+    tu = "bf16" if u_dtype == torch.bfloat16 else "float"
+    return f"<{cap}, {tu}, {str(select).lower()}, false>"
+
+
+def _k5_shape(y, hT, ops, ckpt):
+    """K5's shape function: a fake ``u`` (``FakeTensorMode``, the
+    dry-run) reached the launch, after every check of the real path.
+    Returns the empty fake outputs the real path would fill and appends
+    to ``mamba_scan_cuda.shape_calls`` the instance the card would launch
+    and its cost as the kernel does it: per state element one exp and six
+    flops (decay, the two products, the add, C's product and the sum), per
+    channel three (dt u, D u and its add); bytes of every operand read
+    once and the outputs written."""
+    if ckpt is not None:
+        raise NotImplementedError("K5's training instance has no shape "
+                                  "function: the dry-run does not train")
+    u, n_commit = ops[0], (ops[7] if len(ops) > 7 else None)
+    Bt, T, di = u.shape
+    ds = ops[2].shape[-1]
+    outs = (y,) if hT is None else (y, hT)
+    mamba_scan_cuda.shape_calls.append({
+        "kernel": "K5", "instance": k5_instance(u.dtype, ds,
+                                                n_commit is not None),
+        "flops": Bt * T * di * (6 * ds + 3),
+        "transcendentals": Bt * T * di * ds,
+        "bytes": sum(t.numel() * t.element_size() for t in ops + outs)})
+    return y, hT, None
 
 
 # ---------------------------------------------------------------------------

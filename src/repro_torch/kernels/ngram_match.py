@@ -30,6 +30,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build, ref
 from .hashing import HASH_MIX, HASH_MULT, MASK32
@@ -221,6 +222,9 @@ def ngram_draft_cuda(buf, buf_len, *, q: int, k: int, w: int,
     n_ctx = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return drafts, valid, n_ctx
+    if isinstance(drafts, FakeTensor):
+        raise NotImplementedError(
+            "K2 has no shape function: the dry-run's cases run no drafting")
     smem_keys, threads = _launch_shape(L)
     p = 1 << max(0, L - 1).bit_length()
     scratch = (torch.empty((B, p), dtype=torch.int64, device=dev)

@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build, ref
 
@@ -218,6 +219,8 @@ def spec_attention_cuda(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if isinstance(out, FakeTensor):
+        return _k1_shape(out, q, k_cache, cur_len, S, anc)
     cs = k_cache.stride()
     vec = copy_width((q, k_cache, v_cache, k_tail, v_tail), cs[:3] + (hd,))
     rc = _lib().spec_attention_launch(
@@ -238,6 +241,43 @@ def spec_attention_cuda(q, k_cache, v_cache, k_tail, v_tail, cur_len, *,
 
 spec_attention_cuda.launches = 0
 spec_attention_cuda.tree_launches = 0
+spec_attention_cuda.shape_calls = []
+
+
+def k1_instance(dtype, H: int, KV: int, KW1: int, hd: int) -> str:
+    """The template instance K1 launches for these operands, as
+    ``csrc/spec_attention.cu`` picks it: bf16 ``<head-dim capacity, m16
+    fragments a warp, paged>`` on the tensor cores, f32 ``simt<32-lane
+    head-dim chunks, paged>``."""
+    if dtype == torch.float32:
+        return f"simt<{-(-hd // 32)}, false>"
+    cap = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    two = (H // KV) * KW1 > 64 and hd <= 128
+    return f"<{cap}, {2 if two else 1}, false>"
+
+
+def _k1_shape(out, q, k_cache, cur_len, S: int, anc):
+    """K1's shape function: a fake ``q`` (``FakeTensorMode``, the
+    dry-run) reached the launch, after every check of the real path.
+    Returns ``out``, the empty fake the real path would fill, and appends
+    to ``spec_attention_cuda.shape_calls`` the instance the card would
+    launch and its cost as the kernel does it, over all S cache slots (a
+    fake cur_len has no values): flops of Q K^T and P V over S + W1 keys,
+    one exp a score, bytes of every operand read once and ``out``
+    written."""
+    if anc is not None:
+        raise NotImplementedError(
+            "K4 has no shape function: the dry-run's cases run no tree")
+    B, K, W1, H, hd = q.shape
+    KV = k_cache.shape[2]
+    keys = B * H * K * W1 * (S + W1)
+    nbytes = lambda t: t.numel() * t.element_size()
+    spec_attention_cuda.shape_calls.append({
+        "kernel": "K1", "instance": k1_instance(q.dtype, H, KV, K * W1, hd),
+        "flops": 4 * keys * hd, "transcendentals": keys,
+        "bytes": 2 * nbytes(q) + 2 * B * S * KV * hd * k_cache.element_size()
+        + 2 * B * K * W1 * KV * hd * q.element_size() + nbytes(cur_len)})
+    return out
 
 
 def paged_spec_attention_cuda(q, k_pool, v_pool, page_table, k_tail, v_tail,
@@ -269,6 +309,9 @@ def paged_spec_attention_cuda(q, k_pool, v_pool, page_table, k_tail, v_tail,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if isinstance(out, FakeTensor):
+        raise NotImplementedError(
+            "K3 has no shape function: the dry-run's cases run no pages")
     ps_ = k_pool.stride()
     vec = copy_width((q, k_pool, v_pool, k_tail, v_tail), ps_[:3] + (hd,))
     rc = _lib().paged_spec_attention_launch(

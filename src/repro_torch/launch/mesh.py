@@ -55,3 +55,17 @@ def make_debug_mesh(shape=(2, 2), device="cuda", axes=None):
             f"multiply to {world}")
     dev = resolve_device(device)
     return init_device_mesh(dev.type, shape, mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh on the initialised process group:
+    (16, 16) over ("data", "model"), 256 ranks, or with ``multi_pod``
+    (2, 16, 16) over ("pod", "data", "model"), 512 ranks.  Raises, as
+    ``make_debug_mesh`` does, when the group has another size.  The
+    dry-run builds it over placeholder ranks (``launch/hostdev.py``).
+
+    The shapes are the TPU pods' (a v5e pod is 16 x 16 chips).  On H100
+    nodes of 8 NVLinked cards a "model" axis of 16 spans two nodes, so its
+    collectives would cross the slower inter-node links."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    return make_debug_mesh(shape, device=device)

@@ -93,7 +93,9 @@ def _embed(params: Params, cfg: ModelConfig, tokens, embeds
     embedding-input model's frame or patch embeddings), else the token
     embeddings of ``tokens`` (B, T)."""
     if embeds is not None:
-        return embeds.to(cfg.compute_dtype)
+        x = embeds.to(cfg.compute_dtype)
+        # under a mesh, this rank's rows as the DTensor of every rank's
+        return x if L.current() is None else L.lift(x)
     return embed_tokens(params["embed"], tokens, cfg)
 
 
@@ -130,21 +132,25 @@ def forward(params: Params, cfg: ModelConfig, tokens=None, embeds=None,
 
 
 def prefill(params: Params, cfg: ModelConfig, state: State,
-            tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> Tuple[torch.Tensor, State]:
-    """Process the prompt (all rows of length T), writing the cache in
-    place.  ``state`` must be freshly allocated (cur_len == 0).
-    ``last_only`` computes logits for the final position only."""
-    x = embed_tokens(params["embed"], tokens, cfg)
-    B, T = tokens.shape[:2]
+            tokens: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            last_only: bool = False, embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, State]:
+    """Process the prompt (all rows of length T), from ``tokens`` (B, T) or
+    ``embeds`` (B, T, d), writing the cache in place.  ``state`` must be
+    freshly allocated (cur_len == 0).  ``last_only`` computes logits for
+    the final position only."""
+    x = _embed(params, cfg, tokens, embeds)
+    src = tokens if tokens is not None else embeds
+    B, T = src.shape[:2]
     if positions is None:
-        positions = make_positions(cfg, B, T, device=tokens.device)
+        positions = make_positions(cfg, B, T, device=src.device)
     ctx: Dict[str, Any] = {"positions": positions}
     if is_paged(state):
         # positions 0..T-1 of every row, through its page table (the pages
         # must be allocated already)
         ctx.update(_paged_ctx(state, _linear_positions(
-            B, T, device=tokens.device)))
+            B, T, device=src.device)))
     x, _, _ = run_stack(params, cfg, x, "prefill", state, ctx)
     x = apply_norm(params["final_norm"], x, cfg)
     if last_only:

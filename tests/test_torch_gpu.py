@@ -1187,3 +1187,54 @@ def test_contract_checker_is_clean_on_the_card(cuda_device):
     from repro_torch.analysis.runtime_rules import run_level1
     found = run_level1(device="cuda")
     assert found == [], "\n".join(f.format() for f in found)
+
+
+def _meta(t):
+    return tuple(t.shape), t.dtype, t.stride(), t.device
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,dims,want", [
+    ("K1", (8, 10, 11, 32, 32, 64), "<64, 2, false>"),     # StableLM verify
+    ("K1", (8, 1, 1, 32, 32, 64), "<64, 1, false>"),       # StableLM decode
+    ("K1", (8, 10, 11, 64, 8, 128), "<128, 2, false>"),    # hybrid verify
+    ("K1", (8, 1, 1, 96, 8, 192), "<256, 1, false>"),      # Nemotron decode
+    ("K5", (8, 256, 1, True), "<16, bf16, false, false>"),   # prefill
+    ("K5", (80, 11, 10, False), "<16, bf16, false, false>"),  # verify
+    ("K5", (8, 1, 1, True), "<16, bf16, false, false>")])    # decode
+def test_shape_functions_match_their_kernels(cuda_device, kernel, dims,
+                                             want):
+    """The dry-run's shape functions: fake copies of the real operands
+    (``FakeTensorMode.from_tensor``) reaching K1's or K5's wrapper give
+    outputs of the real kernel's shapes, dtypes, strides and device, and
+    record the instance the card launched; the fake call launches
+    nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if kernel == "K1":
+        B, K, W1, H, KV, hd = dims
+        g = torch.Generator(device=cuda_device).manual_seed(16)
+        rn = lambda *s: torch.randn(s, generator=g,
+                                    device=cuda_device).bfloat16()
+        S = 4096
+        ops = (rn(B, K, W1, H, hd), rn(B, S, KV, hd), rn(B, S, KV, hd),
+               rn(B, K, W1, KV, hd), rn(B, K, W1, KV, hd),
+               torch.full((B,), S // 2, dtype=torch.int32,
+                          device=cuda_device))
+        fn, kw, pick = spec_attention_cuda, {"w1": W1}, lambda r: [r]
+    else:
+        Bt, T, rep, final = dims
+        ops = _scan_inputs(cuda_device, Bt, T, 16384, 16, rep, 512,
+                           "bfloat16", seed=16)
+        fn, kw = mamba_scan_cuda, {"h0_rep": rep, "final": final}
+        pick = lambda r: [t for t in r if t is not None]
+    real = pick(fn(*ops, **kw))
+    torch.cuda.synchronize()
+    launches = fn.launches
+    mode = FakeTensorMode()
+    fn.shape_calls.clear()
+    with mode:
+        fake = pick(fn(*(mode.from_tensor(t) for t in ops), **kw))
+    assert [_meta(t) for t in fake] == [_meta(t) for t in real]
+    assert [c["instance"] for c in fn.shape_calls] == [want]
+    assert fn.launches == launches
+    fn.shape_calls.clear()
